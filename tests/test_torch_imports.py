@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``torchmpi_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, a CPU generation runs
-in a process that never loads either, and entry points refuse to fall
-back to the CPU when no GPU is visible and no device was asked for."""
+in a process that never loads either, and entry points (the training
+example's included) refuse to fall back to the CPU when no GPU is visible
+and no device was asked for."""
 
 import ast
 import pathlib
@@ -83,6 +84,14 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         tengine.LlamaRunner(2, cfg=cfg, max_len=32)
 
 
+def test_train_example_raises_without_a_gpu_and_a_device(monkeypatch):
+    from torchmpi_tpu_torch.examples import train_llama
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_llama.main(["--steps", "1"])
+
+
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     # Only a CPU tensor goes to the plain version; any other device goes
     # to the kernel's checks (which refuse a non-CUDA tensor), never to
@@ -93,9 +102,14 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     called = []
     monkeypatch.setattr(fa, "_flash_bh_plain",
                         lambda *a, **k: called.append(1))
+    for name in ("_flash_bh_bwd_dq_plain", "_flash_bh_bwd_dkv_plain"):
+        monkeypatch.setattr(fa, name, lambda *a, **k: called.append(1))
     q = torch.zeros(2, 8, 128, device="meta")
+    row = torch.zeros(2, 8, 1, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_fwd_block(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_bwd_block(q, q, q, q, row, row, causal=True)
     assert not called
 
 

@@ -2,15 +2,18 @@
 
 A package beside the JAX one, ported slice by slice; the JAX package stays
 the reference each ported module is tested against.  This slice carries
-Llama inference and the serving engine on one NVIDIA GPU:
+Llama inference, the serving engine and Llama training on one NVIDIA GPU:
 
 - ``models.llama`` — dense Llama prefill, KV-cache decode and generation;
-- ``ops.flash_attention`` — the flash-attention forward, a CUDA kernel for
-  Hopper (``ops/csrc/flash_attention_fwd.cu``) with its plain PyTorch
-  version beside it;
+  the forward, loss and SGD training step;
+- ``ops.flash_attention`` — flash attention and its backward, CUDA kernels
+  for Hopper (``ops/csrc/flash_attention_{fwd,bwd}.cu``) with their plain
+  PyTorch versions beside them;
 - ``serving`` — the continuous-batching engine and its KV block pool;
 - ``runtime.config``, ``obs.tracer``, ``obs.journal`` — the knobs, spans
-  and journal those modules read.
+  and journal those modules read;
+- ``examples.train_llama`` — the training entry point
+  (``python -m torchmpi_tpu_torch.examples.train_llama``).
 
 Entry points run on the current CUDA device unless the caller passes
 ``device="cpu"``; the kernels build with ``nvcc`` at first use

@@ -80,6 +80,18 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all() -> List[Path]:
+    """Build every kernel source at once, one ``nvcc`` for each, all started
+    together; returns the libraries' paths in :func:`sources` order and
+    raises the first :class:`BuildError`."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = [pool.submit(build, n) for n in names]
+        return [f.result() for f in futures]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel source ``name``, built first if need be."""
     lib = _libs.get(name)

@@ -1,5 +1,6 @@
 """Llama-family decoder-only transformer (RMSNorm, RoPE, SwiGLU, GQA):
-dense inference — prefill, KV-cache decode and generation.
+dense inference — prefill, KV-cache decode and generation — and training
+on one device — forward, next-token loss and an SGD step.
 
 Counterpart of ``torchmpi_tpu/models/llama.py`` for one device.  The
 parameters keep the JAX package's tree and layout: a dict with stacked
@@ -8,26 +9,28 @@ applied as ``x @ w``, ``head`` ``(d_model, vocab)``, norm weights in f32.
 :func:`from_jax_params` carries a JAX parameter tree across unchanged.
 
 Attention: ``attn="full"`` (plain causal attention, f32 softmax) or
-``attn="flash"`` (``ops/flash_attention.py``: the hand-written CUDA kernel
-on the card, its plain version on the CPU).  The ring modes need the
-sequence-parallel mesh, which comes with a later slice of the port; so do
-mixture-of-experts layers and the training step.
+``attn="flash"`` (``ops/flash_attention.py``: the hand-written CUDA kernels
+on the card, forward and backward, their plain versions on the CPU).  The
+ring modes and ``mesh=`` need the sequence- and tensor-parallel mesh, which
+come with slice 3 of the port; mixture-of-experts layers come later too.
 
 Entry points (:func:`init`, :func:`init_kv_cache`, :func:`make_generate_fn`)
 run on the current CUDA device unless the caller passes ``device``; with
 no GPU and no device they raise.  Where the JAX package returns a new
-cache, the port writes the cache in place and returns it.
+cache or new parameters, the port writes them in place and returns them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from ._common import DeviceLike, dense_init, generator as _generator, \
     num_params, resolve_device, stack_dense  # noqa: F401
@@ -201,7 +204,7 @@ def _make_attn_impl(cfg: Config, attn: str, mesh: Optional[Any],
     if attn in ("ring", "ring-xla", "ring-zigzag"):
         raise NotImplementedError(
             f"attn={attn!r} needs the sequence-parallel mesh, which comes "
-            f"with a later slice of the port")
+            f"with slice 3 of the port")
     if attn == "flash":
         from ..ops.flash_attention import flash_attention
 
@@ -215,8 +218,16 @@ def _make_attn_impl(cfg: Config, attn: str, mesh: Optional[Any],
         f"'ring-xla', got {attn!r}")
 
 
-def _layer(params: Params, i: int) -> Params:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _layers(params: Params):
+    """Every layer's weights as views of the stacked leaves, made by one
+    ``torch.unbind`` per leaf.  Under autograd this matters: the backward
+    of an unbind stacks the n layers' gradients once, where the backward of
+    each ``leaf[i]`` would write a zero tensor the size of the whole stacked
+    leaf and autograd would add n of them (O(n_layers²) bytes; about half
+    of an 8B training step on the card)."""
+    names = list(params["layers"])
+    per_leaf = [torch.unbind(params["layers"][k]) for k in names]
+    return [dict(zip(names, views)) for views in zip(*per_leaf)]
 
 
 def _decoder_layer(cfg: Config, lp: Params, h: torch.Tensor,
@@ -242,6 +253,196 @@ def _decoder_layer(cfg: Config, lp: Params, h: torch.Tensor,
     if with_kv:
         return h, aux, (k, v)
     return h, aux
+
+
+# ----------------------------------------------------------------- training
+
+def _mesh_slice_3(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} comes with slice 3 of the port (the multi-process training "
+        f"path); this slice trains on one device")
+
+
+def _save_mm_outputs(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of ``aten.mm`` — every
+    ``x @ w`` of the layer, which has no batch dimension, as JAX's
+    ``dots_with_no_batch_dims_saveable`` keeps — and recompute everything
+    else, ``bmm`` and every allocation included (a buffer that a kernel
+    writes into must never be served from the cache on recompute)."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _wrap_remat(layer: Callable, remat: str) -> Callable:
+    """THE remat taxonomy ('none'/'dots'/'full'), as in the JAX package.
+    Under ``"dots"`` and ``"full"`` the layer's forward runs again during
+    the backward, flash-attention kernel included."""
+    if remat == "dots":
+        ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                   _save_mm_outputs)
+        return lambda *a: ckpt.checkpoint(layer, *a, use_reentrant=False,
+                                          context_fn=ctx_fn)
+    if remat == "full":
+        return lambda *a: ckpt.checkpoint(layer, *a, use_reentrant=False)
+    if remat != "none":
+        raise ValueError("remat must be 'none', 'dots', or 'full'")
+    return layer
+
+
+def _chunk_nll(head: torch.Tensor, h_c: torch.Tensor,
+               t_c: torch.Tensor) -> torch.Tensor:
+    """Summed NLL of one (B, C, D) chunk; the caller checkpoints it so the
+    backward re-forms its (B, C, V) logits instead of storing them."""
+    logits = (h_c @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, t_c[..., None].long())[..., 0]
+    return torch.sum(lse - tgt)
+
+
+def _nll_from_hidden(head: torch.Tensor, h: torch.Tensor,
+                     targets: torch.Tensor, loss_chunk: int) -> torch.Tensor:
+    """Mean next-token NLL from final (post-norm) hidden states, dense or
+    in sequence chunks of ``loss_chunk`` (each checkpointed, so the live
+    f32 logits are capped at (B, C, V) in both passes)."""
+    if not loss_chunk:
+        logits = (h @ head).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.mean(torch.gather(logp, -1,
+                                        targets[..., None].long())[..., 0])
+    B, L, _ = h.shape
+    C = int(loss_chunk)
+    if L % C:
+        raise ValueError(f"seq len {L} not divisible by loss_chunk {C}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for start in range(0, L, C):
+        total = total + ckpt.checkpoint(_chunk_nll, head,
+                                        h[:, start:start + C],
+                                        targets[:, start:start + C],
+                                        use_reentrant=False)
+    return total / (B * L)
+
+
+def apply(cfg: Config, params: Params, tokens: torch.Tensor,
+          mesh: Optional[Any] = None, attn: str = "full",
+          remat: str = "none", return_hidden: bool = False,
+          return_aux: bool = False, layer_loop: str = "scan",
+          positions: Optional[torch.Tensor] = None):
+    """Forward: tokens (B, L) int -> logits (B, L, vocab) f32, or the final
+    hidden states (B, L, D) in the compute dtype when ``return_hidden``.
+    With ``return_aux`` the result is ``(out, aux)``, aux the layer-mean
+    MoE load-balance loss (0 for dense configs).
+
+    ``remat`` is the per-layer rematerialisation policy (:func:`_wrap_remat`).
+    ``layer_loop`` is ``"scan"`` or ``"unroll"``: both are one Python loop
+    over the layers in eager PyTorch, kept so callers pass the same
+    arguments to both packages.  ``mesh=`` and the ring attention modes
+    raise: they come with slice 3 of the port."""
+    _dense_only(cfg)
+    if mesh is not None:
+        raise _mesh_slice_3("apply(mesh=...)")
+    if layer_loop not in ("scan", "unroll"):
+        raise ValueError("layer_loop must be 'scan' or 'unroll'")
+    B, L = tokens.shape
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    attn_impl = _make_attn_impl(cfg, attn, None, scale)
+    if positions is None:
+        positions = torch.arange(L, device=tokens.device)
+    h = params["embed"][tokens.long()]                    # (B, L, D)
+
+    def layer(h, lp):
+        return _decoder_layer(cfg, lp, h, positions, attn_impl)
+
+    layer = _wrap_remat(layer, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in _layers(params):
+        h, a = layer(h, lp)
+        aux = aux + a
+    aux = aux / cfg.n_layers
+    h = rms_norm(h, params["norm"], cfg.norm_eps)
+    out = h if return_hidden else (h @ params["head"]).float()
+    return (out, aux) if return_aux else out
+
+
+def make_loss_fn(cfg: Config, mesh: Optional[Any] = None, attn: str = "full",
+                 remat: str = "none", loss_chunk: int = 0,
+                 layer_loop: str = "scan"):
+    """Next-token cross-entropy: ``loss_fn(params, (tokens, targets))``,
+    targets = tokens shifted by the caller.  ``loss_chunk`` > 0 computes
+    the loss in sequence chunks of that size (:func:`_nll_from_hidden`);
+    ``L`` must be divisible by it."""
+    _dense_only(cfg)
+    if mesh is not None:
+        raise _mesh_slice_3("make_loss_fn(mesh=...)")
+
+    def loss_fn(params: Params, batch) -> torch.Tensor:
+        tokens, targets = batch
+        h, _ = apply(cfg, params, tokens, attn=attn, remat=remat,
+                     return_hidden=True, return_aux=True,
+                     layer_loop=layer_loop)               # (B, L, D)
+        return _nll_from_hidden(params["head"], h, targets, loss_chunk)
+
+    return loss_fn
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@torch.no_grad()
+def _sgd_update_(p: torch.Tensor, g: torch.Tensor, lr: float) -> None:
+    """``p - lr * g.astype(p.dtype)`` as the JAX step computes it, in place:
+    the Python ``lr`` is weakly typed there, so it is rounded to p's dtype
+    first, and ``lr * g`` and the difference each round once (two roundings
+    in bf16, where one fused ``add_(alpha=)`` would drift from JAX's
+    trajectory).  ``g`` is consumed."""
+    lr_p = float(torch.tensor(lr, dtype=p.dtype))   # lr as p's dtype holds it
+    g = g.to(p.dtype)
+    g.mul_(lr_p)
+    p.sub_(g)
+
+
+def make_train_step(cfg: Config, mesh: Optional[Any] = None,
+                    lr: float = 3e-4, attn: str = "full", optimizer=None,
+                    remat: str = "none", loss_chunk: int = 0,
+                    zero1: bool = False, opt_state_example=None):
+    """One training step on one device:
+    ``step(params, opt_state, tokens, targets) -> (params, opt_state, loss)``.
+
+    Plain SGD, ``p - lr * g``, applied to the parameters in place under
+    ``no_grad`` (the JAX step returns new ones and donates the old); the
+    returned ``params`` is the same tree.  Every leaf is made to require a
+    gradient, and each gradient is freed as soon as its update is applied.
+    ``remat``/``loss_chunk`` as in :func:`apply`/:func:`make_loss_fn` —
+    pass ``remat="dots"`` and a ``loss_chunk`` for 8B-scale configs.
+    ``mesh``, ``optimizer`` and ``zero1`` come with slice 3 of the port."""
+    if mesh is not None:
+        raise _mesh_slice_3("make_train_step(mesh=...)")
+    if optimizer is not None or opt_state_example is not None:
+        raise _mesh_slice_3("an optimizer other than plain SGD")
+    if zero1:
+        raise _mesh_slice_3("zero1 (optimizer state sharded over dp)")
+    loss_fn = make_loss_fn(cfg, attn=attn, remat=remat,
+                           loss_chunk=loss_chunk)
+
+    def step(params: Params, opt_state: Any, tokens: torch.Tensor,
+             targets: torch.Tensor):
+        leaves = list(_leaves(params))
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        loss = loss_fn(params, (tokens, targets))
+        grads = list(torch.autograd.grad(loss, leaves))
+        for i, p in enumerate(leaves):
+            _sgd_update_(p, grads[i], lr)
+            grads[i] = None
+        return params, opt_state, loss.detach()
+
+    return step
 
 
 # ---------------------------------------------------------------- inference
@@ -288,8 +489,7 @@ def _decode_step(cfg: Config, params: Params, cache: Params,
     positions = torch.tensor([pos], device=dev)
     visible = torch.ones((B, pos + 1), dtype=torch.bool, device=dev)
     h = params["embed"][tokens.long()]                    # (B, D)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q = rope((x @ lp["wq"]).reshape(B, 1, H, hd), positions,
                  cfg.rope_theta)[:, 0]                    # (B, H, hd)
@@ -338,9 +538,9 @@ def _prefill(cfg: Config, params: Params, cache: Params,
         attn = _auto_attn(Lp)
     attn_impl = _make_attn_impl(cfg, attn, None, scale)
     h = params["embed"][prompt.long()]
-    for i in range(cfg.n_layers):
-        h, _, (k, v) = _decoder_layer(cfg, _layer(params, i), h, positions,
-                                      attn_impl, with_kv=True)
+    for i, lp in enumerate(_layers(params)):
+        h, _, (k, v) = _decoder_layer(cfg, lp, h, positions, attn_impl,
+                                      with_kv=True)
         cache["k"][i, :, :Lp] = k.to(cache["k"].dtype)
         cache["v"][i, :, :Lp] = v.to(cache["v"].dtype)
     h = rms_norm(h[:, -1], params["norm"], cfg.norm_eps)

@@ -1,19 +1,26 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``torchmpi_tpu/ops/flash_attention.py``.  The online-softmax
-forward (running max, denominator and output accumulator in f32 across k
-tiles, causal fill -1e30, whole k tiles above the diagonal skipped) runs as
-``csrc/flash_attention_fwd.cu`` on a CUDA tensor and as
-:func:`_flash_bh_plain`, the same algebra in PyTorch, on a CPU tensor.  A
-CUDA tensor goes to the kernel or raises; it never falls back.
+Counterpart of ``torchmpi_tpu/ops/flash_attention.py``.  Three kernels, each
+with a plain PyTorch version of the same algebra beside it:
+
+- the online-softmax forward (running max, denominator and output
+  accumulator in f32 across k tiles, causal fill -1e30, whole k tiles above
+  the diagonal skipped): ``csrc/flash_attention_fwd.cu``,
+  :func:`_flash_bh_plain`;
+- the FlashAttention-2 backward in two passes, from the forward's lse and
+  delta = rowsum(do * o): dq (``tmpi_flash_bwd_dq``,
+  :func:`_flash_bh_bwd_dq_plain`) and dk/dv (``tmpi_flash_bwd_dkv``,
+  :func:`_flash_bh_bwd_dkv_plain`), both in ``csrc/flash_attention_bwd.cu``.
+
+A CPU tensor takes the plain version; a CUDA tensor goes to the kernel or
+raises, never falling back.  :func:`flash_attention` is differentiable
+through :class:`_FlashCore`, the counterpart of the JAX ``custom_vjp``;
+``flash_fwd_block``/``flash_bwd_block`` are plain block ops, as in JAX.
 
 The tile sizes ``block_q``/``block_k`` keep their legality contract
 (:func:`_auto_block`, :func:`_resolve_blocks`) so that the same sequence
 lengths are accepted in both packages and callers pick the same attention
-path; the plain version tiles by them, the kernel tiles its own way.
-
-Only the forward is ported.  The backward kernels come with the training
-slice, so a call that would need a gradient raises.
+path; the plain versions tile by them, the kernels tile their own way.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Launches of the CUDA kernel in this process (the plain version does not
-# count); chip_smoke.py reads it to show the main path went through the
-# kernel.
+# Launches of each CUDA kernel in this process (the plain versions do not
+# count); chip_smoke.py reads them to show the main path went through the
+# kernels.
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 
 def _auto_block(L: int, cap: int = 1024) -> int:
@@ -62,12 +71,26 @@ def _resolve_blocks(Lq: int, Lk: int, block_q: Optional[int],
     return block_q, block_k
 
 
-def _no_grad_guard(*ts: torch.Tensor) -> None:
+def _block_op_guard(name: str, *ts: torch.Tensor) -> None:
+    """The block ops are not differentiable (as in JAX, where they are bare
+    ``pallas_call`` s): refuse a call that would need a gradient rather
+    than build a graph through the plain version only."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "flash attention has no backward yet: its backward kernels come "
-            "with the Llama training slice of the port; call it under "
-            "torch.no_grad() or use attn='full'")
+        raise RuntimeError(
+            f"{name} is a non-differentiable block op; call it under "
+            f"torch.no_grad(), or use flash_attention for a gradient")
+
+
+def _block_scores(qb, kb, q_start: int, k_start: int, causal: bool,
+                  scale: float):
+    """f32 scores of one (q tile, k tile), causal entries filled -1e30."""
+    s = torch.einsum("bqd,bkd->bqk", qb, kb) * scale
+    if causal:
+        rows = q_start + torch.arange(qb.shape[1], device=qb.device)[:, None]
+        cols = k_start + torch.arange(kb.shape[1], device=qb.device)[None, :]
+        s = torch.where(rows >= cols, s,
+                        torch.tensor(NEG_INF, device=qb.device))
+    return s
 
 
 def _flash_bh_plain(qbh, kbh, vbh, *, causal: bool, block_q: int,
@@ -93,13 +116,7 @@ def _flash_bh_plain(qbh, kbh, vbh, *, causal: bool, block_q: int,
                 break                  # every later block is above the diagonal
             kb = k[:, k_start:k_start + block_k]
             vb = v[:, k_start:k_start + block_k]
-            s = torch.einsum("bqd,bkd->bqk", qb, kb) * scale
-            if causal:
-                rows = q_start + torch.arange(bq, device=q.device)[:, None]
-                cols = k_start + torch.arange(kb.shape[1],
-                                              device=q.device)[None, :]
-                s = torch.where(rows >= cols, s,
-                                torch.tensor(NEG_INF, device=q.device))
+            s = _block_scores(qb, kb, q_start, k_start, causal, scale)
             m_new = torch.maximum(m, s.amax(dim=2))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -110,6 +127,72 @@ def _flash_bh_plain(qbh, kbh, vbh, *, causal: bool, block_q: int,
         o[:, q_start:q_start + bq] = (acc / l[..., None]).to(out_dtype)
         lse[:, q_start:q_start + bq, 0] = m + torch.log(l)
     return o, lse
+
+
+def _flash_bh_bwd_dq_plain(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
+                           block_q: int, block_k: int, scale: float,
+                           out_dtype):
+    """The reference of the dq kernel: the TPU dq pass's algebra in f32
+    PyTorch, tiled as its grid is (q tiles, k tiles innermost, whole k tiles
+    above the diagonal skipped), dq accumulated per q tile."""
+    BH, Lq, D = qbh.shape
+    Lk = kbh.shape[1]
+    q, k, v, do = qbh.float(), kbh.float(), vbh.float(), dobh.float()
+    dq = torch.empty((BH, Lq, D), dtype=out_dtype, device=qbh.device)
+    for q_start in range(0, Lq, block_q):
+        qb = q[:, q_start:q_start + block_q]
+        dob = do[:, q_start:q_start + block_q]
+        bq = qb.shape[1]
+        lse_b = lse[:, q_start:q_start + bq].float()
+        delta_b = delta[:, q_start:q_start + bq].float()
+        acc = torch.zeros((BH, bq, D), dtype=torch.float32, device=q.device)
+        for k_start in range(0, Lk, block_k):
+            if causal and q_start + bq - 1 < k_start:
+                break
+            kb = k[:, k_start:k_start + block_k]
+            vb = v[:, k_start:k_start + block_k]
+            p = torch.exp(_block_scores(qb, kb, q_start, k_start, causal,
+                                        scale) - lse_b)
+            dp = torch.einsum("bqd,bkd->bqk", dob, vb)
+            ds = p * (dp - delta_b) * scale
+            acc = acc + torch.einsum("bqk,bkd->bqd", ds, kb)
+        dq[:, q_start:q_start + bq] = acc.to(out_dtype)
+    return dq
+
+
+def _flash_bh_bwd_dkv_plain(qbh, kbh, vbh, dobh, lse, delta, *,
+                            causal: bool, block_q: int, block_k: int,
+                            scale: float, out_dtype):
+    """The reference of the dk/dv kernel: the TPU dk/dv pass's algebra in
+    f32 PyTorch, tiled as its grid is (k tiles, q tiles innermost, q tiles
+    wholly above the diagonal skipped), dk and dv accumulated per k tile."""
+    BH, Lq, D = qbh.shape
+    Lk = kbh.shape[1]
+    q, k, v, do = qbh.float(), kbh.float(), vbh.float(), dobh.float()
+    dk = torch.empty((BH, Lk, D), dtype=out_dtype, device=qbh.device)
+    dv = torch.empty((BH, Lk, D), dtype=out_dtype, device=qbh.device)
+    for k_start in range(0, Lk, block_k):
+        kb = k[:, k_start:k_start + block_k]
+        vb = v[:, k_start:k_start + block_k]
+        bk = kb.shape[1]
+        dk_acc = torch.zeros((BH, bk, D), dtype=torch.float32, device=q.device)
+        dv_acc = torch.zeros((BH, bk, D), dtype=torch.float32, device=q.device)
+        for q_start in range(0, Lq, block_q):
+            qb = q[:, q_start:q_start + block_q]
+            bq = qb.shape[1]
+            if causal and q_start + bq - 1 < k_start:
+                continue
+            dob = do[:, q_start:q_start + bq]
+            p = torch.exp(_block_scores(qb, kb, q_start, k_start, causal,
+                                        scale)
+                          - lse[:, q_start:q_start + bq].float())
+            dv_acc = dv_acc + torch.einsum("bqk,bqd->bkd", p, dob)
+            dp = torch.einsum("bqd,bkd->bqk", dob, vb)
+            ds = p * (dp - delta[:, q_start:q_start + bq].float()) * scale
+            dk_acc = dk_acc + torch.einsum("bqk,bqd->bkd", ds, qb)
+        dk[:, k_start:k_start + bk] = dk_acc.to(out_dtype)
+        dv[:, k_start:k_start + bk] = dv_acc.to(out_dtype)
+    return dk, dv
 
 
 def _check_kernel_inputs(qbh, kbh, vbh, out_dtype) -> None:
@@ -140,41 +223,101 @@ def _check_kernel_inputs(qbh, kbh, vbh, out_dtype) -> None:
         raise ValueError("q, k, v must be contiguous")
 
 
-def _kernel_entry():
-    """``tmpi_flash_fwd`` of the built library, typed for ctypes: five
-    pointers (q, k, v, o, lse), bh, lq, lk, head_dim, scale, causal, the
-    two dtype codes and the stream."""
+def _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta,
+                             out_dtype) -> None:
+    _check_kernel_inputs(qbh, kbh, vbh, out_dtype)
+    if dobh.shape != qbh.shape or dobh.dtype != qbh.dtype \
+            or dobh.device != qbh.device or not dobh.is_contiguous():
+        raise ValueError(f"do must be a contiguous {qbh.dtype} tensor of q's "
+                         f"shape {tuple(qbh.shape)} on {qbh.device}, got "
+                         f"{dobh.dtype} {tuple(dobh.shape)} on {dobh.device}")
+    row_shape = (qbh.shape[0], qbh.shape[1], 1)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != row_shape or t.dtype != torch.float32 \
+                or t.device != qbh.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor of "
+                             f"shape {row_shape} on {qbh.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _kernel_entry(symbol: str):
+    """A kernel entry of the built library, typed for ctypes: its tensor
+    pointers (``tmpi_flash_fwd``: q, k, v, o, lse of
+    ``flash_attention_fwd``; ``tmpi_flash_bwd_dq``: q, k, v, do, lse, delta,
+    dq and ``tmpi_flash_bwd_dkv``: ... dk, dv of ``flash_attention_bwd``),
+    then bh, lq, lk, head_dim, scale, causal, the two dtype codes and the
+    stream; it returns the launch's CUDA error code."""
     from .. import _build
 
-    fn = _build.load("flash_attention_fwd").tmpi_flash_fwd
+    source, n_ptrs = {"tmpi_flash_fwd": ("flash_attention_fwd", 5),
+                      "tmpi_flash_bwd_dq": ("flash_attention_bwd", 7),
+                      "tmpi_flash_bwd_dkv": ("flash_attention_bwd", 8)}[symbol]
+    fn = getattr(_build.load(source), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     return fn
 
 
-def _flash_bh_kernel(qbh, kbh, vbh, *, causal: bool, scale: float,
-                     out_dtype):
-    """Launch ``csrc/flash_attention_fwd.cu`` on the current stream."""
-    global flash_fwd_launches
-    _check_kernel_inputs(qbh, kbh, vbh, out_dtype)
-    fn = _kernel_entry()
-    BH, L, D = qbh.shape
-    Lk = kbh.shape[1]
+def _launch(symbol: str, ins, outs, *, causal: bool, scale: float) -> None:
+    """Launch ``symbol`` on the current stream of q's device, reading
+    ``ins`` (q, k, v first) and writing ``outs``; raises if the launch was
+    refused."""
+    qbh, kbh = ins[0], ins[1]
+    BH, Lq, D = qbh.shape
+    fn = _kernel_entry(symbol)
     with torch.cuda.device(qbh.device):
-        o = torch.empty((BH, L, D), dtype=out_dtype, device=qbh.device)
-        lse = torch.empty((BH, L, 1), dtype=torch.float32, device=qbh.device)
         stream = torch.cuda.current_stream(qbh.device).cuda_stream
-        err = fn(qbh.data_ptr(), kbh.data_ptr(), vbh.data_ptr(),
-                 o.data_ptr(), lse.data_ptr(), BH, L, Lk, D, float(scale),
-                 int(causal), _DTYPE_CODES[qbh.dtype], _DTYPE_CODES[out_dtype],
+        err = fn(*(t.data_ptr() for t in (*ins, *outs)), BH, Lq,
+                 kbh.shape[1], D, float(scale), int(causal),
+                 _DTYPE_CODES[qbh.dtype], _DTYPE_CODES[outs[0].dtype],
                  stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
+def _flash_bh_kernel(qbh, kbh, vbh, *, causal: bool, scale: float,
+                     out_dtype):
+    """The forward (``tmpi_flash_fwd``)."""
+    global flash_fwd_launches
+    _check_kernel_inputs(qbh, kbh, vbh, out_dtype)
+    BH, L, D = qbh.shape
+    o = torch.empty((BH, L, D), dtype=out_dtype, device=qbh.device)
+    lse = torch.empty((BH, L, 1), dtype=torch.float32, device=qbh.device)
+    _launch("tmpi_flash_fwd", (qbh, kbh, vbh), (o, lse), causal=causal,
+            scale=scale)
     flash_fwd_launches += 1
     return o, lse
+
+
+def _flash_bh_bwd_dq_kernel(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
+                            scale: float, out_dtype):
+    """The dq pass (``tmpi_flash_bwd_dq``)."""
+    global flash_bwd_dq_launches
+    _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
+    dq = torch.empty(qbh.shape, dtype=out_dtype, device=qbh.device)
+    _launch("tmpi_flash_bwd_dq", (qbh, kbh, vbh, dobh, lse, delta), (dq,),
+            causal=causal, scale=scale)
+    flash_bwd_dq_launches += 1
+    return dq
+
+
+def _flash_bh_bwd_dkv_kernel(qbh, kbh, vbh, dobh, lse, delta, *,
+                             causal: bool, scale: float, out_dtype):
+    """The dk/dv pass (``tmpi_flash_bwd_dkv``)."""
+    global flash_bwd_dkv_launches
+    _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
+    dk = torch.empty(kbh.shape, dtype=out_dtype, device=kbh.device)
+    dv = torch.empty(kbh.shape, dtype=out_dtype, device=kbh.device)
+    _launch("tmpi_flash_bwd_dkv", (qbh, kbh, vbh, dobh, lse, delta),
+            (dk, dv), causal=causal, scale=scale)
+    flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
 
 
 def _flash_bh(qbh, kbh, vbh, *, causal: bool, block_q: int, block_k: int,
@@ -187,14 +330,72 @@ def _flash_bh(qbh, kbh, vbh, *, causal: bool, block_q: int, block_k: int,
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out_dtype = qbh.dtype if out_dtype is None else out_dtype
-    _no_grad_guard(qbh, kbh, vbh)
-    if qbh.device.type == "cpu" and kbh.device.type == "cpu" \
-            and vbh.device.type == "cpu":
+    if _on_cpu(qbh, kbh, vbh):
         return _flash_bh_plain(qbh, kbh, vbh, causal=causal, block_q=block_q,
                                block_k=block_k, scale=scale,
                                out_dtype=out_dtype)
     return _flash_bh_kernel(qbh, kbh, vbh, causal=causal, scale=scale,
                             out_dtype=out_dtype)
+
+
+def _flash_bh_bwd(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
+                  block_q: int, block_k: int, scale: Optional[float] = None,
+                  out_dtype=None):
+    """Backward against an externally supplied (lse, delta), each
+    (BH, Lq, 1) f32: returns (dq, dk, dv), dq in q's dtype and dk/dv in k's,
+    or all in ``out_dtype``.
+
+    For single-device flash, lse and delta come from this call's own
+    forward; a ring caller passes the globally combined lse and the delta of
+    the final output, and each call then yields one K/V chunk's exact
+    gradient contribution."""
+    D = qbh.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if _on_cpu(qbh, kbh, vbh, dobh, lse, delta):
+        kw = dict(causal=causal, block_q=block_q, block_k=block_k,
+                  scale=scale)
+        dq = _flash_bh_bwd_dq_plain(
+            qbh, kbh, vbh, dobh, lse, delta,
+            out_dtype=qbh.dtype if out_dtype is None else out_dtype, **kw)
+        dk, dv = _flash_bh_bwd_dkv_plain(
+            qbh, kbh, vbh, dobh, lse, delta,
+            out_dtype=kbh.dtype if out_dtype is None else out_dtype, **kw)
+        return dq, dk, dv
+    # The kernels take q and k of one dtype, so dq's and dk/dv's agree.
+    kw = dict(causal=causal, scale=scale,
+              out_dtype=qbh.dtype if out_dtype is None else out_dtype)
+    dq = _flash_bh_bwd_dq_kernel(qbh, kbh, vbh, dobh, lse, delta, **kw)
+    return (dq, *_flash_bh_bwd_dkv_kernel(qbh, kbh, vbh, dobh, lse, delta,
+                                          **kw))
+
+
+class _FlashCore(torch.autograd.Function):
+    """(BH, L, D) flash attention with its FlashAttention-2 backward: the
+    counterpart of the JAX package's ``_flash_core`` custom_vjp.  The
+    forward saves q, k, v, o and lse; the backward forms
+    delta = rowsum(do * o) in f32 (outside the kernels, as in JAX) and runs
+    the dq and dk/dv passes."""
+
+    @staticmethod
+    def forward(ctx, qbh, kbh, vbh, causal, block_q, block_k, scale):
+        o, lse = _flash_bh(qbh, kbh, vbh, causal=causal, block_q=block_q,
+                           block_k=block_k, scale=scale)
+        ctx.save_for_backward(qbh, kbh, vbh, o, lse)
+        ctx.opts = dict(causal=causal, block_q=block_q, block_k=block_k,
+                        scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, dobh):
+        qbh, kbh, vbh, obh, lse = ctx.saved_tensors
+        # The permuted (B, L, H, D) gradient arrives strided; the kernels
+        # take contiguous (BH, L, D).
+        dobh = dobh.contiguous()
+        delta = torch.sum(dobh.float() * obh.float(), dim=-1, keepdim=True)
+        dq, dk, dv = _flash_bh_bwd(qbh, kbh, vbh, dobh, lse, delta,
+                                   **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -203,8 +404,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Blocked attention, (B, L, H, D) layout (GQA: repeat K/V first).
 
-    Sequence length must be divisible by the (clamped) block sizes.
-    Forward only: a call that needs a gradient raises."""
+    Differentiable through :class:`_FlashCore`: the backward runs the dq and
+    dk/dv kernels and never forms the (L, L) score matrix either.  Sequence
+    length must be divisible by the (clamped) block sizes."""
     B, L, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k, v must share (B, L, H, D); repeat GQA KV first")
@@ -217,9 +419,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def bh(x):   # (B, L, H, D) -> (B*H, L, D)
         return x.permute(0, 2, 1, 3).reshape(B * H, L, D).contiguous()
 
-    obh, _ = _flash_bh(bh(q), bh(k), bh(v), causal=causal, block_q=block_q,
-                       block_k=block_k,
-                       scale=None if scale is None else float(scale))
+    obh = _FlashCore.apply(bh(q), bh(k), bh(v), causal, block_q, block_k,
+                           None if scale is None else float(scale))
     return obh.reshape(B, H, L, D).permute(0, 2, 1, 3)
 
 
@@ -229,8 +430,24 @@ def flash_fwd_block(qbh, kbh, vbh, *, causal: bool,
                     scale: Optional[float] = None, out_dtype=None):
     """One attention block: (BH, Lq, D) Q against a (BH, Lk, D) K/V chunk.
     Returns ``(o, lse)`` with o normalized by this block's own denominator
-    and lse = m + log(l) per query row."""
+    and lse = m + log(l) per query row.  Not differentiable."""
+    _block_op_guard("flash_fwd_block", qbh, kbh, vbh)
     block_q, block_k = _resolve_blocks(qbh.shape[1], kbh.shape[1],
                                        block_q, block_k)
     return _flash_bh(qbh, kbh, vbh, causal=causal, block_q=block_q,
                      block_k=block_k, scale=scale, out_dtype=out_dtype)
+
+
+def flash_bwd_block(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    scale: Optional[float] = None, out_dtype=None):
+    """Gradient contribution of one K/V chunk given the *global* lse and
+    delta = rowsum(do * o_final), each (BH, Lq, 1) f32.  Returns
+    (dq, dk, dv) for this chunk.  Not differentiable."""
+    _block_op_guard("flash_bwd_block", qbh, kbh, vbh, dobh)
+    block_q, block_k = _resolve_blocks(qbh.shape[1], kbh.shape[1],
+                                       block_q, block_k)
+    return _flash_bh_bwd(qbh, kbh, vbh, dobh, lse, delta, causal=causal,
+                         block_q=block_q, block_k=block_k, scale=scale,
+                         out_dtype=out_dtype)

@@ -202,8 +202,7 @@ class LlamaRunner:
             cos, sin = cos[:, None, :], sin[:, None, :]   # (S, 1, hd/2)
             slots = torch.arange(S, device=dev)
             h = self.params["embed"][t]                     # (S, D)
-            for i in range(cfg.n_layers):
-                lp = llama._layer(self.params, i)
+            for i, lp in enumerate(llama._layers(self.params)):
                 x = llama.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
                 q = llama._rotate((x @ lp["wq"]).reshape(S, H, hd), cos, sin)
                 k_new = llama._rotate((x @ lp["wk"]).reshape(S, KV, hd),
