@@ -37,6 +37,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    "dots": once in the forward, once when the backward recomputes the
    layer); step 1's loss is held against full attention's.
 
+7. ring_kernels: the ring allreduce (B1), reduce-scatter (B2) and
+   allgather (B3) kernels with p = 2 and p = 4 ranks spawned on the one
+   card (``tools/ring_bench.py``): f32 and bf16 (and int32 for B1) at n =
+   25,557,032, 3,000 and 5, the small sizes again with 64 KiB sub-chunks and
+   one staging slot, and B1 once more at the 43 ring sizes of a ResNet-50
+   training step (f32, mean, the engine's collective ids), each rank's
+   result held against the plain schedule bit for bit; kernel, plain and
+   library (gloo on the same tensors) times at n = 25,557,032 in f32 and
+   for the 43 rings of a step; the public collectives driven once through
+   the selector at n = 25,557,032 (the ``collectives`` path); two forced
+   stalls (a rank that never enters, and one that enters after its
+   neighbour gave up) that must raise within their deadline without
+   lowering the aborted rank's flag words.
+8. train_resnet: ResNet-50 at full width (224x224x3, 1000 classes, f32, TF32
+   off) trained data-parallel by AllReduceSGDEngine in ``compiled`` mode
+   with ``use_pallas_collectives`` on, 2 ranks spawned on the one card, 32
+   images per rank, lr 0.1, 5 steps on one repeated batch of synthetic
+   images: every step must launch B1 exactly 43 times on each rank and B2/B3
+   never, every ring of step 1 must equal the plain schedule over both
+   ranks' gradients (gathered over gloo) bit for bit, the loss must be
+   finite and fall from step 1 to step 5, and ``check_with_allreduce`` must
+   find the replicas' parameters bitwise equal; then one ``eager_sync`` step
+   and an inference-mode evaluation.
+
 Then a line with the card's name and power limit, a ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of
 phases 4-6 to no fewer than 8 layers (never the width); a cut is printed.
@@ -85,6 +109,29 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 no TF32
 def emit(**obj) -> None:
     print(json.dumps(obj), flush=True)
 
+
+# The ring kernels: name -> (source, the TPU kernel it replaces, its
+# function there, the cuda_ring counter, the library call timed beside it).
+RING_SRC = "torchmpi_tpu_torch/ops/csrc/ring.cu"
+RING_KERNELS = {
+    "ring_allreduce": ("torchmpi_tpu/collectives/pallas_ring.py:194",
+                       "_ar_kernel", "allreduce",
+                       "torch.distributed.all_reduce (gloo)"),
+    "ring_reduce_scatter": ("torchmpi_tpu/collectives/pallas_ring.py:165",
+                            "_rs_kernel", "reduce_scatter",
+                            "torch.distributed.all_reduce (gloo) and a slice"),
+    "ring_allgather": ("torchmpi_tpu/collectives/pallas_ring.py:241",
+                       "_ag_kernel", "allgather",
+                       "torch.distributed.all_gather (gloo, via the host)"),
+}
+RESNET_STEPS, RESNET_BATCH, RESNET_LR, RESNET_RINGS = 5, 32, 0.1, 43
+# The ring kernels' design on one card (ops/csrc/ring.cu, chosen by
+# tools/ring_probe.py): the ranks' contexts are time-sliced, so each ring
+# step is a send and an add (or store) kernel ordered across processes by
+# stream waits on monotone flag words, not one kernel spinning on flags.
+RING_DESIGN = ("two kernels per ring step (send into the neighbour's "
+               "cudaIpc slot; add or store), ordered across processes by "
+               "cuStreamWaitValue64 on monotone data/credit words")
 
 COUNTERS = {"flash_attention_fwd": "flash_fwd_launches",
             "flash_attention_bwd_dq": "flash_bwd_dq_launches",
@@ -509,6 +556,281 @@ def phase_serve(torch, llama, fa, engine_mod, serving, cfg):
     return counts
 
 
+def phase_ring_kernels():
+    """B1-B3 against their plain versions at p = 2 and 4 on the one card;
+    returns the p = 2 and p = 4 results of rank 0."""
+    from torchmpi_tpu_torch.tools import ring_bench
+
+    out = {}
+    for p in (2, 4):
+        t0 = time.perf_counter()
+        results = ring_bench.run(p)
+        bad = [r for res in results for r in res["records"]
+               if not r["bitwise_equal"]]
+        r0 = results[0]
+        for rec in r0["records"]:
+            if "kernel_ms" in rec:
+                rec["bound_ms"] = ring_bench.bound_ms(rec["kind"], rec["n"], p,
+                                                      4)
+                emit(phase="ring_kernels", design=RING_DESIGN, **rec)
+        rings = r0["resnet_rings"]
+        rings["bound_ms"] = sum(ring_bench.bound_ms("allreduce", n, p, 4)
+                                for n in rings["sizes"])
+        emit(phase="ring_kernels", design=RING_DESIGN, resnet_step_rings={
+            k: v for k, v in rings.items() if k != "sizes"})
+        bad += [r["resnet_rings"] for r in results
+                if not r["resnet_rings"]["bitwise_equal"]]
+        emit(phase="ring_kernels", p=p, cases=len(r0["records"]),
+             all_bitwise_equal=not bad,
+             collectives_launches=r0["collectives_launches"],
+             collectives_ok=all(r["collectives_ok"] for r in results),
+             stall=r0["stall"], late=r0["late"],
+             seconds=time.perf_counter() - t0)
+        if bad:
+            raise AssertionError(f"ring kernels disagree with the plain "
+                                 f"schedule at p={p}: {bad[:3]}")
+        if not all(r["collectives_ok"] for r in results):
+            raise AssertionError(f"collectives path wrong at p={p}")
+        if r0["collectives_launches"] != dict.fromkeys(RING_KERNELS, 1):
+            raise AssertionError(f"collectives path launched "
+                                 f"{r0['collectives_launches']}")
+        if not ring_bench.stalls_ok(r0["stall"], r0["late"]):
+            raise AssertionError(f"a stalled ring did not raise in time or "
+                                 f"lost its aborted flag words: "
+                                 f"{r0['stall']} {r0['late']}")
+        out[p] = r0
+    return out
+
+
+def _ring_timer(torch, cuda_ring, box, check):
+    """Wrap inner_ring_allreduce to add each call's device time (CUDA events
+    on the rank's stream, from the moment the stream reaches the ring) to
+    box[0], in ms.  While check["on"] holds, each ring's result is also held
+    against the plain schedule over every rank's input (gathered over the
+    process group through the host), bit for bit; check counts the rings
+    held, the unequal ones and the largest error."""
+    import torch.distributed as dist
+
+    ring = cuda_ring.inner_ring_allreduce
+
+    def timed(x, p, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        try:
+            out = ring(x, p, **kwargs)
+        finally:
+            b.record()
+            b.synchronize()
+            box[0] += a.elapsed_time(b)
+        if check["on"]:
+            xs = [torch.empty_like(x, device="cpu") for _ in range(p)]
+            dist.all_gather(xs, x.cpu(), group=kwargs["comm"].group)
+            want = cuda_ring._ring_allreduce_plain(
+                [t.to(x.device) for t in xs],
+                mean=kwargs.get("mean", False))[kwargs["comm"].rank]
+            same = bool(torch.equal(out.view(torch.int32),
+                                    want.view(torch.int32)))
+            check["rings"] += 1
+            check["unequal"] += not same
+            check["max_abs_err"] = max(check["max_abs_err"], float(
+                (out.double() - want.double()).abs().max()))
+        return out
+
+    cuda_ring.inner_ring_allreduce = timed
+
+
+def resnet_rank_main(steps: int, batch: int, lr: float) -> dict:
+    """One rank of the train_resnet phase (spawned)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch import nn as mpinn
+    from torchmpi_tpu_torch.collectives import cuda_ring
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine
+    from torchmpi_tpu_torch.models import resnet
+    from torchmpi_tpu_torch.runtime import config, lifecycle
+    from torchmpi_tpu_torch.utils import tree
+    from torchmpi_tpu_torch.utils.data import synthetic_mnist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config.set("use_pallas_collectives", True)
+    device = lifecycle.start()
+    try:
+        p, rank = lifecycle.size(), lifecycle.rank()
+        cfg = resnet.config(depth=50, n_classes=1000, width_multiplier=1.0)
+        params, bn_state = resnet.init(7, cfg, device=device)
+        ds = synthetic_mnist(n=p * batch, n_classes=1000, seed=1,
+                             image_shape=(224, 224, 3))
+        one = (ds.x.reshape(p, batch, 224, 224, 3), ds.y.reshape(p, batch))
+        ring_s = [0.0]
+        check = {"on": False, "rings": 0, "unequal": 0, "max_abs_err": 0.0}
+        _ring_timer(torch, cuda_ring, ring_s, check)
+        losses, step_ms, launches, ring_ms = [], [], [], []
+        marks = {}
+
+        def counts():
+            return {"ring_allreduce": cuda_ring.ring_allreduce_launches,
+                    "ring_reduce_scatter": cuda_ring.ring_reduce_scatter_launches,
+                    "ring_allgather": cuda_ring.ring_allgather_launches}
+
+        def on_sample(state):
+            torch.cuda.synchronize()
+            check["on"] = not step_ms          # the rings of step 1
+            marks["t0"], marks["c0"], ring_s[0] = (time.perf_counter(),
+                                                   counts(), 0.0)
+
+        def on_update(state):
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - marks["t0"]) * 1e3)
+            ring_ms.append(ring_s[0])
+            losses.append(float(state["loss"]))
+            c = counts()
+            launches.append({k: c[k] - marks["c0"][k] for k in c})
+
+        engine = AllReduceSGDEngine(
+            resnet.make_loss_fn(cfg), lr=lr, mode="compiled",
+            hooks={"on_sample": on_sample, "on_update": on_update})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ring.ring_allreduce_launches = 0
+        cuda_ring.ring_reduce_scatter_launches = 0
+        cuda_ring.ring_allgather_launches = 0
+        state = engine.train(params, [one] * steps, epochs=1)
+        check["on"] = False
+        total = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params = state["params"]
+        mpinn.check_with_allreduce(params, tol=0.0)
+        digest = hashlib.sha256()
+        for leaf in tree.leaves(params):
+            digest.update(leaf.detach().cpu().numpy().tobytes())
+        digests = [None] * p
+        dist.all_gather_object(digests, digest.hexdigest())
+
+        # One eager_sync step, then the inference-mode evaluation.
+        cuda_ring.ring_allreduce_launches = 0
+        eager = AllReduceSGDEngine(resnet.make_loss_fn(cfg), lr=lr,
+                                   mode="eager_sync",
+                                   sync_parameters_on_start=False)
+        est = eager.train(params, [one], epochs=1)
+        eager_launches = cuda_ring.ring_allreduce_launches
+        x = torch.as_tensor(one[0][rank]).to(device)
+        bn_state = resnet.make_update_stats_fn(cfg)(est["params"], bn_state, x)
+        acc = engine.test(est["params"], [one],
+                          resnet.make_accuracy_fn(cfg, bn_state))
+        return {"rank": rank, "p": p, "losses": losses, "step_ms": step_ms,
+                "ring_ms": ring_ms, "launches_per_step": launches,
+                "launches": total, "peak_gb": peak_gb,
+                "step1_rings_vs_plain": {k: v for k, v in check.items()
+                                         if k != "on"},
+                "replicas_bitwise_equal": len(set(digests)) == 1,
+                "eager_sync_loss": float(est["loss"]),
+                "eager_sync_ring_launches": eager_launches,
+                "eval_accuracy": acc}
+    finally:
+        lifecycle.stop()
+
+
+def phase_train_resnet(torch, rings):
+    """ResNet-50 at full width on 2 ranks of the one card through B1.  The
+    ring's share of a step is read two ways: the rings' device time inside
+    the steps (CUDA events), and the ring_kernels phase's time for the 43
+    rings of a step at their own sizes at p = 2, over the step."""
+    from torchmpi_tpu_torch.runtime import launch
+
+    t0 = time.perf_counter()
+    res = launch.spawn(2, resnet_rank_main,
+                       (RESNET_STEPS, RESNET_BATCH, RESNET_LR), timeout_s=900)
+    r0 = res[0]
+    steady = sorted(r0["step_ms"][1:])
+    steady_ms = (steady[1] + steady[2]) / 2          # median of steps 2-5
+    ring_steady = sorted(r0["ring_ms"][1:])
+    ring_ms = (ring_steady[1] + ring_steady[2]) / 2
+    bench_ms = rings[2]["resnet_rings"]["kernel_ms"]
+    expected = {"ring_allreduce": RESNET_RINGS, "ring_reduce_scatter": 0,
+                "ring_allgather": 0}
+    rec = {"phase": "train_resnet", "model": "resnet50", "width": 1.0,
+           "image": 224, "classes": 1000, "dtype": "float32", "ranks": 2,
+           "batch_per_rank": RESNET_BATCH, "lr": RESNET_LR,
+           "losses": [r["losses"] for r in res],
+           "step_ms": r0["step_ms"], "steady_step_ms": steady_ms,
+           "images_per_s_per_card": 2 * RESNET_BATCH / (steady_ms / 1e3),
+           "ring_ms_per_step": r0["ring_ms"], "steady_ring_ms": ring_ms,
+           "ring_share_of_step": ring_ms / steady_ms,
+           "bench_step_rings_ms": bench_ms,
+           "bench_ring_share_of_step": bench_ms / steady_ms,
+           "launches": r0["launches"],
+           "launches_per_step": [r["launches_per_step"] for r in res],
+           "step1_rings_vs_plain": [r["step1_rings_vs_plain"] for r in res],
+           "expected_launches_per_step": expected,
+           "peak_memory_gb_per_rank": [r["peak_gb"] for r in res],
+           "replicas_bitwise_equal": r0["replicas_bitwise_equal"],
+           "eager_sync_loss": r0["eager_sync_loss"],
+           "eager_sync_ring_launches": r0["eager_sync_ring_launches"],
+           "eval_accuracy": r0["eval_accuracy"],
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(rec), flush=True)
+    for r in res:
+        if any(s != expected for s in r["launches_per_step"]):
+            raise AssertionError(f"rank {r['rank']} launched "
+                                 f"{r['launches_per_step']}, expected "
+                                 f"{expected} a step")
+        held = r["step1_rings_vs_plain"]
+        if held["rings"] != RESNET_RINGS or held["unequal"]:
+            raise AssertionError(f"rank {r['rank']}: step 1's rings against "
+                                 f"the plain schedule: {held}")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"non-finite loss {r['losses']}")
+        if not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"loss did not fall: {r['losses']}")
+    if not r0["replicas_bitwise_equal"]:
+        raise AssertionError("replicas' parameters differ after the steps")
+    if not (math.isfinite(r0["eager_sync_loss"])
+            and 0.0 <= r0["eval_accuracy"] <= 1.0):
+        raise AssertionError(f"eager_sync step or evaluation wrong: {rec}")
+    return rec
+
+
+def ring_kernel_record(name, rings, train_launches, train_rec):
+    """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
+    work, the 43 rings of a ResNet-50 step (times, bound and the largest
+    error over them, the ring_kernels cases and step 1's rings of the train
+    phase); B2 and B3 at n = 25,557,032 in f32, the collectives path's
+    size.  Launches of every path."""
+    replaces, function, kind, library = RING_KERNELS[name]
+    big = next(r for r in rings[2]["records"]
+               if r["kind"] == kind and "kernel_ms" in r)
+    by_path = {"train_resnet": train_launches[name],
+               "collectives": rings[2]["collectives_launches"][name]}
+    timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    err = max(r["max_abs_err"] for p in (2, 4)
+              for r in rings[p]["records"] if r["kind"] == kind)
+    rec = {"name": name, "route": "cuda", "source": RING_SRC,
+           "replaces": replaces, "replaces_function": function,
+           "launches": sum(by_path.values()), "launches_by_path": by_path,
+           "bound_by": "bytes", "library": library, "design": RING_DESIGN}
+    if kind == "allreduce":
+        step = rings[2]["resnet_rings"]
+        err = max([err, step["max_abs_err"]]
+                  + [h["max_abs_err"] for h in train_rec["step1_rings_vs_plain"]])
+        return {**rec, "max_abs_err": err, "ms": step["kernel_ms"],
+                **{k: step[k] for k in timing},
+                "shape": (f"the {step['rings']} rings of one ResNet-50 step "
+                          f"({step['elements']} f32 elements, largest "
+                          f"{step['largest']}, tail {step['tail']}), mean, "
+                          f"p=2 ranks on one card"),
+                "largest_ring_ms": step["largest_ms"],
+                "tail_ring_ms": step["tail_ms"],
+                "at_n_25557032": {k: big[k] for k in timing}}
+    return {**rec, "max_abs_err": err, "ms": big["kernel_ms"],
+            **{k: big[k] for k in timing},
+            "shape": "n=25557032 f32, p=2 ranks on one card"}
+
+
 def kernel_record(name, recs, part, err_keys, launches_by_path):
     """One entry of the ``kernels`` line: the main bf16 case's times, the
     largest error over every case, and the launches of every path."""
@@ -571,6 +893,8 @@ def main() -> int:
 
     kernel_recs = phase_kernel(torch, fa)
     bwd_recs = phase_kernel_bwd(torch, fa)
+    rings = phase_ring_kernels()
+    resnet_rec = phase_train_resnet(torch, rings)
     if args.layers != 32:
         emit(phase="cut", n_layers=args.layers, of=32)
     gen, cfg = phase_generate(torch, llama, fa, args.layers)
@@ -608,6 +932,8 @@ def main() -> int:
                       ("dq_max_abs_err",), launches),
         kernel_record("flash_attention_bwd_dkv", bwd_recs, "dkv",
                       ("dk_max_abs_err", "dv_max_abs_err"), launches),
+        *(ring_kernel_record(name, rings, resnet_rec["launches"],
+                             resnet_rec) for name in RING_KERNELS),
     ])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``torchmpi_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, a CPU generation runs
-in a process that never loads either, and entry points (the training
-example's included) refuse to fall back to the CPU when no GPU is visible
-and no device was asked for."""
+``chip_smoke.py`` imports JAX or the JAX package, a CPU generation and a
+CPU ResNet training step run in a process that never loads either, and
+entry points (the training examples, ``lifecycle.start`` and the ResNet
+model included) refuse to fall back to the CPU when no GPU is visible and
+no device was asked for."""
 
 import ast
 import pathlib
@@ -69,6 +70,35 @@ def test_port_runs_without_jax_loaded():
     assert res.stdout.strip() == "ok"
 
 
+def test_resnet_engine_runs_without_jax_loaded():
+    code = (
+        "import sys\n"
+        "from torchmpi_tpu_torch.collectives import cuda_ring, selector\n"
+        "from torchmpi_tpu_torch.engine import AllReduceSGDEngine\n"
+        "from torchmpi_tpu_torch.examples import train_resnet\n"
+        "from torchmpi_tpu_torch.models import resnet\n"
+        "from torchmpi_tpu_torch.runtime import config, lifecycle\n"
+        "config.set('use_pallas_collectives', True)\n"
+        "lifecycle.start(device='cpu')\n"
+        "cfg = resnet.config(depth=18, n_classes=4, width_multiplier=0.125)\n"
+        "p, _ = resnet.init(0, cfg, device='cpu')\n"
+        "import numpy as np\n"
+        "x = np.random.RandomState(0).rand(1, 2, 16, 16, 3).astype('f4')\n"
+        "y = np.array([[0, 1]], dtype='i4')\n"
+        "eng = AllReduceSGDEngine(resnet.make_loss_fn(cfg), lr=0.1)\n"
+        "st = eng.train(p, [(x, y)])\n"
+        "assert float(st['loss']) > 0\n"
+        "lifecycle.stop()\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'jaxlib', 'torchmpi_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     # Where CUDA is visible these would run on the card; decide here, in
     # the test, and make the CPU-only case the one under test.
@@ -90,6 +120,71 @@ def test_train_example_raises_without_a_gpu_and_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_llama.main(["--steps", "1"])
+
+
+def test_resnet_entry_points_raise_without_a_gpu(monkeypatch, capsys):
+    from torchmpi_tpu_torch.examples import train_resnet
+    from torchmpi_tpu_torch.models import resnet
+    from torchmpi_tpu_torch.runtime import lifecycle
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = resnet.config(depth=18, n_classes=4, width_multiplier=0.125)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet.init(0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet.from_jax_params({"fc_b": [0.0]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lifecycle.start()
+    assert not lifecycle.started()
+    assert train_resnet.main(["--steps", "1"]) != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert train_resnet.main(["--steps", "1", "--nproc", "2"]) != 0
+
+
+def test_lifecycle_starts_on_the_cpu_only_when_asked():
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch.runtime import lifecycle
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    dev = lifecycle.start(device="cpu")
+    try:
+        assert dev.type == "cpu"
+        assert dist.get_backend() == "gloo"
+        assert (lifecycle.rank(), lifecycle.size()) == (0, 1)
+    finally:
+        lifecycle.stop()
+    assert not dist.is_initialized()
+
+
+def test_backend_is_nccl_only_with_a_card_per_rank(monkeypatch):
+    from torchmpi_tpu_torch.runtime import lifecycle
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cuda = torch.device("cuda", 0)
+    assert lifecycle.choose_backend(cuda, 1) == "nccl"
+    assert lifecycle.choose_backend(cuda, 2) == "gloo"   # ranks share a card
+    assert lifecycle.choose_backend(torch.device("cpu"), 1) == "gloo"
+
+
+def test_ring_never_takes_the_plain_or_cpu_form_off_the_cpu(monkeypatch):
+    # A tensor that is not on the CPU goes to the kernel path's checks,
+    # never to the per-rank CPU form or the plain schedule.
+    from torchmpi_tpu_torch.collectives import cuda_ring
+
+    called = []
+    for name in ("_rs_steps_cpu", "_ag_steps_cpu", "_ring_allreduce_plain",
+                 "_ring_reduce_scatter_plain", "_ring_allgather_plain"):
+        monkeypatch.setattr(cuda_ring, name,
+                            lambda *a, **k: called.append(1))
+    comm = type("C", (), {"size": 2, "rank": 0})()
+    x = torch.zeros(256, device="meta")
+    for fn in (cuda_ring.ring_allreduce, cuda_ring.ring_reduce_scatter,
+               cuda_ring.ring_allgather):
+        with pytest.raises(ValueError, match="device"):
+            fn(comm, x)
+    assert not called
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):

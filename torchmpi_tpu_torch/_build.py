@@ -4,7 +4,9 @@ Each ``ops/csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, ``_build/<name>-<digest>.so``, where the digest covers the
 source, every header beside it and the compiler flags: an edited source
 builds anew, an unchanged one loads the library already built.  Nothing is
-built at import: the first call of a kernel's wrapper builds it.
+built at import: the first call of a kernel's wrapper builds it.  A tool's
+source elsewhere (``tools/csrc``) builds the same way when its directory is
+named.
 
 A missing ``nvcc`` or a failed build raises :class:`BuildError`; there is
 no fallback.
@@ -18,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -50,27 +52,30 @@ def nvcc() -> str:
                      "the port's CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, src_dir: Optional[Path] = None) -> Path:
+    src_dir = src_dir or CSRC
+    src = src_dir / f"{name}.cu"
     if not src.is_file():
         raise BuildError(f"no kernel source {src}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [src] + sorted(CSRC.glob("*.cuh")):
+    for p in [src] + sorted(src_dir.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Build kernel source ``name`` unless it is built already; returns the
-    library's path.  Raises :class:`BuildError` with ``nvcc``'s output."""
-    out = library_path(name)
+def build(name: str, src_dir: Optional[Path] = None) -> Path:
+    """Build kernel source ``name`` (of ``src_dir``, by default
+    ``ops/csrc``) unless it is built already; returns the library's path.
+    Raises :class:`BuildError` with ``nvcc``'s output."""
+    src_dir = src_dir or CSRC
+    out = library_path(name, src_dir)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
+                           str(src_dir / f"{name}.cu")],
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -92,9 +97,10 @@ def build_all() -> List[Path]:
         return [f.result() for f in futures]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name``, built first if need be."""
+def load(name: str, src_dir: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name`` (of ``src_dir``), built
+    first if need be."""
     lib = _libs.get(name)
     if lib is None:
-        lib = _libs[name] = ctypes.CDLL(str(build(name)))
+        lib = _libs[name] = ctypes.CDLL(str(build(name, src_dir)))
     return lib

@@ -1,3 +1,3 @@
-"""Models of the port: dense Llama inference (``llama``)."""
+"""Models of the port: dense Llama (``llama``) and ResNet (``resnet``)."""
 
-from . import llama  # noqa: F401
+from . import llama, resnet  # noqa: F401

@@ -1,3 +1,4 @@
-"""Runtime of the port: the knob registry (``config``)."""
+"""Runtime of the port: the knob registry (``config``), communicators and
+the process lifecycle."""
 
-from . import config  # noqa: F401
+from . import communicator, config, lifecycle  # noqa: F401

@@ -4,7 +4,10 @@ The port's own copy of the knobs its modules read, under the JAX package's
 names, defaults and environment variables, so that ``docs/config.md``
 stays the one registry of both packages.  Only the knobs of the ported
 modules are here: the span tracer (``obs_trace``, ``obs_span_capacity``),
-the event journal (``journal_*``) and the serving plane (``serve_*``).
+the event journal (``journal_*``), the serving plane (``serve_*``), the
+collective selector and the ring collectives (``use_pallas_collectives``,
+``small_allreduce_size_gpu``, the buffer geometry) and gradient bucketing
+(``gradient_bucket_bytes``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,25 @@ def _env_bool(name: str, default: bool) -> bool:
 @dataclasses.dataclass
 class Constants:
     """The ported modules' knobs (see ``docs/config.md``)."""
+
+    # --- collectives ---
+    # Prefer the hand-written ring collectives (collectives/cuda_ring.py)
+    # over torch.distributed's; the engine's compiled mode then syncs its
+    # gradients through them.
+    use_pallas_collectives: bool = False
+    # Small-message cutoff in ELEMENTS: at or below it the ring namespace
+    # hands a collective to torch.distributed; the engine rings leaves of
+    # at least this many elements on their own.
+    small_allreduce_size_gpu: int = 1 << 16
+    # Ring geometry: sub-chunk bytes within [min, max] and staging slots
+    # per ring (capped by the second knob and by 2(p-1)).
+    min_buffer_size: int = 1 << 17
+    max_buffer_size: int = 1 << 20
+    num_buffers_per_collective: int = 3
+    max_num_buffers_per_collective_tpu: int = 16
+    # Gradient bucketing: leaves fuse into flat buckets of at most this
+    # many bytes, by dtype, in tree order (nn/bucketing.py).
+    gradient_bucket_bytes: int = 32 * 1024 * 1024
 
     # --- observability: off by default, so span() is one config read ---
     # Master switch of the Python span tracer.

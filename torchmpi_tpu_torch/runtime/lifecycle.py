@@ -1,0 +1,126 @@
+"""Start and stop the port's runtime: one process per rank over
+``torch.distributed``.
+
+Counterpart of ``torchmpi_tpu/runtime/lifecycle.py``.  :func:`start` joins
+(or adopts) the default process group from the usual environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+``MASTER_ADDR``/``MASTER_PORT``, as ``torchrun`` sets them; a process with
+none of them is a world of one), binds the device and pushes the world
+communicator.
+
+The device is ``cuda:LOCAL_RANK % device_count``.  Without a GPU,
+:func:`start` raises unless the caller asks for the CPU with
+``device="cpu"``.  The backend is NCCL only when every rank of the host has
+a card of its own; ranks that share a card (NCCL refuses two ranks on one
+device) and CPU worlds use gloo.  The port's ring collectives do not go
+through the backend at all: it carries the setup exchange, the small
+messages and the scalar collectives.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Union
+
+import torch
+
+from . import communicator as _comm_mod
+from .communicator import Communicator, stack
+
+_lock = threading.Lock()
+_started = False
+_owns_group = False
+
+
+def started() -> bool:
+    return _started
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    return default if raw in (None, "") else int(raw)
+
+
+def choose_backend(device: torch.device, local_world: int) -> str:
+    """NCCL when every rank of the host has a CUDA card of its own, else
+    gloo."""
+    if device.type == "cuda" and local_world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def start(device: Union[str, torch.device, None] = None) -> torch.device:
+    """Join the process group, bind this rank's device and push the world
+    communicator; returns the device.  ``device="cpu"`` runs on the CPU
+    (gloo); otherwise a GPU is required."""
+    global _started, _owns_group
+    import torch.distributed as dist
+
+    with _lock:
+        if _started:
+            raise RuntimeError("start() called twice without stop()")
+        if device is not None and torch.device(device).type == "cpu":
+            dev = torch.device("cpu")
+        else:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device is available; pass "
+                                   "device='cpu' to run on the CPU")
+            dev = (torch.device(device) if device is not None else
+                   torch.device("cuda", _env_int("LOCAL_RANK", 0)
+                                % torch.cuda.device_count()))
+            torch.cuda.set_device(dev)
+        world = _env_int("WORLD_SIZE", 1)
+        if not dist.is_initialized():
+            be = choose_backend(dev, _env_int("LOCAL_WORLD_SIZE", world))
+            if "MASTER_ADDR" in os.environ:
+                dist.init_process_group(be, init_method="env://",
+                                        rank=_env_int("RANK", 0),
+                                        world_size=world)
+            else:
+                if world != 1:
+                    raise RuntimeError(f"WORLD_SIZE={world} without "
+                                       f"MASTER_ADDR/MASTER_PORT")
+                dist.init_process_group(be, store=dist.HashStore(), rank=0,
+                                        world_size=1)
+            _owns_group = True
+        stack.reset(Communicator(range(dist.get_world_size()),
+                                 my_rank=dist.get_rank()))
+        _started = True
+        return dev
+
+
+def stop() -> None:
+    """Free the ring collectives' staging memory, drop the communicator
+    stack and leave the process group if :func:`start` joined it."""
+    global _started, _owns_group
+    import torch.distributed as dist
+
+    from ..collectives import cuda_ring
+
+    with _lock:
+        if not _started:
+            return
+        cuda_ring.release_all()
+        stack.clear()
+        if _owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        _owns_group = False
+        _started = False
+
+
+def rank() -> int:
+    """This process's rank in the world."""
+    return stack.world().rank
+
+
+def size() -> int:
+    """The world's size in ranks (one process each)."""
+    return stack.world().size
+
+
+def barrier() -> None:
+    """Barrier over the current communicator."""
+    from ..collectives import eager
+
+    eager.barrier(_comm_mod.stack.current())
