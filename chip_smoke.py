@@ -41,12 +41,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    allgather (B3) kernels with p = 2 and p = 4 ranks spawned on the one
    card (``tools/ring_bench.py``): f32 and bf16 (and int32 for B1) at n =
    25,557,032, 3,000 and 5, the small sizes again with 64 KiB sub-chunks and
-   one staging slot, and B1 once more at the 43 ring sizes of a ResNet-50
-   training step (f32, mean, the engine's collective ids), each rank's
-   result held against the plain schedule bit for bit; kernel, plain and
-   library (gloo on the same tensors) times at n = 25,557,032 in f32 and
-   for the 43 rings of a step; the public collectives driven once through
-   the selector at n = 25,557,032 (the ``collectives`` path); two forced
+   one staging slot, B1 once more at the 43 ring sizes of a ResNet-50
+   compiled training step (f32, mean, the engine's collective ids) and at
+   the 4 bucket sizes of an eager_async step (f32, mean, in dispatch
+   order), each rank's result held against the plain schedule bit for
+   bit; kernel, plain and library (gloo on the same tensors) times at n =
+   25,557,032 in f32, for the 43 rings of a step and for the 4 buckets; the public collectives driven once through
+   the selector at n = 25,557,032 (the ``collectives`` path); the first
+   call of a ring on a new collective id while rank 0's stream is busy,
+   bit for bit (its staging must be zeroed before a neighbour sends); two forced
    stalls (a rank that never enters, and one that enters after its
    neighbour gave up) that must raise within their deadline without
    lowering the aborted rank's flag words.
@@ -60,6 +63,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    finite and fall from step 1 to step 5, and ``check_with_allreduce`` must
    find the replicas' parameters bitwise equal; then one ``eager_sync`` step
    and an inference-mode evaluation.
+9. conv_kernel: the 3x3 convolution kernel (B7) against its plain version
+   at the bench's two shapes (``benchmarks/pallas_conv_bench.py``'s
+   ``SHAPES``: x (128, 7, 7, 512) with w (3, 3, 512, 512), and x (128, 14,
+   14, 256) with w (3, 3, 256, 256)) in bf16 and f32, each error beside its
+   tolerance, with the kernel's, the plain version's and ``F.conv2d``'s
+   forward and forward+backward times (cuDNN, channels_last, TF32 off; a
+   yardstick only) beside the bound.  Its path is ``conv3x3`` with the
+   bench's blocks (bn=8, bc=256) once at each shape in bf16: the count is
+   set to 0 just before each of those checked calls and read just after,
+   and the two must launch the kernel twice.
+10. train_resnet_async: ResNet-50 as in phase 8, 2 ranks, 3 steps of
+   ``eager_async`` with ``use_pallas_collectives`` on and the ``"ready"``
+   drain, then the same 3 steps from the same start with the ``"barrier"``
+   drain and in ``eager_sync`` mode, with deterministic cuDNN convolutions
+   (whose default algorithms differ from call to call in the last bits of
+   a gradient): every bucket's ring in step 1 of the first run must equal
+   the plain schedule over both ranks' buckets (gathered over gloo) bit for
+   bit, the parameters must be bitwise equal
+   across the three runs and across the replicas, and every step must
+   launch B1 once per bucket of ``nn.bucketing.plan_ready_order`` (every
+   bucket lies above the small-message cutoff) and B2/B3 never; step ms and
+   the seconds blocked in handle waits are printed.
 
 Then a line with the card's name and power limit, a ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of
@@ -133,6 +158,20 @@ RING_DESIGN = ("two kernels per ring step (send into the neighbour's "
                "cudaIpc slot; add or store), ordered across processes by "
                "cuStreamWaitValue64 on monotone data/credit words")
 
+# The convolution kernel (B7): the bench's two shapes (x NHWC, Cout) and
+# blocks, the TPU kernel it replaces and the library call timed beside it.
+CONV_SRC = "torchmpi_tpu_torch/ops/csrc/conv3x3.cu"
+CONV_REPLACES = ("benchmarks/pallas_conv_bench.py:52", "_conv_kernel")
+CONV_SHAPES = [("7x7x512", (128, 7, 7, 512), 512),
+               ("14x14x256", (128, 14, 14, 256), 256)]
+CONV_BN, CONV_BC = 8, 256
+CONV_LIBRARY = ("torch.nn.functional.conv2d (cuDNN, channels_last, TF32 "
+                "off), forward")
+RESNET_ASYNC_STEPS = 3
+RESNET_ASYNC_RUNS = (("eager_async-ready", "eager_async", "ready"),
+                     ("eager_async-barrier", "eager_async", "barrier"),
+                     ("eager_sync", "eager_sync", "ready"))
+
 COUNTERS = {"flash_attention_fwd": "flash_fwd_launches",
             "flash_attention_bwd_dq": "flash_bwd_dq_launches",
             "flash_attention_bwd_dkv": "flash_bwd_dkv_launches"}
@@ -202,6 +241,100 @@ def attention_bwd_bound_ms(kernel, bh, lq, lk, d, causal, in_dtype, in_bytes,
     nbytes = bh * ((2 * lq + 2 * lk) * d * in_bytes + 2 * lq * 4
                    + out_rows * d * out_bytes)
     return bound_ms(ops, nbytes, in_dtype)
+
+
+def conv_bound_ms(n, h, w, c, cout, in_dtype, esize):
+    """Least time for the 3x3 convolution on this card: its multiply-adds
+    (2 N H W 9 C Cout) over the input type's peak against x and w read once
+    and the output written once."""
+    ops = 2.0 * n * h * w * 9 * c * cout
+    nbytes = (n * h * w * c + 9 * c * cout + n * h * w * cout) * esize
+    return bound_ms(ops, nbytes, in_dtype)
+
+
+def phase_conv_kernel(torch, conv):
+    """B7 against its plain version at the bench's two shapes in bf16 and
+    f32, timed beside F.conv2d, with the count set to 0 just before each
+    checked call and read just after.  Returns the records and the path's
+    launches (the bf16 calls)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    recs = {}
+    for shape, xshape, cout in CONV_SHAPES:
+        n, h, w_, c = xshape
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            x = torch.randn(xshape, generator=g, device="cuda").to(dt)
+            w = (torch.randn((3, 3, c, cout), generator=g, device="cuda")
+                 / math.sqrt(9 * c)).to(dt)
+            with torch.no_grad():
+                conv.conv3x3_launches = 0
+                got = conv.conv3x3(x, w, bn=CONV_BN, bc=CONV_BC)
+                torch.cuda.synchronize()
+                launched = conv.conv3x3_launches
+                want = conv.conv3x3_plain(x, w)
+            scale = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            # f32: the same f32 products summed in another order.  bf16:
+            # both sides sum in f32 and round once, so at most one bf16
+            # ulp at the output's scale.
+            atol = (1e-5 * scale if dtype == "float32"
+                    else 2.0 ** (math.floor(math.log2(scale)) - 7))
+            # F.conv2d on the same memory: x NHWC is NCHW channels_last.
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            xg = xc.detach().requires_grad_(True)
+            wg = wc.detach().requires_grad_(True)
+            gout = torch.randn((n, cout, h, w_), generator=g,
+                               device="cuda").to(dt).contiguous(
+                                   memory_format=torch.channels_last)
+
+            def fwd_bwd():
+                out = F.conv2d(xg, wg, padding=1)
+                return torch.autograd.grad(out, (xg, wg), gout)
+
+            with torch.no_grad():
+                kernel_ms = cuda_ms(torch, lambda: conv.conv3x3(
+                    x, w, bn=CONV_BN, bc=CONV_BC))
+                plain_ms = cuda_ms(torch, lambda: conv.conv3x3_plain(x, w))
+                library_ms = cuda_ms(torch, lambda: F.conv2d(xc, wc,
+                                                             padding=1))
+                lib_err = float((F.conv2d(xc, wc, padding=1).permute(
+                    0, 2, 3, 1).float() - want.float()).abs().max())
+            library_fwd_bwd_ms = cuda_ms(torch, fwd_bwd)
+            bound, bound_by = conv_bound_ms(n, h, w_, c, cout, dtype,
+                                            x.element_size())
+            rec = {"case": f"{shape}_{dtype}", "x": list(xshape),
+                   "w": [3, 3, c, cout], "dtype": dtype,
+                   "max_abs_err": err, "atol": atol, "out_scale": scale,
+                   "finite": bool(torch.isfinite(got.float()).all()),
+                   "launches": launched, "kernel_ms": kernel_ms,
+                   "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "library_fwd_bwd_ms": library_fwd_bwd_ms,
+                   "library_max_abs_err": lib_err,
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "kernel_tflops": 2.0 * n * h * w_ * 9 * c * cout
+                   / kernel_ms / 1e9}
+            emit(phase="conv_kernel", **rec)
+            if not (err <= atol and rec["finite"]):
+                raise AssertionError(f"conv3x3 kernel disagrees with its "
+                                     f"plain version: {rec}")
+            recs[rec["case"]] = rec
+            del x, w, got, want, xc, wc, xg, wg, gout
+    torch.cuda.empty_cache()
+    # The path: the op as the bench calls it (bn=8, bc=256), in bf16, once
+    # at each shape; its launches are those of the checked calls above.
+    launches = sum(r["launches"] for r in recs.values()
+                   if r["dtype"] == "bfloat16")
+    emit(phase="conv_kernel", path="conv3x3", launches=launches,
+         shapes=[s for s, _, _ in CONV_SHAPES], bn=CONV_BN, bc=CONV_BC)
+    if launches != len(CONV_SHAPES):
+        raise AssertionError(f"the conv3x3 path launched the kernel "
+                             f"{launches} times, expected {len(CONV_SHAPES)}")
+    return recs, launches
 
 
 def phase_kernel(torch, fa):
@@ -578,8 +711,18 @@ def phase_ring_kernels():
                                 for n in rings["sizes"])
         emit(phase="ring_kernels", design=RING_DESIGN, resnet_step_rings={
             k: v for k, v in rings.items() if k != "sizes"})
-        bad += [r["resnet_rings"] for r in results
-                if not r["resnet_rings"]["bitwise_equal"]]
+        buckets = r0["bucket_rings"]
+        buckets["bound_ms"] = sum(ring_bench.bound_ms("allreduce", n, p, 4)
+                                  for n in buckets["sizes"])
+        emit(phase="ring_kernels", design=RING_DESIGN,
+             resnet_async_bucket_rings=buckets)
+        bad += [r[key] for r in results
+                for key in ("resnet_rings", "bucket_rings")
+                if not r[key]["bitwise_equal"]]
+        bad += [r["fresh_state"] for r in results
+                if not r["fresh_state"]["bitwise_equal"]]
+        emit(phase="ring_kernels", p=p,
+             fresh_state=[r["fresh_state"] for r in results])
         emit(phase="ring_kernels", p=p, cases=len(r0["records"]),
              all_bitwise_equal=not bad,
              collectives_launches=r0["collectives_launches"],
@@ -795,17 +938,198 @@ def phase_train_resnet(torch, rings):
     return rec
 
 
-def ring_kernel_record(name, rings, train_launches, train_rec):
+def resnet_async_rank_main(steps: int, batch: int, lr: float) -> dict:
+    """One rank of the train_resnet_async phase (spawned): the same steps
+    from the same start in each of RESNET_ASYNC_RUNS."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch import nn as mpinn
+    from torchmpi_tpu_torch.collectives import cuda_ring
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine
+    from torchmpi_tpu_torch.models import resnet
+    from torchmpi_tpu_torch.nn import bucketing
+    from torchmpi_tpu_torch.runtime import config, lifecycle
+    from torchmpi_tpu_torch.utils import tree
+    from torchmpi_tpu_torch.utils.data import synthetic_mnist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's default backward algorithms may sum in another order on every
+    # call, so two runs of the same step differ in the last bits of their
+    # gradients; the runs are held to bitwise equality only with
+    # deterministic convolutions.
+    torch.backends.cudnn.deterministic = True
+    config.set("use_pallas_collectives", True)
+    device = lifecycle.start()
+    try:
+        p, rank = lifecycle.size(), lifecycle.rank()
+        cfg = resnet.config(depth=50, n_classes=1000, width_multiplier=1.0)
+        init, _ = resnet.init(7, cfg, device=device)
+        ds = synthetic_mnist(n=p * batch, n_classes=1000, seed=1,
+                             image_shape=(224, 224, 3))
+        one = (ds.x.reshape(p, batch, 224, 224, 3), ds.y.reshape(p, batch))
+        plan = bucketing.plan_ready_order(init)
+        cutoff = int(config.get("small_allreduce_size_gpu"))
+        buckets = len(plan.plan.specs)
+        above = sum(spec.total > cutoff for spec in plan.plan.specs)
+
+        def counts():
+            return {"ring_allreduce": cuda_ring.ring_allreduce_launches,
+                    "ring_reduce_scatter": cuda_ring.ring_reduce_scatter_launches,
+                    "ring_allgather": cuda_ring.ring_allgather_launches}
+
+        ring_s = [0.0]
+        check = {"on": False, "rings": 0, "unequal": 0, "max_abs_err": 0.0}
+        _ring_timer(torch, cuda_ring, ring_s, check)
+        runs, first = {}, None
+        for label, mode, drain in RESNET_ASYNC_RUNS:
+            config.set("engine_async_drain", drain)
+            step_ms, launches, blocked, losses, ring_ms = [], [], [], [], []
+            marks = {}
+
+            def on_sample(state):
+                torch.cuda.synchronize()
+                # The buckets of the first run's step 1.
+                check["on"] = first is None and not step_ms
+                marks["t0"], marks["c0"], ring_s[0] = (time.perf_counter(),
+                                                       counts(), 0.0)
+
+            def on_update(state):
+                torch.cuda.synchronize()
+                check["on"] = False
+                step_ms.append((time.perf_counter() - marks["t0"]) * 1e3)
+                ring_ms.append(ring_s[0])
+                losses.append(float(state["loss"]))
+                blocked.append(state.get("blocked_s"))
+                c = counts()
+                launches.append({k: c[k] - marks["c0"][k] for k in c})
+
+            engine = AllReduceSGDEngine(
+                resnet.make_loss_fn(cfg), lr=lr, mode=mode,
+                hooks={"on_sample": on_sample, "on_update": on_update})
+            params = tree.tree_map(lambda t: t.clone(), init)
+            torch.cuda.synchronize()
+            cuda_ring.ring_allreduce_launches = 0
+            cuda_ring.ring_reduce_scatter_launches = 0
+            cuda_ring.ring_allgather_launches = 0
+            state = engine.train(params, [one] * steps, epochs=1)
+            torch.cuda.synchronize()
+            total = counts()
+            out = state["params"]
+            mpinn.check_with_allreduce(out, tol=0.0)
+            digest = hashlib.sha256()
+            for leaf in tree.leaves(out):
+                digest.update(leaf.detach().cpu().numpy().tobytes())
+            digests = [None] * p
+            dist.all_gather_object(digests, digest.hexdigest())
+            if first is None:
+                first = out
+            runs[label] = {
+                "mode": mode, "drain": drain, "losses": losses,
+                "step_ms": step_ms, "blocked_s": blocked, "ring_ms": ring_ms,
+                "launches_per_step": launches, "launches": total,
+                "replicas_bitwise_equal": len(set(digests)) == 1,
+                "equal_to_first_run": all(
+                    torch.equal(a, b) for a, b in zip(tree.leaves(first),
+                                                      tree.leaves(out)))}
+        return {"rank": rank, "p": p, "buckets": buckets,
+                "buckets_above_cutoff": above,
+                "bucket_elements": [spec.total for spec in plan.plan.specs],
+                "order": list(plan.order), "runs": runs,
+                "step1_rings_vs_plain": {k: v for k, v in check.items()
+                                         if k != "on"}}
+    finally:
+        lifecycle.stop()
+
+
+def phase_train_resnet_async():
+    """eager_async (both drains) and eager_sync from one start on 2 ranks of
+    the one card; B1 once per bucket a step, parameters bitwise equal."""
+    from torchmpi_tpu_torch.runtime import launch
+
+    t0 = time.perf_counter()
+    res = launch.spawn(2, resnet_async_rank_main,
+                       (RESNET_ASYNC_STEPS, RESNET_BATCH, RESNET_LR),
+                       timeout_s=900)
+    r0 = res[0]
+    expected = {"ring_allreduce": r0["buckets"], "ring_reduce_scatter": 0,
+                "ring_allgather": 0}
+    summary = {}
+    for label, run in r0["runs"].items():
+        steady = sorted(run["step_ms"][1:])
+        summary[label] = {
+            "steady_step_ms": sum(steady) / len(steady),
+            "step_ms": run["step_ms"], "blocked_s": run["blocked_s"],
+            "ring_ms_per_step": run["ring_ms"],
+            "losses": [r["runs"][label]["losses"] for r in res],
+            "launches_per_step": run["launches_per_step"],
+            "equal_to_first_run": [r["runs"][label]["equal_to_first_run"]
+                                   for r in res],
+            "replicas_bitwise_equal": run["replicas_bitwise_equal"]}
+    rec = {"phase": "train_resnet_async", "model": "resnet50", "width": 1.0,
+           "image": 224, "classes": 1000, "dtype": "float32", "ranks": 2,
+           "batch_per_rank": RESNET_BATCH, "lr": RESNET_LR,
+           "steps": RESNET_ASYNC_STEPS, "buckets": r0["buckets"],
+           "buckets_above_cutoff": r0["buckets_above_cutoff"],
+           "bucket_elements": r0["bucket_elements"],
+           "ready_order": r0["order"],
+           "expected_launches_per_step": expected, "runs": summary,
+           "step1_rings_vs_plain": [r["step1_rings_vs_plain"] for r in res],
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(rec), flush=True)
+    if r0["buckets_above_cutoff"] != r0["buckets"]:
+        raise AssertionError(f"a bucket lies at or below the small-message "
+                             f"cutoff: {r0['bucket_elements']}")
+    for r in res:
+        held = r["step1_rings_vs_plain"]
+        if held["rings"] != r0["buckets"] or held["unequal"]:
+            raise AssertionError(f"rank {r['rank']}: step 1's bucket rings "
+                                 f"against the plain schedule: {held}")
+        for label, run in r["runs"].items():
+            if any(s != expected for s in run["launches_per_step"]):
+                raise AssertionError(
+                    f"rank {r['rank']} {label} launched "
+                    f"{run['launches_per_step']}, expected {expected} a step")
+            if not run["equal_to_first_run"]:
+                raise AssertionError(f"rank {r['rank']}: {label}'s parameters "
+                                     f"differ from eager_async-ready's")
+            if not run["replicas_bitwise_equal"]:
+                raise AssertionError(f"{label}: replicas' parameters differ")
+            if not all(math.isfinite(x) for x in run["losses"]):
+                raise AssertionError(f"{label}: non-finite loss "
+                                     f"{run['losses']}")
+            if run["mode"] == "eager_async" and not all(
+                    b is not None and b >= 0 for b in run["blocked_s"]):
+                raise AssertionError(f"{label}: blocked_s {run['blocked_s']}")
+        if r["runs"]["eager_sync"]["losses"] != r["runs"][
+                "eager_async-ready"]["losses"]:
+            raise AssertionError(f"rank {r['rank']}: eager_sync's losses "
+                                 f"differ from eager_async's")
+    return rec, {label: run["launches"]["ring_allreduce"]
+                 for label, run in r0["runs"].items()}
+
+
+def ring_kernel_record(name, rings, train_launches, train_rec,
+                       async_launches, async_rec):
     """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
-    work, the 43 rings of a ResNet-50 step (times, bound and the largest
-    error over them, the ring_kernels cases and step 1's rings of the train
-    phase); B2 and B3 at n = 25,557,032 in f32, the collectives path's
-    size.  Launches of every path."""
+    work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
+    an eager_async step beside (times, bound and the largest error over
+    them, the ring_kernels cases and step 1's rings of both train phases);
+    B2 and B3 at n = 25,557,032 in f32, the collectives path's size.
+    Launches of every path (train_resnet_async: its two eager_async
+    runs)."""
     replaces, function, kind, library = RING_KERNELS[name]
     big = next(r for r in rings[2]["records"]
                if r["kind"] == kind and "kernel_ms" in r)
     by_path = {"train_resnet": train_launches[name],
-               "collectives": rings[2]["collectives_launches"][name]}
+               "collectives": rings[2]["collectives_launches"][name],
+               "train_resnet_async": sum(
+                   n for label, n in async_launches.items()
+                   if label.startswith("eager_async"))
+               if name == "ring_allreduce" else 0}
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     err = max(r["max_abs_err"] for p in (2, 4)
               for r in rings[p]["records"] if r["kind"] == kind)
@@ -814,9 +1138,12 @@ def ring_kernel_record(name, rings, train_launches, train_rec):
            "launches": sum(by_path.values()), "launches_by_path": by_path,
            "bound_by": "bytes", "library": library, "design": RING_DESIGN}
     if kind == "allreduce":
-        step = rings[2]["resnet_rings"]
+        step, buckets = rings[2]["resnet_rings"], rings[2]["bucket_rings"]
         err = max([err, step["max_abs_err"]]
-                  + [h["max_abs_err"] for h in train_rec["step1_rings_vs_plain"]])
+                  + [rings[p]["bucket_rings"]["max_abs_err"] for p in (2, 4)]
+                  + [h["max_abs_err"]
+                     for r in (train_rec, async_rec)
+                     for h in r["step1_rings_vs_plain"]])
         return {**rec, "max_abs_err": err, "ms": step["kernel_ms"],
                 **{k: step[k] for k in timing},
                 "shape": (f"the {step['rings']} rings of one ResNet-50 step "
@@ -825,10 +1152,32 @@ def ring_kernel_record(name, rings, train_launches, train_rec):
                           f"p=2 ranks on one card"),
                 "largest_ring_ms": step["largest_ms"],
                 "tail_ring_ms": step["tail_ms"],
+                "at_async_buckets": {
+                    **{k: buckets[k] for k in timing},
+                    "sizes": buckets["sizes"],
+                    "largest_ring_ms": buckets["largest_ms"]},
                 "at_n_25557032": {k: big[k] for k in timing}}
     return {**rec, "max_abs_err": err, "ms": big["kernel_ms"],
             **{k: big[k] for k in timing},
             "shape": "n=25557032 f32, p=2 ranks on one card"}
+
+
+def conv_kernel_record(recs, launches):
+    """The ``kernels`` entry of B7: the 7x7x512 bf16 case's times, the
+    largest error over every case, the other cases beside."""
+    main = recs["7x7x512_bfloat16"]
+    timing = ("kernel_ms", "plain_ms", "library_ms", "library_fwd_bwd_ms",
+              "bound_ms", "bound_by")
+    return {"name": "conv3x3", "route": "cuda", "source": CONV_SRC,
+            "replaces": CONV_REPLACES[0],
+            "replaces_function": CONV_REPLACES[1], "launches": launches,
+            "launches_by_path": {"conv3x3": launches},
+            "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+            "ms": main["kernel_ms"], **{k: main[k] for k in timing},
+            "library": CONV_LIBRARY,
+            "shape": "x (128, 7, 7, 512) w (3, 3, 512, 512) bf16",
+            "cases": {case: {k: r[k] for k in timing + ("max_abs_err",)}
+                      for case, r in recs.items()}}
 
 
 def kernel_record(name, recs, part, err_keys, launches_by_path):
@@ -875,6 +1224,7 @@ def main() -> int:
     from torchmpi_tpu_torch.serving import engine as engine_mod
 
     fa = importlib.import_module("torchmpi_tpu_torch.ops.flash_attention")
+    conv = importlib.import_module("torchmpi_tpu_torch.ops.conv3x3")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -893,8 +1243,10 @@ def main() -> int:
 
     kernel_recs = phase_kernel(torch, fa)
     bwd_recs = phase_kernel_bwd(torch, fa)
+    conv_recs, conv_launches = phase_conv_kernel(torch, conv)
     rings = phase_ring_kernels()
     resnet_rec = phase_train_resnet(torch, rings)
+    async_rec, async_launches = phase_train_resnet_async()
     if args.layers != 32:
         emit(phase="cut", n_layers=args.layers, of=32)
     gen, cfg = phase_generate(torch, llama, fa, args.layers)
@@ -933,7 +1285,9 @@ def main() -> int:
         kernel_record("flash_attention_bwd_dkv", bwd_recs, "dkv",
                       ("dk_max_abs_err", "dv_max_abs_err"), launches),
         *(ring_kernel_record(name, rings, resnet_rec["launches"],
-                             resnet_rec) for name in RING_KERNELS),
+                             resnet_rec, async_launches, async_rec)
+          for name in RING_KERNELS),
+        conv_kernel_record(conv_recs, conv_launches),
     ])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

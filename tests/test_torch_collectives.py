@@ -7,12 +7,18 @@ order against the JAX package's.
   module; p = 2 runs on ranks 0-1) equals ``torchmpi_tpu.collectives.eager``
   on p virtual devices row by row, exactly: the values are small integers in
   f32, so every summation order gives the same sum.
-* The selector's cell equals JAX's ``preferences("tpu", "singlenode",
-  "sync")`` with the ring knob on and off, every collective resolves to the
-  namespace that cell implies, and the small-message rule makes JAX's
-  choices.
-* Bucket plans equal ``nn.bucketing.plan_buckets``' and the port's tree
-  order equals ``jax.tree.flatten``'s.
+* The async forms (``*_async``, handles registered in flight) and
+  ``sendreceive`` give the fill = rank algebra at p = 4, directly and
+  through the selector's async cell with the ring knob on and off.
+* The selector's cells equal JAX's ``preferences("tpu", "singlenode",
+  mode)`` with the ring knob on and off, every collective resolves in both
+  modes to the executable JAX resolves (by name), and the small-message
+  rule makes JAX's choices.
+* Bucket plans and ready-order dispatch plans equal
+  ``nn.bucketing.plan_buckets``' and ``plan_ready_order``'s, per-bucket
+  squared norms equal ``bucket_sq_norms``' to f32 rounding (1e-6
+  relative: another summation order), and the port's tree order equals
+  ``jax.tree.flatten``'s.
 """
 
 from __future__ import annotations
@@ -101,6 +107,9 @@ def test_communicator_errors():
 def _setup_cpu():
     from torchmpi_tpu_torch.runtime import lifecycle
 
+    # One intra-op thread a rank: the cases move small tensors, and the
+    # tier-1 run shares the host's cores with other test workers.
+    torch.set_num_threads(1)
     lifecycle.start(device="cpu")
 
 
@@ -171,11 +180,83 @@ def test_eager_rows_equal_jax(pool, p, name, kwargs):
 
 def test_barrier_and_later_forms(pool):
     assert pool.run(_eager_job, 4, "barrier", {}, np.zeros((4, 1))) == ["ok"] * 4
-    for fn in (teager.allgatherv, teager.allreduce_async, teager.alltoall):
+    for fn in (teager.allgatherv, teager.alltoall):
         with pytest.raises(NotImplementedError, match="later slice"):
             fn(None, None)
     with pytest.raises(NotImplementedError, match="later slice"):
         teager.allreduce(None, torch.zeros(2), groups=((0, 1),))
+
+
+def _async_job(case, prefer_rings):
+    """One rank's result of ``case`` on x = fill(rank) at p = 4, and how
+    many handles it left in flight before and after the wait."""
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch.runtime import handles
+
+    tconfig.reset(use_pallas_collectives=prefer_rings,
+                  small_allreduce_size_gpu=8)
+    try:
+        comm = Communicator(range(4), my_rank=dist.get_rank())
+        x = torch.full((12,), float(comm.rank))
+        handles.sync_all()
+        if case == "sendreceive":
+            return teager.sendreceive(comm, x, src=1, dst=3).numpy(), 0, 0
+        name, kwargs = {
+            "allreduce_async-sum": ("allreduce_async", {"op": "sum"}),
+            "allreduce_async-mean": ("allreduce_async", {"op": "mean"}),
+            "broadcast_async": ("broadcast_async", {"root": 1}),
+            "reduce_async": ("reduce_async", {"root": 2, "op": "sum"}),
+            "allgather_async": ("allgather_async", {}),
+            "sendreceive_async": ("sendreceive_async", {"src": 1, "dst": 3}),
+            "selector-allreduce": ("allreduce", {"op": "mean"}),
+            "selector-reduce_scatter": ("reduce_scatter", {"op": "sum"}),
+            "selector-allgather": ("allgather", {}),
+        }[case]
+        if case.startswith("selector-"):
+            from torchmpi_tpu_torch.collectives import selector
+
+            h = selector.resolve(name, mode="async")(comm, x, **kwargs)
+        else:
+            h = getattr(teager, name)(comm, x, **kwargs)
+        pending = len(handles.in_flight)
+        out = h.wait()
+        assert h.done and h.wait() is out
+        handles.sync_all()
+        return out.numpy(), pending, len(handles.in_flight)
+    finally:
+        tconfig.reset()
+
+
+ASYNC_WANT = {
+    "allreduce_async-sum": lambda r: np.full(12, 6.0),
+    "allreduce_async-mean": lambda r: np.full(12, 1.5),
+    "broadcast_async": lambda r: np.full(12, 1.0),
+    "reduce_async": lambda r: np.full(12, 6.0 if r == 2 else float(r)),
+    "allgather_async": lambda r: np.repeat(np.arange(4.0), 12).reshape(4, 12),
+    "sendreceive_async": lambda r: np.full(12, 1.0 if r == 3 else float(r)),
+    "sendreceive": lambda r: np.full(12, 1.0 if r == 3 else float(r)),
+    "selector-allreduce": lambda r: np.full(12, 1.5),
+    "selector-reduce_scatter": lambda r: np.full(3, 6.0),
+    "selector-allgather": lambda r: np.repeat(np.arange(4.0),
+                                              12).reshape(4, 12),
+}
+
+
+# The ring knob changes only what the selector resolves.
+ASYNC_CASES = [(c, False) for c in ASYNC_WANT] + [
+    (c, True) for c in ASYNC_WANT if c.startswith("selector-")]
+
+
+@pytest.mark.parametrize("case,prefer_rings", ASYNC_CASES,
+                         ids=[f"{c}-{'rings' if r else 'eager'}"
+                              for c, r in ASYNC_CASES])
+def test_async_forms_give_the_fill_rank_algebra(pool, case, prefer_rings):
+    got = pool.run(_async_job, case, prefer_rings)
+    for r, (out, pending, after) in enumerate(got):
+        np.testing.assert_array_equal(out, ASYNC_WANT[case](r))
+        # Each async form registers its handle in flight; sync forms none.
+        assert pending == (case != "sendreceive") and after == 0
 
 
 # ------------------------------------------------------------------ selector
@@ -183,10 +264,12 @@ def test_barrier_and_later_forms(pool):
 RING_COLLECTIVES = ("allreduce", "reduce_scatter", "allgather")
 
 
+@pytest.mark.parametrize("mode", ["sync", "async"])
 @pytest.mark.parametrize("collective", RING_COLLECTIVES
-                         + ("broadcast", "reduce", "barrier"))
+                         + ("broadcast", "reduce", "sendreceive", "barrier"))
 @pytest.mark.parametrize("prefer_rings", [False, True])
-def test_selector_cell_matches_jax(both_configs, prefer_rings, collective):
+def test_selector_cell_matches_jax(both_configs, prefer_rings, collective,
+                                   mode):
     from torchmpi_tpu.collectives import selector as jselector
 
     both_configs.reset(use_pallas_collectives=prefer_rings)
@@ -194,14 +277,27 @@ def test_selector_cell_matches_jax(both_configs, prefer_rings, collective):
     jselector.configure()
     try:
         assert tselector.preferences() == jselector.preferences(
-            "tpu", "singlenode", "sync")
+            "tpu", "singlenode", mode)
+        if collective == "barrier" and mode == "async":
+            for resolve in (lambda: tselector.resolve(collective, mode=mode),
+                            lambda: jselector.resolve(collective, "tpu",
+                                                      "singlenode", mode)):
+                with pytest.raises(KeyError, match="no implementation"):
+                    resolve()
+            return
         rings = prefer_rings and collective in RING_COLLECTIVES
-        want = tselector._DISPATCH[(collective, "pallas" if rings else "xla")]
-        assert tselector.resolve(collective) is want
+        want = tselector._DISPATCH[(collective, "pallas" if rings else "xla",
+                                    mode)]
+        got = tselector.resolve(collective, mode=mode)
+        assert got is want
+        assert got.__name__ == jselector.resolve(
+            collective, "tpu", "singlenode", mode).__name__
     finally:
         jselector.configure()
     with pytest.raises(KeyError, match="no implementation"):
         tselector.resolve("alltoall")
+    with pytest.raises(ValueError, match="mode"):
+        tselector.resolve("allreduce", mode="eager")
 
 
 def test_small_message_rule_matches_jax(both_configs):
@@ -296,6 +392,32 @@ def test_bucket_plans_match_jax(bucket_bytes):
         assert (j.leaf_indices, j.shapes, j.sizes) == (
             t.leaf_indices, t.shapes, t.sizes)
         assert str(j.dtype) == str(t.dtype).replace("torch.", "")
+
+
+@pytest.mark.parametrize("bucket_bytes", [64, 4096, 20_000, 1 << 25])
+def test_ready_order_plans_and_sq_norms_match_jax(bucket_bytes):
+    import jax.numpy as jnp
+
+    from torchmpi_tpu.nn import bucketing as jbucketing
+
+    tree, *bf = _mixed_tree()
+    jt, tt = _as(tree, "jax", bf), _as(tree, "torch", bf)
+    jd = jbucketing.plan_ready_order(jt, bucket_bytes)
+    td = tbucketing.plan_ready_order(tt, bucket_bytes)
+    assert td.order == jd.order
+    assert sorted(td.order) == list(range(len(td.plan.specs)))
+    assert [(s.leaf_indices, s.sizes) for s in td.plan.specs] == [
+        (s.leaf_indices, s.sizes) for s in jd.plan.specs]
+    assert td.plan.specs == tbucketing.plan_buckets(tt, bucket_bytes).specs
+    want = np.asarray(jbucketing.bucket_sq_norms(jt, jd.plan), np.float32)
+    got = tbucketing.bucket_sq_norms(tt, td.plan)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    empty = tbucketing.plan_ready_order({})
+    assert empty.order == () and tuple(
+        tbucketing.bucket_sq_norms({}, empty.plan).shape) == (0,)
+    assert jnp.asarray(jbucketing.bucket_sq_norms(
+        {}, jbucketing.plan_buckets({}))).shape == (0,)
 
 
 def test_bucket_roundtrip_and_map():

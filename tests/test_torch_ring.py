@@ -288,6 +288,15 @@ def test_late_neighbour_cannot_lower_an_aborted_word_on_the_card(card_bench):
 
 
 @pytest.mark.cuda
+def test_fresh_ring_state_is_zeroed_before_a_neighbour_sends(card_bench):
+    """The first call on a new collective id, made while rank 0's stream is
+    busy, equals the plain schedule: the staging is zeroed before its
+    handle is shared, not behind the rank's pending work."""
+    for res in card_bench:
+        assert res["fresh_state"]["bitwise_equal"], res["fresh_state"]
+
+
+@pytest.mark.cuda
 def test_resnet50_step_rings_equal_plain_on_the_card(card_bench):
     for res in card_bench:
         rings = res["resnet_rings"]
@@ -304,3 +313,23 @@ def test_resnet50_step_ring_sizes():
     assert (len(sizes), sum(sizes)) == (43, 25_557_032)
     assert (max(sizes), sizes[-1]) == (2_359_296, 309_288)
     assert min(sizes[:-1]) == 65_536
+
+
+@pytest.mark.cuda
+def test_resnet50_async_bucket_rings_equal_plain_on_the_card(card_bench):
+    for res in card_bench:
+        rings = res["bucket_rings"]
+        assert rings["rings"] == 4 and rings["bitwise_equal"], rings
+
+
+def test_resnet50_async_bucket_sizes():
+    """The buckets of one ResNet-50 eager_async step, in dispatch order (the
+    ready order: last layers first), as the bench drives them: every
+    parameter once, every bucket above the small-message cutoff."""
+    from torchmpi_tpu_torch.runtime import config
+    from torchmpi_tpu_torch.tools import ring_bench
+
+    sizes = ring_bench.resnet50_bucket_sizes("cpu")
+    assert sizes == [2_057_536, 7_871_464, 7_356_416, 8_271_616]
+    assert sum(sizes) == 25_557_032
+    assert min(sizes) > int(config.get("small_allreduce_size_gpu"))

@@ -13,24 +13,32 @@ for rank r:
 * ``allgather``: every rank gets ``(p, *s)``, rank r's tensor in row r;
 * ``reduce_scatter`` (sum, mean): rank r gets the r-th of p equal parts of
   the reduction of a flat ``(n,)`` vector;
+* ``sendreceive``: rank ``dst`` gets rank ``src``'s tensor, the others
+  keep theirs;
 * ``barrier`` and ``allreduce_scalar``.
+
+``allreduce_async``, ``broadcast_async``, ``reduce_async``,
+``allgather_async`` and ``sendreceive_async`` issue the same collective
+with ``async_op=True`` and return a :class:`SynchronizationHandle`,
+registered in flight, whose ``wait()`` returns what the sync form returns.
 
 The reduction order is the backend's (gloo's or NCCL's), not a ring's:
 callers that need the ring's exact order use ``cuda_ring``.  Grouped
-(``groups=``), asynchronous and v-forms are not ported yet: they raise and
-name their slice.
+(``groups=``) and v-forms are not ported yet: they raise and name their
+slice.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..runtime import handles as _handles
 from ..runtime.communicator import Communicator
+from ..runtime.handles import SynchronizationHandle
 
 _REDUCE_OPS = ("sum", "max", "min", "mean")
-_LATER = ("the grouped, asynchronous and v-form collectives come with the "
-          "hierarchical and async collectives of a later slice (ROADMAP.md "
-          "slice 3, item 4)")
+_LATER = ("the grouped and v-form collectives come with the hierarchical "
+          "collectives of a later slice (ROADMAP.md slice 3, item 4)")
 
 
 def _no_groups(groups) -> None:
@@ -61,58 +69,164 @@ def _mean_div(op: str, out: torch.Tensor, p: int) -> torch.Tensor:
     return out
 
 
+def _check_root(comm: Communicator, root: int) -> None:
+    if not 0 <= root < comm.size:
+        raise ValueError(f"root position {root} out of range for group of "
+                         f"size {comm.size}")
+
+
+# Each collective below is written once, as an issue step that returns
+# (work, payload, finish): the work of ``torch.distributed`` (None when the
+# call was synchronous), the tensor it writes, and the epilogue that turns
+# that tensor into the result.  The sync form waits the work and finishes
+# at once; the async form hands all three to a handle.
+
+def _issue_allreduce(comm, x, op, async_op):
+    import torch.distributed as dist
+
+    out = x.clone()
+    work = dist.all_reduce(out, op=_dist_op(op), group=comm.group,
+                           async_op=async_op)
+    return work, out, lambda o: _mean_div(op, o, comm.size)
+
+
+def _issue_broadcast(comm, x, root, async_op):
+    import torch.distributed as dist
+
+    _check_root(comm, root)
+    out = x.clone()
+    work = dist.broadcast(out, src=comm.global_rank(root), group=comm.group,
+                          async_op=async_op)
+    return work, out, None
+
+
+def _issue_reduce(comm, x, root, op, async_op):
+    import torch.distributed as dist
+
+    _check_root(comm, root)
+    out = x.cpu() if _host_staged(comm, x) else x.clone()
+    work = dist.reduce(out, dst=comm.global_rank(root), op=_dist_op(op),
+                       group=comm.group, async_op=async_op)
+
+    def finish(o):
+        if comm.rank != root:
+            return x.clone()
+        return _mean_div(op, o.to(x.device), comm.size)
+
+    return work, out, finish
+
+
+def _issue_allgather(comm, x, async_op):
+    import torch.distributed as dist
+
+    src = x.cpu() if _host_staged(comm, x) else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(comm.size)]
+    work = dist.all_gather(parts, src, group=comm.group, async_op=async_op)
+    return work, parts, lambda ps: torch.stack(ps).to(x.device)
+
+
+def _issue_sendreceive(comm, x, src, dst, async_op):
+    """``dst`` receives ``src``'s tensor (point to point; gloo stages a
+    CUDA tensor through the host); every other rank keeps its own."""
+    import torch.distributed as dist
+
+    _check_root(comm, src)
+    _check_root(comm, dst)
+    me = comm.rank
+    if src == dst or me not in (src, dst):
+        return None, x.clone(), None
+    host = x.device.type == "cuda" and dist.get_backend(comm.group) == "gloo"
+    if me == src:
+        buf = x.cpu() if host else x.contiguous()
+        send = dist.isend if async_op else dist.send
+        work = send(buf, dst=comm.global_rank(dst), group=comm.group)
+        # The epilogue holds the send buffer until the work is waited.
+        return (work if async_op else None), x.clone(), lambda o, _b=buf: o
+    buf = torch.empty_like(x, device="cpu" if host else x.device)
+    recv = dist.irecv if async_op else dist.recv
+    work = recv(buf, src=comm.global_rank(src), group=comm.group)
+    return (work if async_op else None), buf, lambda b: b.to(x.device)
+
+
+def _sync(issued) -> torch.Tensor:
+    work, out, finish = issued
+    if work is not None:
+        work.wait()
+    return finish(out) if finish is not None else out
+
+
+def _async(issued) -> SynchronizationHandle:
+    work, out, finish = issued
+    if work is None:
+        h = SynchronizationHandle.from_arrays(
+            finish(out) if finish is not None else out)
+    else:
+        h = SynchronizationHandle.from_work(work, out, finish)
+    return _handles.register(h)
+
+
 def allreduce(comm: Communicator, x: torch.Tensor, op: str = "sum",
               groups=None) -> torch.Tensor:
     """Every rank's tensor reduced by ``op``; a new tensor."""
-    import torch.distributed as dist
-
     _no_groups(groups)
-    out = x.clone()
-    dist.all_reduce(out, op=_dist_op(op), group=comm.group)
-    return _mean_div(op, out, comm.size)
+    return _sync(_issue_allreduce(comm, x, op, False))
 
 
 def broadcast(comm: Communicator, x: torch.Tensor, root: int = 0,
               groups=None) -> torch.Tensor:
     """Rank ``root``'s tensor on every rank; a new tensor."""
-    import torch.distributed as dist
-
     _no_groups(groups)
-    if not 0 <= root < comm.size:
-        raise ValueError(f"root position {root} out of range for group of "
-                         f"size {comm.size}")
-    out = x.clone()
-    dist.broadcast(out, src=comm.global_rank(root), group=comm.group)
-    return out
+    return _sync(_issue_broadcast(comm, x, root, False))
 
 
 def reduce(comm: Communicator, x: torch.Tensor, root: int = 0,
            op: str = "sum", groups=None) -> torch.Tensor:
     """The reduction on rank ``root``; every other rank keeps its input."""
-    import torch.distributed as dist
-
     _no_groups(groups)
-    if not 0 <= root < comm.size:
-        raise ValueError(f"root position {root} out of range for group of "
-                         f"size {comm.size}")
-    out = x.cpu() if _host_staged(comm, x) else x.clone()
-    dist.reduce(out, dst=comm.global_rank(root), op=_dist_op(op),
-                group=comm.group)
-    if comm.rank != root:
-        return x.clone()
-    return _mean_div(op, out.to(x.device), comm.size)
+    return _sync(_issue_reduce(comm, x, root, op, False))
 
 
 def allgather(comm: Communicator, x: torch.Tensor,
               groups=None) -> torch.Tensor:
     """``(p, *s)``: rank r's tensor in row r, on every rank."""
-    import torch.distributed as dist
-
     _no_groups(groups)
-    src = x.cpu() if _host_staged(comm, x) else x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(comm.size)]
-    dist.all_gather(parts, src, group=comm.group)
-    return torch.stack(parts).to(x.device)
+    return _sync(_issue_allgather(comm, x, False))
+
+
+def sendreceive(comm: Communicator, x: torch.Tensor, src: int,
+                dst: int) -> torch.Tensor:
+    """Rank ``dst`` gets rank ``src``'s tensor; every other rank keeps its
+    own (a new tensor on every rank)."""
+    return _sync(_issue_sendreceive(comm, x, src, dst, False))
+
+
+def allreduce_async(comm: Communicator, x: torch.Tensor, op: str = "sum",
+                    groups=None) -> SynchronizationHandle:
+    _no_groups(groups)
+    return _async(_issue_allreduce(comm, x, op, True))
+
+
+def broadcast_async(comm: Communicator, x: torch.Tensor, root: int = 0,
+                    groups=None) -> SynchronizationHandle:
+    _no_groups(groups)
+    return _async(_issue_broadcast(comm, x, root, True))
+
+
+def reduce_async(comm: Communicator, x: torch.Tensor, root: int = 0,
+                 op: str = "sum", groups=None) -> SynchronizationHandle:
+    _no_groups(groups)
+    return _async(_issue_reduce(comm, x, root, op, True))
+
+
+def allgather_async(comm: Communicator, x: torch.Tensor,
+                    groups=None) -> SynchronizationHandle:
+    _no_groups(groups)
+    return _async(_issue_allgather(comm, x, True))
+
+
+def sendreceive_async(comm: Communicator, x: torch.Tensor, src: int,
+                      dst: int) -> SynchronizationHandle:
+    return _async(_issue_sendreceive(comm, x, src, dst, True))
 
 
 def reduce_scatter(comm: Communicator, x: torch.Tensor, op: str = "sum",
@@ -156,9 +270,4 @@ def _later(name: str):
 
 
 allgatherv = _later("allgatherv")
-allreduce_async = _later("allreduce_async")
-broadcast_async = _later("broadcast_async")
-reduce_async = _later("reduce_async")
-allgather_async = _later("allgather_async")
-sendreceive = _later("sendreceive")
 alltoall = _later("alltoall")

@@ -1,8 +1,8 @@
-"""Collective selector: the static table, one cell of the device column.
+"""Collective selector: the static table, two cells of the device column.
 
 Counterpart of the ``autotune_mode=off`` path of
 ``torchmpi_tpu/collectives/selector.py``: its device column's single-node
-sync cell (JAX's ``"tpu"`` placement).  The cell lists namespaces in
+sync and async cells (JAX's ``"tpu"`` placement).  A cell lists namespaces in
 preference order, and :func:`resolve` returns the first one that implements
 a collective:
 
@@ -13,8 +13,17 @@ a collective:
 
 The ring namespace applies the small-message cutoff itself: a message of
 at most ``small_allreduce_size_gpu`` elements, a grouped call or an op other
-than sum/mean goes to ``eager``.  The multi-node and async cells come with
-the slices that port the hierarchical and async collectives.
+than sum/mean goes to ``eager``.
+
+Two cells are ported, the sync and the async one (``mode``), with the same
+preference order, as in JAX.  An async executable returns a
+:class:`~torchmpi_tpu_torch.runtime.handles.SynchronizationHandle`
+registered in flight.  ``xla`` has native async forms (``eager.*_async``);
+the ring namespace has none: its async form runs the sync call and wraps
+the result (:func:`_wrap_async`), and since every ring call is
+host-synchronised, the work is complete when the handle is returned.  The
+multi-node cells come with the slice that ports the hierarchical
+collectives.
 """
 
 from __future__ import annotations
@@ -22,10 +31,15 @@ from __future__ import annotations
 from typing import Callable, Dict, List
 
 from ..runtime import config
+from ..runtime import handles as _handles
+from ..runtime.handles import SynchronizationHandle
+
+MODES = ("sync", "async")
 
 
 def preferences() -> List[str]:
-    """The cell's namespaces in preference order (JAX's rule)."""
+    """The cell's namespaces in preference order (JAX's rule, the same for
+    both modes)."""
     if config.get("use_pallas_collectives"):
         return ["pallas", "xla"]
     return ["xla", "pallas"]
@@ -65,6 +79,18 @@ def _pallas_allgather(comm, x, groups=None):
     return cuda_ring.ring_allgather(comm, x).view(comm.size, x.numel())
 
 
+def _wrap_async(sync_fn: Callable) -> Callable:
+    """Async form of a namespace without a native one: run the sync call
+    and return its result in a handle registered in flight."""
+    def fn(comm, x, **kw):
+        out = sync_fn(comm, x, **kw)
+        h = SynchronizationHandle.from_arrays(out, event=_handles.fence(out))
+        return _handles.register(h)
+
+    fn.__name__ = sync_fn.__name__ + "_async"
+    return fn
+
+
 def _xla_fn(name: str) -> Callable:
     def fn(comm, x=None, **kw):
         from . import eager
@@ -78,23 +104,38 @@ def _xla_fn(name: str) -> Callable:
 
 
 _DISPATCH: Dict[tuple, Callable] = {
-    ("allreduce", "xla"): _xla_fn("allreduce"),
-    ("allreduce", "pallas"): _pallas_allreduce,
-    ("broadcast", "xla"): _xla_fn("broadcast"),
-    ("reduce", "xla"): _xla_fn("reduce"),
-    ("allgather", "xla"): _xla_fn("allgather"),
-    ("allgather", "pallas"): _pallas_allgather,
-    ("reduce_scatter", "xla"): _xla_fn("reduce_scatter"),
-    ("reduce_scatter", "pallas"): _pallas_reduce_scatter,
-    ("barrier", "xla"): _xla_fn("barrier"),
+    ("allreduce", "xla", "sync"): _xla_fn("allreduce"),
+    ("allreduce", "xla", "async"): _xla_fn("allreduce_async"),
+    ("allreduce", "pallas", "sync"): _pallas_allreduce,
+    ("allreduce", "pallas", "async"): _wrap_async(_pallas_allreduce),
+    ("broadcast", "xla", "sync"): _xla_fn("broadcast"),
+    ("broadcast", "xla", "async"): _xla_fn("broadcast_async"),
+    ("reduce", "xla", "sync"): _xla_fn("reduce"),
+    ("reduce", "xla", "async"): _xla_fn("reduce_async"),
+    ("allgather", "xla", "sync"): _xla_fn("allgather"),
+    ("allgather", "xla", "async"): _xla_fn("allgather_async"),
+    ("allgather", "pallas", "sync"): _pallas_allgather,
+    ("allgather", "pallas", "async"): _wrap_async(_pallas_allgather),
+    ("sendreceive", "xla", "sync"): _xla_fn("sendreceive"),
+    ("sendreceive", "xla", "async"): _xla_fn("sendreceive_async"),
+    ("reduce_scatter", "xla", "sync"): _xla_fn("reduce_scatter"),
+    ("reduce_scatter", "xla", "async"): _wrap_async(
+        _xla_fn("reduce_scatter")),
+    ("reduce_scatter", "pallas", "sync"): _pallas_reduce_scatter,
+    ("reduce_scatter", "pallas", "async"): _wrap_async(
+        _pallas_reduce_scatter),
+    ("barrier", "xla", "sync"): _xla_fn("barrier"),
 }
 
 
-def resolve(collective: str) -> Callable:
-    """The executable for ``collective``: the first namespace of
-    :func:`preferences` that implements it."""
+def resolve(collective: str, mode: str = "sync") -> Callable:
+    """The executable for ``collective`` in ``mode`` ("sync" or "async"):
+    the first namespace of :func:`preferences` that implements it."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     for impl in preferences():
-        fn = _DISPATCH.get((collective, impl))
+        fn = _DISPATCH.get((collective, impl, mode))
         if fn is not None:
             return fn
-    raise KeyError(f"no implementation of {collective!r} in any namespace")
+    raise KeyError(f"no implementation of {collective!r} ({mode}) in any "
+                   f"namespace")

@@ -3,7 +3,7 @@
 Counterpart of ``torchmpi_tpu/engine/sgdengine.py``.  Each process holds
 its own replica of the parameters (a tree of tensors), takes its own row r
 of every rank-major batch ``(p, b, ...)``, computes the loss and gradients
-of that shard, syncs the gradients and applies SGD (``p - lr * g``).  Two
+of that shard, syncs the gradients and applies SGD (``p - lr * g``).  Three
 modes are ported:
 
 * ``compiled`` with ``use_pallas_collectives`` on: the JAX ring-synced
@@ -17,11 +17,18 @@ modes are ported:
   the loss is the mean over ranks.
 * ``eager_sync``: ``nn.synchronize_gradients`` (bucketed, through the
   selector) every step.
+* ``eager_async``: ``nn.async_.register_async_backward`` dispatches the
+  same buckets as async allreduces in ready order, then
+  ``engine_async_drain`` drains them: ``"ready"`` updates each bucket's
+  parameters as soon as its collective completes
+  (``nn.async_.drain_at_optimizer``), ``"barrier"`` waits them all, then
+  updates.  The parameters equal ``eager_sync``'s bit for bit;
+  ``state["blocked_s"]`` holds the seconds the step sat in handle waits.
 
 ``compiled`` with the knob off is GSPMD over the global batch in JAX, so
 batch norm there normalizes with cross-rank statistics; it raises here
-until the slice that brings them.  ``eager_async``, ``optimizer=``,
-``zero1`` and ``accum_steps`` raise and name their slice too.
+until the slice that brings them.  ``optimizer=``, ``zero1`` and
+``accum_steps`` raise and name their slice too.
 
 Hooks (``on_start, on_start_epoch, on_sample, on_forward, on_backward,
 on_update, on_end_epoch, on_end``) are called with the mutable ``state``.
@@ -44,7 +51,8 @@ LossFn = Callable[[Any, Tuple[torch.Tensor, torch.Tensor]], torch.Tensor]
 Hooks = Dict[str, Callable[[Dict[str, Any]], None]]
 
 MODES = ("compiled", "eager_sync", "eager_async")
-_LATER = "comes with a later slice (ROADMAP.md slice 3, items 7-8)"
+DRAINS = ("ready", "barrier")
+_LATER = "comes with a later slice (ROADMAP.md slice 3, item 8)"
 
 
 def sgd_update(params, grads, lr):
@@ -113,8 +121,6 @@ class AllReduceSGDEngine:
                  accum_steps: int = 1):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}")
-        if mode == "eager_async":
-            raise NotImplementedError(f"mode 'eager_async' {_LATER}")
         if optimizer is not None:
             raise NotImplementedError(f"optimizer= {_LATER}; plain SGD runs")
         if zero1:
@@ -148,6 +154,10 @@ class AllReduceSGDEngine:
                 "later slice (ROADMAP.md slice 3, item 8); turn "
                 "use_pallas_collectives on (per-rank statistics, the ring "
                 "path) or use mode='eager_sync'")
+        drain = config.get("engine_async_drain")
+        if self.mode == "eager_async" and drain not in DRAINS:
+            raise ValueError(f"engine_async_drain must be one of {DRAINS}, "
+                             f"got {drain!r}")
 
     @staticmethod
     def _local(batch, rank: int, device: torch.device):
@@ -203,10 +213,30 @@ class AllReduceSGDEngine:
             loss, grads = value_and_grad(self.loss_fn, state["params"], local)
             state["loss"] = eager.allreduce(comm, loss, op="mean")
             self._hook("on_forward", state)
+            if self.mode == "eager_async":
+                state["loss_meter"].add(state["loss"])
+                self._async_sync_and_update(state, grads, comm)
+                return
             grads = mpinn.synchronize_gradients(grads, comm)
             self._hook("on_backward", state)
         state["loss_meter"].add(state["loss"])
         state["params"] = sgd_update(state["params"], grads, self.lr)
+
+    def _async_sync_and_update(self, state, grads, comm) -> None:
+        """eager_async: dispatch the buckets, then drain them as
+        ``engine_async_drain`` says (the JAX engine's branch)."""
+        reg = mpinn.async_.register_async_backward(grads, comm,
+                                                   step=state["t"])
+        self._hook("on_backward", state)
+        if config.get("engine_async_drain") == "barrier":
+            grads = mpinn.async_.synchronize_gradients(reg)
+            state["params"] = sgd_update(state["params"], grads, self.lr)
+        else:
+            lr = self.lr
+            with torch.no_grad():
+                state["params"] = mpinn.async_.drain_at_optimizer(
+                    reg, state["params"], lambda p, g: p - lr * g)
+        state["blocked_s"] = reg.blocked_s
 
     def test(self, params: Any, iterator, metric_fn: LossFn) -> float:
         """Mean of ``metric_fn`` over the iterator: each rank on its row,

@@ -9,7 +9,10 @@ every step.
 every rank binds ``cuda:LOCAL_RANK % device_count``; ``--device cpu`` runs
 on the CPU over gloo.  ``--mode compiled`` syncs the gradients through the
 ring kernels (``use_pallas_collectives`` on); ``--mode eager_sync`` through
-``nn.synchronize_gradients``.  The data is ``synthetic_mnist`` at the image
+``nn.synchronize_gradients``; ``--mode eager_async`` as async bucket
+allreduces drained per ``--async-drain`` (``ready``: each bucket's
+parameters update as its collective completes; ``barrier``: after all of
+them), through the ring kernels above the small-message cutoff.  The data is ``synthetic_mnist`` at the image
 size asked for.  Every ``--stats-every`` steps the BN running statistics are
 refreshed from the last batch, and the run ends with an inference-mode
 evaluation.  The defaults are a small net on 32x32 images; ``--depth 50
@@ -32,8 +35,11 @@ def parse_args(argv=None):
                     help="images per rank and step")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--lr", type=float, default=0.05)
-    ap.add_argument("--mode", choices=("compiled", "eager_sync"),
-                    default="compiled")
+    ap.add_argument("--mode", choices=("compiled", "eager_sync",
+                                       "eager_async"), default="compiled")
+    ap.add_argument("--async-drain", choices=("ready", "barrier"),
+                    default="ready",
+                    help="how eager_async drains its bucket allreduces")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU; default: the GPU")
     ap.add_argument("--nproc", type=int, default=0,
@@ -53,7 +59,8 @@ def run(args) -> dict:
     from torchmpi_tpu_torch.runtime import config, lifecycle
     from torchmpi_tpu_torch.utils.data import ShardedIterator, synthetic_mnist
 
-    config.set("use_pallas_collectives", args.mode == "compiled")
+    config.set("use_pallas_collectives", args.mode != "eager_sync")
+    config.set("engine_async_drain", args.async_drain)
     device = lifecycle.start(device=args.device)
     try:
         p, rank = lifecycle.size(), lifecycle.rank()

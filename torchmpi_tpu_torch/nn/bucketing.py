@@ -5,6 +5,9 @@ tree order (``utils.tree``: sorted dict keys), into buckets of at most
 ``gradient_bucket_bytes``; a leaf larger than that gets a bucket of its
 own.  The bucket tables are the JAX package's.  Here the leaves are one
 rank's tensors, so a bucket is a flat ``(total,)`` vector.
+:func:`plan_ready_order` adds the order in which the async backward
+dispatches the buckets (:class:`DispatchPlan`), and :func:`bucket_sq_norms`
+each bucket's squared norm.
 """
 
 from __future__ import annotations
@@ -71,6 +74,36 @@ def plan_buckets(tree: Any, bucket_bytes: int | None = None) -> BucketPlan:
     return BucketPlan(treedef, tuple(specs))
 
 
+@dataclasses.dataclass(frozen=True)
+class DispatchPlan:
+    """A :class:`BucketPlan` and the order its buckets are dispatched in.
+
+    ``order`` lists bucket indices in the order backprop makes their
+    gradients ready: the bucket whose last leaf lies deepest in tree order
+    first.  It permutes whole buckets only; the grouping is exactly
+    :func:`plan_buckets`'s, so the packed buckets are bit-identical to the
+    barrier path's."""
+
+    plan: BucketPlan
+    order: Tuple[int, ...]
+
+
+def ready_order(plan: BucketPlan) -> Tuple[int, ...]:
+    """Bucket indices by descending position of each bucket's last leaf:
+    the reverse bucket order for a tree of one dtype; mixed dtypes
+    interleave by readiness."""
+    return tuple(sorted(range(len(plan.specs)),
+                        key=lambda i: max(plan.specs[i].leaf_indices),
+                        reverse=True))
+
+
+def plan_ready_order(tree: Any,
+                     bucket_bytes: int | None = None) -> DispatchPlan:
+    """:func:`plan_buckets` of ``tree`` with its :func:`ready_order`."""
+    plan = plan_buckets(tree, bucket_bytes)
+    return DispatchPlan(plan, ready_order(plan))
+
+
 def flatten(tree: Any, plan: BucketPlan) -> List[torch.Tensor]:
     """Pack leaves into flat ``(total,)`` buckets."""
     leaves = _tree.leaves(tree)
@@ -96,6 +129,17 @@ def unflatten(buckets: Sequence[torch.Tensor], plan: BucketPlan) -> Any:
         for li, leaf in zip(spec.leaf_indices, unflatten_bucket(bucket, spec)):
             leaves[li] = leaf
     return _tree.unflatten(plan.treedef, leaves)
+
+
+def bucket_sq_norms(tree: Any, plan: BucketPlan) -> torch.Tensor:
+    """Each bucket's squared L2 norm in f32, in ``plan``'s bucket order,
+    summed leaf by leaf without packing the buckets."""
+    leaves = _tree.leaves(tree)
+    if not plan.specs:
+        return torch.zeros((0,), dtype=torch.float32)
+    sq = [leaf.float().square().sum() for leaf in leaves]
+    return torch.stack([sum(sq[i] for i in spec.leaf_indices)
+                        for spec in plan.specs])
 
 
 def map_bucketed(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any,

@@ -268,10 +268,21 @@ int run_ring(int kind, int p, int me, long long chunk, int nslots,
 
 // ---- staging memory and its IPC handles ------------------------------------
 
+// The block is zeroed before this returns, on a stream of its own.  The
+// caller swaps its IPC handle right after, and a neighbour may send into it
+// at once; a memset queued on the default stream would wait for this
+// process's pending work (a backward pass) and could then wipe a chunk and
+// a data word that the neighbour had already delivered.
 extern "C" int tmpi_ring_alloc(size_t bytes, void** out) {
   cudaError_t e = cudaMalloc(out, bytes);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaMemset(*out, 0, bytes);
+  cudaStream_t s;
+  e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemsetAsync(*out, 0, bytes, s);
+  cudaError_t e2 = cudaStreamSynchronize(s);
+  cudaStreamDestroy(s);
+  return (int)(e != cudaSuccess ? e : e2);
 }
 
 extern "C" int tmpi_ring_free(void* p) { return (int)cudaFree(p); }

@@ -6,8 +6,10 @@ stays the one registry of both packages.  Only the knobs of the ported
 modules are here: the span tracer (``obs_trace``, ``obs_span_capacity``),
 the event journal (``journal_*``), the serving plane (``serve_*``), the
 collective selector and the ring collectives (``use_pallas_collectives``,
-``small_allreduce_size_gpu``, the buffer geometry) and gradient bucketing
-(``gradient_bucket_bytes``).
+``small_allreduce_size_gpu``, the buffer geometry), the async collectives
+(``num_async_collectives_in_flight``), gradient bucketing
+(``gradient_bucket_bytes``) and the engine's asynchronous gradient sync
+(``engine_async_drain``, ``sync_gradient_frequency``).
 """
 
 from __future__ import annotations
@@ -57,6 +59,19 @@ class Constants:
     # Gradient bucketing: leaves fuse into flat buckets of at most this
     # many bytes, by dtype, in tree order (nn/bucketing.py).
     gradient_bucket_bytes: int = 32 * 1024 * 1024
+
+    # --- async collectives and the engine's eager_async mode ---
+    # Outstanding async handles before the in-flight registry waits them
+    # all (runtime/handles.py).
+    num_async_collectives_in_flight: int = 1 << 20
+    # How eager_async drains its bucket allreduces: "ready" updates each
+    # bucket's parameters as soon as its collective completes, in ready
+    # order (nn.async_.drain_at_optimizer); "barrier" waits every bucket,
+    # then updates.  The parameters are the same either way.
+    engine_async_drain: str = "ready"
+    # The async backward syncs gradients every N steps; the steps between
+    # update with this rank's own gradients.
+    sync_gradient_frequency: int = 1
 
     # --- observability: off by default, so span() is one config read ---
     # Master switch of the Python span tracer.

@@ -19,7 +19,11 @@ leaves: 42 leaves of 65,536 to 2,359,296 elements one by one, then the
 each held against the plain schedule bit for bit.  Rank 0 times the 43
 rings as one step (CUDA events, median of 5 after a warm-up), the plain
 schedule over the same inputs and gloo's ``all_reduce`` of the same 43
-tensors, and one ring alone at the largest leaf and at the tail.
+tensors, and one ring alone at the largest leaf and at the tail.  The same
+again for the buckets of one ``eager_async`` step (``nn.bucketing.
+plan_ready_order`` over the full-width parameters: 4 buckets of 2,057,536 to
+8,271,616 elements, in dispatch order, on the ring's default collective id
+as the selector's async cell calls it).
 
 At n = 25,557,032 in f32 it times, on rank 0, the kernel (CUDA events
 around each call, median of 10 after 2 warm-up calls), the plain version
@@ -28,7 +32,10 @@ CUDA tensors (reduce-scatter: that all_reduce and a slice; allgather:
 gloo's ``all_gather``, which stages a CUDA tensor through the host).  Then
 it drives the public collectives once through the selector with
 ``use_pallas_collectives`` on, at n = 25,557,032 (the ``collectives`` path;
-the launch counts are taken around it), and last two forced stalls: rank 1
+the launch counts are taken around it), then the first call of a ring on a
+collective id of its own while rank 0's stream is still busy (its staging
+must be zeroed before a neighbour can send into it), bit for bit against
+the plain schedule, and last two forced stalls: rank 1
 skips a ring, and rank 0 must raise ``RingError`` within the deadline; then
 rank 1 runs that ring late, after rank 0 gave up on it, and must raise in
 turn without lowering rank 0's released data word.
@@ -50,6 +57,11 @@ KINDS = ("allreduce", "reduce_scatter", "allgather")
 STALL_TIMEOUT_S = 1.0
 # What tmpi_ring_abort raises a rank's data and credit words to.
 ABORTED_WORD = 1 << 62
+# The fresh-state case: a collective id no other case uses, its size, and
+# the sleep queued on rank 0's stream first (about 0.2 s on an H100).
+FRESH_COLLECTIVE_ID = 0x7E
+FRESH_N = 300_000
+FRESH_SLEEP_CYCLES = 400_000_000
 
 
 def _cases(quick: bool):
@@ -149,6 +161,9 @@ def rank_main(quick: bool, seed: int) -> dict:
         config.reset()
         resnet_rings = _resnet_step_rings(torch, dist, cr, comm, quick, seed)
         torch.cuda.empty_cache()
+        bucket_rings = _resnet_bucket_rings(torch, dist, cr, comm, quick,
+                                            seed)
+        torch.cuda.empty_cache()
 
         # The collectives path: the public API through the selector.
         config.reset(use_pallas_collectives=True)
@@ -166,9 +181,11 @@ def rank_main(quick: bool, seed: int) -> dict:
                   and tuple(ag.shape) == (p, n)
                   and bool(torch.equal(ag[me], x)))
         del ar, rs, ag
+        fresh = _fresh_state(torch, dist, cr, comm, seed)
         return {"rank": me, "p": p, "records": records,
-                "resnet_rings": resnet_rings,
+                "resnet_rings": resnet_rings, "bucket_rings": bucket_rings,
                 "collectives_launches": counts, "collectives_ok": api_ok,
+                "fresh_state": fresh,
                 **_stalls(torch, dist, cr, comm, x[:4096])}
     finally:
         lifecycle.stop()
@@ -195,17 +212,45 @@ def resnet50_ring_sizes(device="cuda") -> list:
     return [sum(leaves[i].numel() for i in idxs) for idxs in plan]
 
 
+def resnet50_bucket_sizes(device="cuda") -> list:
+    """Elements of each bucket of one ResNet-50 (full width) ``eager_async``
+    step, in the order ``nn.async_`` dispatches them
+    (``nn.bucketing.plan_ready_order``)."""
+    from torchmpi_tpu_torch.models import resnet
+    from torchmpi_tpu_torch.nn import bucketing
+
+    params, _ = resnet.init(0, resnet.config(depth=50), device=device)
+    dp = bucketing.plan_ready_order(params)
+    return [dp.plan.specs[bi].total for bi in dp.order]
+
+
 def _resnet_step_rings(torch, dist, cr, comm, quick: bool, seed: int) -> dict:
-    """The rings of one ResNet-50 step (f32, mean, the engine's ids), each
-    against the plain schedule; on rank 0 (unless ``quick``) the step's
-    rings timed together and one ring at the largest leaf and the tail."""
-    p, me = comm.size, comm.rank
+    """The rings of one ResNet-50 compiled-mode step (the engine's ids)."""
     sizes = resnet50_ring_sizes()
     ids = [cr.CALLER_COLLECTIVE_ID_BASE + i % 8 for i in range(len(sizes))]
+    return _held_rings(torch, dist, cr, comm, sizes, ids, quick, seed + 100)
+
+
+def _resnet_bucket_rings(torch, dist, cr, comm, quick: bool,
+                         seed: int) -> dict:
+    """The buckets of one ResNet-50 eager_async step, in dispatch order, on
+    the ring's default id as the selector's async cell calls it."""
+    sizes = resnet50_bucket_sizes()
+    return _held_rings(torch, dist, cr, comm, sizes, [None] * len(sizes),
+                       quick, seed + 200)
+
+
+def _held_rings(torch, dist, cr, comm, sizes, ids, quick: bool,
+                seed: int) -> dict:
+    """Rings of ``sizes`` elements (f32, mean, collective ``ids``), each
+    against the plain schedule; on rank 0 (unless ``quick``) the rings
+    timed together as one step and one ring at the largest size and the
+    last."""
+    p, me = comm.size, comm.rank
     case = {"dtype": "float32"}
     inputs, bad, err = [], [], 0.0
     for i, n in enumerate(sizes):
-        xs = _inputs(torch, {**case, "n": n}, p, seed + 100 + i)
+        xs = _inputs(torch, {**case, "n": n}, p, seed + i)
         got = cr.inner_ring_allreduce(xs[me], p, mean=True,
                                       collective_id=ids[i], comm=comm)
         torch.cuda.synchronize()
@@ -249,6 +294,27 @@ def _resnet_step_rings(torch, dist, cr, comm, quick: bool, seed: int) -> dict:
                largest_ms=_ms(torch, one(largest), 2, 10),
                tail_ms=_ms(torch, one(len(sizes) - 1), 2, 10))
     return out
+
+
+def _fresh_state(torch, dist, cr, comm, seed: int) -> dict:
+    """A ring on a collective id of its own, its first call, made while rank
+    0's stream is still busy (a sleep kernel of about 0.2 s queued just
+    before): rank 0's staging must be zeroed before its handle reaches the
+    neighbour, whose first send may land at once.  Held against the plain
+    schedule bit for bit."""
+    p, me = comm.size, comm.rank
+    xs = [torch.randn(FRESH_N, generator=torch.Generator(device="cuda")
+                      .manual_seed(seed * 31 + r), device="cuda")
+          for r in range(p)]
+    torch.cuda.synchronize()
+    dist.barrier(group=comm.group)
+    if me == 0:
+        torch.cuda._sleep(FRESH_SLEEP_CYCLES)
+    got = cr.inner_ring_allreduce(xs[me], p, collective_id=FRESH_COLLECTIVE_ID,
+                                  comm=comm)
+    torch.cuda.synchronize()
+    return {"n": FRESH_N, **_compare(torch, got,
+                                     cr._ring_allreduce_plain(xs)[me])}
 
 
 def _stalls(torch, dist, cr, comm, x) -> dict:
@@ -350,6 +416,12 @@ def main() -> int:
     print(json.dumps({"resnet_rings": {k: v for k, v in rings.items()
                                        if k != "sizes"}}), flush=True)
     ok = ok and all(r["resnet_rings"]["bitwise_equal"] for r in results)
+    buckets = results[0]["bucket_rings"]
+    print(json.dumps({"bucket_rings": buckets}), flush=True)
+    ok = ok and all(r["bucket_rings"]["bitwise_equal"] for r in results)
+    print(json.dumps({"fresh_state": [r["fresh_state"] for r in results]}),
+          flush=True)
+    ok = ok and all(r["fresh_state"]["bitwise_equal"] for r in results)
     stall, late = results[0]["stall"], results[0]["late"]
     print(json.dumps({"collectives_launches": results[0]["collectives_launches"],
                       "stall": stall, "late": late}), flush=True)
