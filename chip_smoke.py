@@ -12,8 +12,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the build time.
 3. kernel: the flash-attention forward kernel (B4) against its plain
    PyTorch version at the training and generate paths' shape (B=1, H=32,
-   L=2048, D=128, causal) in bf16 and f32, plus a non-causal, an Lk != Lq
-   (f32 out) and a ragged case; then the backward kernels, dq (B5) and
+   L=2048, D=128, causal) in bf16 (the tensor-core kernel) and f32 (the
+   CUDA-core one) and bf16 in with f32 out (timed), plus a non-causal bf16
+   case, an Lk != Lq pair (bf16 in, f32 out and bf16 out, both timed) and
+   ragged cases (Lq 100, Lk 300: f32,
+   and bf16 causal and not); each record names its design, and the timed
+   ones their TFLOP/s, the main ones the kernel's time in PERF.md before
+   its redesign; then the backward kernels, dq (B5) and
    dk/dv (B6), against theirs in the same five cases (the Lk != Lq one
    through flash_bwd_block with an external lse and delta).  Each max
    error is printed beside its tolerance, with the kernel's, the plain
@@ -69,7 +74,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    14, 256) with w (3, 3, 256, 256)) in bf16 and f32, each error beside its
    tolerance, with the kernel's, the plain version's and ``F.conv2d``'s
    forward and forward+backward times (cuDNN, channels_last, TF32 off; a
-   yardstick only) beside the bound.  Its path is ``conv3x3`` with the
+   yardstick only) beside the bound, its design (bf16: tensor cores, f32:
+   CUDA cores), TFLOP/s and time in PERF.md before its redesign; then two
+   bf16 edge cases, checked and not timed: x (3, 5, 9, 72) to 40 channels
+   (off the kernel's tiles) and x (2, 6, 7, 13) to 20 (C and Cout not
+   multiples of 8).  Its path is ``conv3x3`` with the
    bench's blocks (bn=8, bc=256) once at each shape in bf16: the count is
    set to 0 just before each of those checked calls and read just after,
    and the two must launch the kernel twice.
@@ -165,12 +174,21 @@ CONV_REPLACES = ("benchmarks/pallas_conv_bench.py:52", "_conv_kernel")
 CONV_SHAPES = [("7x7x512", (128, 7, 7, 512), 512),
                ("14x14x256", (128, 14, 14, 256), 256)]
 CONV_BN, CONV_BC = 8, 256
+# Edge cases of B7, checked against the plain version and not timed: off
+# the bf16 kernel's 128 x 128 tile and 64-channel chunk (N*H*W, C and Cout),
+# and a C and Cout that are not multiples of 8 (masked element loads).
+# (name, x NHWC, Cout, bn, bc.)
+CONV_EDGE_CASES = [("edge_3x5x9x72_to_40", (3, 5, 9, 72), 40, 1, 40),
+                   ("edge_c13_to_20", (2, 6, 7, 13), 20, 1, 20)]
 CONV_LIBRARY = ("torch.nn.functional.conv2d (cuDNN, channels_last, TF32 "
                 "off), forward")
 RESNET_ASYNC_STEPS = 3
 RESNET_ASYNC_RUNS = (("eager_async-ready", "eager_async", "ready"),
                      ("eager_async-barrier", "eager_async", "barrier"),
                      ("eager_sync", "eager_sync", "ready"))
+
+# What each kernel runs on, by input dtype (the sources dispatch on it).
+DESIGN = {"bfloat16": "wgmma bf16→f32", "float32": "f32 FMA, CUDA cores"}
 
 COUNTERS = {"flash_attention_fwd": "flash_fwd_launches",
             "flash_attention_bwd_dq": "flash_bwd_dq_launches",
@@ -228,6 +246,12 @@ def attention_bound_ms(bh, lq, lk, d, causal, in_dtype, in_bytes, out_bytes):
     nbytes = bh * (lq * d * in_bytes + 2 * lk * d * in_bytes
                    + lq * d * out_bytes + lq * 4)
     return bound_ms(ops, nbytes, in_dtype)
+
+
+def attention_tflops(bh, lq, lk, d, causal, ms):
+    """The forward's rate: its multiply-adds over the kept (q, k) pairs
+    (q.k and p.v) in TFLOP/s at ``ms`` a call."""
+    return 4.0 * bh * causal_pairs(lq, lk, causal) * d / ms / 1e9
 
 
 def attention_bwd_bound_ms(kernel, bh, lq, lk, d, causal, in_dtype, in_bytes,
@@ -316,6 +340,7 @@ def phase_conv_kernel(torch, conv):
                    "library_fwd_bwd_ms": library_fwd_bwd_ms,
                    "library_max_abs_err": lib_err,
                    "bound_ms": bound, "bound_by": bound_by,
+                   "design": DESIGN[dtype],
                    "kernel_tflops": 2.0 * n * h * w_ * 9 * c * cout
                    / kernel_ms / 1e9}
             emit(phase="conv_kernel", **rec)
@@ -324,11 +349,35 @@ def phase_conv_kernel(torch, conv):
                                      f"plain version: {rec}")
             recs[rec["case"]] = rec
             del x, w, got, want, xc, wc, xg, wg, gout
+    for name, xshape, cout, bn, bc in CONV_EDGE_CASES:
+        c = xshape[-1]
+        x = torch.randn(xshape, generator=g, device="cuda").bfloat16()
+        w = (torch.randn((3, 3, c, cout), generator=g, device="cuda")
+             / math.sqrt(9 * c)).bfloat16()
+        with torch.no_grad():
+            conv.conv3x3_launches = 0
+            got = conv.conv3x3(x, w, bn=bn, bc=bc)
+            torch.cuda.synchronize()
+            launched = conv.conv3x3_launches
+            want = conv.conv3x3_plain(x, w)
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        atol = 2.0 ** (math.floor(math.log2(scale)) - 7)   # one bf16 ulp
+        rec = {"case": f"{name}_bfloat16", "x": list(xshape),
+               "w": [3, 3, c, cout], "bn": bn, "bc": bc, "dtype": "bfloat16",
+               "max_abs_err": err, "atol": atol, "out_scale": scale,
+               "finite": bool(torch.isfinite(got.float()).all()),
+               "launches": launched, "design": DESIGN["bfloat16"]}
+        emit(phase="conv_kernel", **rec)
+        if not (err <= atol and rec["finite"] and launched == 1):
+            raise AssertionError(f"conv3x3 kernel disagrees with its plain "
+                                 f"version: {rec}")
+        recs[rec["case"]] = rec
     torch.cuda.empty_cache()
     # The path: the op as the bench calls it (bn=8, bc=256), in bf16, once
     # at each shape; its launches are those of the checked calls above.
-    launches = sum(r["launches"] for r in recs.values()
-                   if r["dtype"] == "bfloat16")
+    launches = sum(recs[f"{shape}_bfloat16"]["launches"]
+                   for shape, _, _ in CONV_SHAPES)
     emit(phase="conv_kernel", path="conv3x3", launches=launches,
          shapes=[s for s, _, _ in CONV_SHAPES], bn=CONV_BN, bc=CONV_BC)
     if launches != len(CONV_SHAPES):
@@ -345,15 +394,25 @@ def phase_kernel(torch, fa):
     # bf16 out: both sides compute in f32 and round once to bf16, where a
     # last-place flip is 2^-7 relative: 1e-2 abs + 1e-2 rel.
     # lse is f32 on both sides, log of a sum of <= 2048 terms: 1e-3 abs.
+    # bf16 inputs run the tensor-core kernel: its bf16 P moves a bf16 o by
+    # at most 2^-9 of sum p|v| / l, inside the bf16 tolerance; with an f32
+    # output it forms P V as P_hi V + P_lo V and holds the f32 2e-4.  The
+    # main shape with an f32 output and the lk_ne_lq pair are timed too, f32
+    # out against bf16 out.
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        ("main_bf16", 32, 2048, 2048, True, torch.bfloat16, None, 1e-2, 1e-2),
-        ("main_f32", 32, 2048, 2048, True, torch.float32, None, 2e-4, 0.0),
-        ("noncausal_bf16", 8, 1024, 1024, False, torch.bfloat16, None,
-         1e-2, 1e-2),
-        ("lk_ne_lq_f32out", 32, 512, 2048, True, torch.bfloat16,
-         torch.float32, 2e-4, 0.0),
-        ("ragged_f32", 4, 100, 300, False, torch.float32, None, 2e-4, 0.0),
+        ("main_bf16", 32, 2048, 2048, True, bf16, None, 1e-2, 1e-2),
+        ("main_f32", 32, 2048, 2048, True, f32, None, 2e-4, 0.0),
+        ("main_bf16_f32out", 32, 2048, 2048, True, bf16, f32, 2e-4, 0.0),
+        ("noncausal_bf16", 8, 1024, 1024, False, bf16, None, 1e-2, 1e-2),
+        ("lk_ne_lq_f32out", 32, 512, 2048, True, bf16, f32, 2e-4, 0.0),
+        ("lk_ne_lq_bf16", 32, 512, 2048, True, bf16, None, 1e-2, 1e-2),
+        ("ragged_f32", 4, 100, 300, False, f32, None, 2e-4, 0.0),
+        ("ragged_bf16", 4, 100, 300, False, bf16, None, 1e-2, 1e-2),
+        ("ragged_bf16_causal", 4, 100, 300, True, bf16, None, 1e-2, 1e-2),
     ]
+    timed = ("main_bf16", "main_f32", "main_bf16_f32out", "lk_ne_lq_f32out",
+             "lk_ne_lq_bf16")
     records = {}
     for name, bh, lq, lk, causal, dt, odt, atol, rtol in cases:
         q = torch.randn((bh, lq, 128), generator=g, device="cuda").to(dt)
@@ -385,18 +444,23 @@ def phase_kernel(torch, fa):
                "out_dtype": str(odt).split(".")[-1],
                "o_max_abs_err": o_err, "o_atol": atol, "o_rtol": rtol,
                "lse_max_abs_err": lse_err, "lse_atol": 1e-3,
-               "finite": finite}
-        if name.startswith("main"):
+               "finite": finite, "design": DESIGN[str(dt).split(".")[-1]]
+               + (", P V as P_hi V + P_lo V" if (dt, odt) == (bf16, f32)
+                  else "")}
+        if name in timed:
             rec["kernel_ms"] = cuda_ms(torch, kern)
+            rec["kernel_tflops"] = attention_tflops(bh, lq, lk, 128, causal,
+                                                    rec["kernel_ms"])
+            esize = torch.tensor([], dtype=dt).element_size()
+            rec["bound_ms"], rec["bound_by"] = attention_bound_ms(
+                bh, lq, lk, 128, causal, rec["dtype"], esize,
+                torch.tensor([], dtype=odt).element_size())
+        if name in ("main_bf16", "main_f32"):
             rec["plain_ms"] = cuda_ms(torch, plain, warmup=1, iters=3)
             qs, ks, vs = (x.view(1, bh, -1, 128) for x in (q, k, v))
             rec["library_ms"] = cuda_ms(
                 torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=causal))
-            esize = torch.tensor([], dtype=dt).element_size()
-            rec["bound_ms"], rec["bound_by"] = attention_bound_ms(
-                bh, lq, lk, 128, causal, rec["dtype"], esize,
-                torch.tensor([], dtype=odt).element_size())
         emit(phase="kernel", **rec)
         if not (o_ok and lse_err <= 1e-3 and finite):
             raise AssertionError(f"kernel disagrees with its plain version "
@@ -1174,9 +1238,11 @@ def conv_kernel_record(recs, launches):
             "launches_by_path": {"conv3x3": launches},
             "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
             "ms": main["kernel_ms"], **{k: main[k] for k in timing},
+            "design": main["design"], "kernel_tflops": main["kernel_tflops"],
             "library": CONV_LIBRARY,
             "shape": "x (128, 7, 7, 512) w (3, 3, 512, 512) bf16",
-            "cases": {case: {k: r[k] for k in timing + ("max_abs_err",)}
+            "cases": {case: {k: r[k] for k in timing + (
+                "max_abs_err", "design", "kernel_tflops") if k in r}
                       for case, r in recs.items()}}
 
 
@@ -1187,7 +1253,10 @@ def kernel_record(name, recs, part, err_keys, launches_by_path):
     main = recs["main_bf16"] if part is None else recs["main_bf16"][part]
     f32 = recs["main_f32"] if part is None else recs["main_f32"][part]
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    return {
+    # The forward's records carry its design and rate (the backward kernels
+    # are not redesigned yet).
+    extra = ("design", "kernel_tflops")
+    rec = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "replaces_function": function,
         "launches": sum(p[name] for p in launches_by_path.values()),
@@ -1195,10 +1264,20 @@ def kernel_record(name, recs, part, err_keys, launches_by_path):
                              for path, p in launches_by_path.items()},
         "max_abs_err": max(r[k] for r in recs.values() for k in err_keys),
         "ms": main["kernel_ms"], **{k: main[k] for k in timing},
+        **{k: main[k] for k in extra if k in main},
         "library": library,
         "shape": "B=1 H=32 L=2048 D=128 causal bf16",
-        "f32": {k: f32[k] for k in timing},
+        "f32": {k: f32[k] for k in timing + extra if k in f32},
     }
+    if part is None:
+        rec["f32_out"] = {k: recs["main_bf16_f32out"][k] for k in (
+            "kernel_ms", "kernel_tflops", "bound_ms", "design")}
+        rec["lk_ne_lq"] = {
+            case: {k: recs[case][k] for k in (
+                "kernel_ms", "kernel_tflops", "bound_ms", "out_dtype",
+                "design")}
+            for case in ("lk_ne_lq_bf16", "lk_ne_lq_f32out")}
+    return rec
 
 
 def main() -> int:

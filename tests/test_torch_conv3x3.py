@@ -135,11 +135,17 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", [(16, 7, 7, 512, 512),
                                    (8, 14, 14, 256, 256),
-                                   (8, 5, 9, 40, 72)],
-                         ids=["7x7x512", "14x14x256", "ragged"])
+                                   (8, 5, 9, 40, 72),
+                                   (3, 5, 9, 72, 40),
+                                   (2, 6, 7, 13, 20)],
+                         ids=["7x7x512", "14x14x256", "ragged", "ragged_tiles",
+                              "c13"])
 def test_kernel_matches_plain_version_on_the_card(dtype, shape):
     # The CUDA kernel exists only on the card; chip_smoke.py runs the same
-    # comparison at the bench's full batch of 128.
+    # comparison at the bench's full batch of 128.  bf16 runs the
+    # tensor-core kernel: "ragged_tiles" has N*H*W, C and Cout off its
+    # 128 x 128 tile and 64-channel chunk, "c13" a C and a Cout that are
+    # not multiples of 8 (its masked element loads).
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False

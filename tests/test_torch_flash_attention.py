@@ -21,6 +21,7 @@ import jax.numpy as jnp
 # The modules, not the functions of the same name the packages export.
 jfa = importlib.import_module("torchmpi_tpu.ops.flash_attention")
 tfa = importlib.import_module("torchmpi_tpu_torch.ops.flash_attention")
+from torchmpi_tpu_torch.tools import flash_tile_probe  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -222,13 +223,103 @@ def test_plain_version_does_not_count_as_a_launch():
             tfa.flash_bwd_dkv_launches) == before
 
 
+def test_bf16_kernel_refuses_unaligned_tensors():
+    # The tensor-core forward reads q, k, v with TMA and writes o in vector
+    # stores; a view one element in is not on a 16-byte boundary.
+    flat = torch.zeros(2 * 128 + 1, dtype=torch.bfloat16)
+    aligned, shifted = flat[:256], flat[1:257]
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 2
+    tfa._check_aligned(q=aligned, k=aligned)
+    with pytest.raises(ValueError, match="16-byte aligned.* k is not"):
+        tfa._check_aligned(q=aligned, k=shifted)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::tc::flash_fwd_wgmma<false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, void*, float*, int, int, float, int)",
+     "flash_attention_fwd"),
+    ("void (anonymous namespace)::cuda_core::flash_fwd_f32<float>(float "
+     "const*, float const*, float const*, float*, float*, int, int, float, "
+     "int)", "flash_attention_fwd"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, "
+     "__nv_bfloat16>(...)", "flash_attention_bwd_dq"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "matmul")])
+def test_profile_train_sorts_the_port_kernels_by_name(name, kind):
+    # tools/profile_train sums device time by kernel name; the forward's
+    # tensor-core and CUDA-core kernels both count as the forward.
+    from torchmpi_tpu_torch.tools import profile_train
+
+    assert profile_train.kind_of(name) == kind
+
+
+def test_tile_probe_refuses_cpu_tensors():
+    q = torch.zeros((64, 128), dtype=torch.bfloat16)
+    k = torch.zeros((128, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous bf16 CUDA tensor"):
+        flash_tile_probe.tile_probe(q, k, k)
+
+
+@pytest.mark.cuda
+def test_wgmma_tile_matches_a_plain_product_on_the_card():
+    # One tile of the tensor-core forward's two products alone: S = q k^T
+    # (B4's S product, 64 x 128 x 128) and O = bf16(S) v, so that a wrong
+    # descriptor, swizzle or fragment layout shows up here and not as a
+    # plausible-looking attention error.  bf16 x bf16 is exact in f32, so
+    # only the summation order differs: 1e-4 relative to the largest entry.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn((64, 128), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((128, 128), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    before = tfa.flash_fwd_launches
+    s, o = flash_tile_probe.tile_probe(q, k, v)
+    assert tfa.flash_fwd_launches == before
+    want_s = q.float() @ k.float().T
+    torch.testing.assert_close(s, want_s, rtol=0,
+                               atol=1e-4 * float(want_s.abs().max()))
+    want_o = s.bfloat16().float() @ v.float()
+    torch.testing.assert_close(o, want_o, rtol=0,
+                               atol=1e-4 * float(want_o.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,lq,lk", [(True, 512, 2048),
+                                          (False, 100, 300),
+                                          (True, 100, 300)])
+def test_bf16_in_f32_out_keeps_f32_accuracy_on_the_card(causal, lq, lk):
+    # The ring carry: bf16 q/k/v, o in f32, held at the f32 cases' 2e-4.
+    # A bf16 P alone misses that on short causal rows; the kernel's
+    # P_hi V + P_lo V split keeps ~16 bits of p.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((8, lq, 128), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((8, lk, 128), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    o, lse = tfa.flash_fwd_block(q, k, v, causal=causal,
+                                 out_dtype=torch.float32)
+    bq, bk = tfa._resolve_blocks(lq, lk, None, None)
+    po, plse = tfa._flash_bh_plain(q, k, v, causal=causal, block_q=bq,
+                                   block_k=bk, scale=128 ** -0.5,
+                                   out_dtype=torch.float32)
+    assert o.dtype == torch.float32
+    torch.testing.assert_close(o, po, rtol=0, atol=2e-4)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,causal,lq,lk", [
     ("bfloat16", True, 256, 256), ("float32", True, 256, 256),
-    ("bfloat16", False, 128, 384), ("float32", False, 100, 300)])
+    ("bfloat16", False, 128, 384), ("float32", False, 100, 300),
+    ("bfloat16", True, 100, 300), ("bfloat16", False, 100, 300),
+    ("bfloat16", True, 512, 2048)])
 def test_kernel_matches_plain_version_on_the_card(dtype, causal, lq, lk):
     # The CUDA kernel exists only on the card; chip_smoke.py runs the same
-    # comparison at the generate path's full shape.
+    # comparison at the generate path's full shape.  bf16 runs the
+    # tensor-core kernel (ragged Lq 100 / Lk 300 and Lk != Lq included),
+    # f32 the CUDA-core one.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
@@ -242,7 +333,8 @@ def test_kernel_matches_plain_version_on_the_card(dtype, causal, lq, lk):
     po, plse = tfa._flash_bh_plain(q, k, v, causal=causal, block_q=bq,
                                    block_k=bk, scale=128 ** -0.5,
                                    out_dtype=dt)
-    # f32: summation order only.  bf16 output: one last-place flip.
+    # f32: summation order only.  bf16 output: one last-place flip, and the
+    # bf16 P of the tensor-core kernel (at most 2^-9 of sum p|v| / l).
     tol = dict(rtol=0, atol=2e-4) if dtype == "float32" else \
         dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(o.float(), po.float(), **tol)

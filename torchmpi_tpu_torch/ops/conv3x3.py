@@ -9,9 +9,11 @@ f32 sum and one cast on store.
 
 * The kernel (``csrc/conv3x3.cu``, ``tmpi_conv3x3``) is an implicit GEMM
   that reads the one-pixel halo as zeros itself, so nothing is padded
-  before it and no patch matrix reaches device memory.  It tiles its own
-  way; ``bn`` and ``bc`` keep the JAX function's contract (they must divide
-  N and Cout) and nothing else.
+  before it and no patch matrix reaches device memory: on the tensor cores
+  (wgmma, cp.async staging; helpers in ``csrc/hopper.cuh``) for bf16, on
+  the CUDA cores for f32.  It takes any C and Cout and tiles its own way;
+  ``bn`` and ``bc`` keep the JAX function's contract (they must divide N
+  and Cout) and nothing else.
 * :func:`conv3x3_plain` is the same algebra in torch ops: pad, nine f32
   products, cast.
 

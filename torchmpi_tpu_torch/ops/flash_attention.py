@@ -6,7 +6,9 @@ with a plain PyTorch version of the same algebra beside it:
 - the online-softmax forward (running max, denominator and output
   accumulator in f32 across k tiles, causal fill -1e30, whole k tiles above
   the diagonal skipped): ``csrc/flash_attention_fwd.cu``,
-  :func:`_flash_bh_plain`;
+  :func:`_flash_bh_plain`.  bf16 inputs run on the tensor cores (wgmma, TMA
+  staging; the shared helpers are ``csrc/hopper.cuh``), f32 inputs on the
+  CUDA cores; the source names the choice and its numerics;
 - the FlashAttention-2 backward in two passes, from the forward's lse and
   delta = rowsum(do * o): dq (``tmpi_flash_bwd_dq``,
   :func:`_flash_bh_bwd_dq_plain`) and dk/dv (``tmpi_flash_bwd_dkv``,
@@ -240,6 +242,16 @@ def _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """The tensor-core forward stages q, k, v with TMA and writes o in
+    vector stores: each must start on a 16-byte boundary."""
+    bad = [name for name, t in tensors.items() if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"the bf16 flash kernel needs 16-byte aligned "
+                         f"tensors; {', '.join(bad)} is not (a view at an "
+                         f"odd offset? pass a .clone())")
+
+
 def _kernel_entry(symbol: str):
     """A kernel entry of the built library, typed for ctypes: its tensor
     pointers (``tmpi_flash_fwd``: q, k, v, o, lse of
@@ -285,6 +297,8 @@ def _flash_bh_kernel(qbh, kbh, vbh, *, causal: bool, scale: float,
     BH, L, D = qbh.shape
     o = torch.empty((BH, L, D), dtype=out_dtype, device=qbh.device)
     lse = torch.empty((BH, L, 1), dtype=torch.float32, device=qbh.device)
+    if qbh.dtype == torch.bfloat16:
+        _check_aligned(q=qbh, k=kbh, v=vbh, o=o)
     _launch("tmpi_flash_fwd", (qbh, kbh, vbh), (o, lse), causal=causal,
             scale=scale)
     flash_fwd_launches += 1
