@@ -19,8 +19,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and bf16 causal and not); each record names its design, and the timed
    ones their TFLOP/s, the main ones the kernel's time in PERF.md before
    its redesign; then the backward kernels, dq (B5) and
-   dk/dv (B6), against theirs in the same five cases (the Lk != Lq one
-   through flash_bwd_block with an external lse and delta).  Each max
+   dk/dv (B6), against theirs in the same cases (bf16 on the tensor
+   cores, f32 on the CUDA cores; the two Lk != Lq ones, bf16 out and the
+   f32-out ring carry, through flash_bwd_block with an external lse and
+   delta), the main pair and the Lk != Lq pair timed, each record with
+   its design and the timed ones their TFLOP/s.  Each max
    error is printed beside its tolerance, with the kernel's, the plain
    version's and a PyTorch library call's time (scaled_dot_product_attention
    forward, and its backward; a yardstick only, the port never calls it)
@@ -98,12 +101,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 Then a line with the card's name and power limit, a ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of
 phases 4-6 to no fewer than 8 layers (never the width); a cut is printed.
-Exits non-zero and prints no result when no GPU is visible.
+Exits non-zero and prints no result when no GPU is visible.  Every process
+the run starts has ended when it exits, multiprocessing's resource tracker
+included.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import math
@@ -265,6 +271,13 @@ def attention_bwd_bound_ms(kernel, bh, lq, lk, d, causal, in_dtype, in_bytes,
     nbytes = bh * ((2 * lq + 2 * lk) * d * in_bytes + 2 * lq * 4
                    + out_rows * d * out_bytes)
     return bound_ms(ops, nbytes, in_dtype)
+
+
+def attention_bwd_tflops(kernel, bh, lq, lk, d, causal, ms):
+    """A backward pass's rate: its products over the kept pairs (three for
+    ``"dq"``, four for ``"dkv"``) in TFLOP/s at ``ms`` a call."""
+    products = {"dq": 3, "dkv": 4}[kernel]
+    return 2.0 * products * bh * causal_pairs(lq, lk, causal) * d / ms / 1e9
 
 
 def conv_bound_ms(n, h, w, c, cout, in_dtype, esize):
@@ -482,6 +495,9 @@ def phase_kernel_bwd(torch, fa):
     # cancellation, so 5e-4 abs + 1e-3 rel.
     # bf16 out: both sides compute in f32 and round once to bf16, where a
     # last-place flip is 2^-8 relative: 1e-2 abs + 1e-2 rel.
+    # bf16 inputs run the tensor-core kernels, whose second-stage products
+    # take p and ds as bf16: inside the bf16 tolerance; with an f32 output
+    # they take p and ds as bf16 hi + lo parts and hold the f32 one.
     cases = [
         ("main_bf16", 32, 2048, 2048, True, bf16, None, 1e-2, 1e-2, False),
         ("main_f32", 32, 2048, 2048, True, f32, None, 5e-4, 1e-3, False),
@@ -489,8 +505,15 @@ def phase_kernel_bwd(torch, fa):
          False),
         ("block_lk_ne_lq_f32out", 32, 512, 2048, True, bf16, f32, 5e-4,
          1e-3, True),
+        ("lk_ne_lq_bf16", 32, 512, 2048, True, bf16, None, 1e-2, 1e-2,
+         True),
         ("ragged_f32", 4, 100, 300, True, f32, None, 5e-4, 1e-3, False),
+        ("ragged_bf16", 4, 100, 300, False, bf16, None, 1e-2, 1e-2, False),
+        ("ragged_bf16_causal", 4, 100, 300, True, bf16, None, 1e-2, 1e-2,
+         False),
     ]
+    timed = ("main_bf16", "main_f32", "block_lk_ne_lq_f32out",
+             "lk_ne_lq_bf16")
     records = {}
     for name, bh, lq, lk, causal, dt, odt, atol, rtol, block in cases:
         q, do = (torch.randn((bh, lq, 128), generator=g, device="cuda").to(dt)
@@ -530,14 +553,28 @@ def phase_kernel_bwd(torch, fa):
             errs[gname] = float(diff.max())
             ok = ok and bool((diff <= atol + rtol * b.float().abs()).all()) \
                 and bool(torch.isfinite(a.float()).all()) and a.dtype == odt
+        dtype = str(dt).split(".")[-1]
         rec = {"case": name, "bh": bh, "lq": lq, "lk": lk, "causal": causal,
-               "dtype": str(dt).split(".")[-1],
-               "out_dtype": str(odt).split(".")[-1], "block_op": block,
+               "dtype": dtype, "out_dtype": str(odt).split(".")[-1],
+               "block_op": block,
                **{f"{k}_max_abs_err": e for k, e in errs.items()},
-               "atol": atol, "rtol": rtol}
-        if name.startswith("main"):
+               "atol": atol, "rtol": rtol,
+               "design": DESIGN[dtype] + (", P and dS as hi + lo bf16"
+                                          if (dt, odt) == (bf16, f32)
+                                          else "")}
+        if name in timed:
             esize = q.element_size()
             osize = torch.tensor([], dtype=odt).element_size()
+            for part, (kern, _) in fns.items():
+                b_ms, b_by = attention_bwd_bound_ms(
+                    part, bh, lq, lk, 128, causal, dtype, esize, osize)
+                ms = cuda_ms(torch, kern)
+                rec[part] = {"kernel_ms": ms,
+                             "kernel_tflops": attention_bwd_tflops(
+                                 part, bh, lq, lk, 128, causal, ms),
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "design": rec["design"]}
+        if name.startswith("main"):
             # The library yardstick: scaled_dot_product_attention's
             # backward, which computes dq, dk and dv in one call.
             qs, ks, vs = (x.view(1, bh, -1, 128).detach().requires_grad_()
@@ -547,14 +584,10 @@ def phase_kernel_bwd(torch, fa):
             dos = do.view(1, bh, lq, 128)
             lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
                 out, (qs, ks, vs), dos, retain_graph=True))
-            for part, (kern, plain) in fns.items():
-                b_ms, b_by = attention_bwd_bound_ms(
-                    part, bh, lq, lk, 128, causal, rec["dtype"], esize, osize)
-                rec[part] = {"kernel_ms": cuda_ms(torch, kern),
-                             "plain_ms": cuda_ms(torch, plain, warmup=1,
-                                                 iters=3),
-                             "library_ms": lib_ms, "bound_ms": b_ms,
-                             "bound_by": b_by}
+            for part, (_, plain) in fns.items():
+                rec[part].update(plain_ms=cuda_ms(torch, plain, warmup=1,
+                                                  iters=3),
+                                 library_ms=lib_ms)
             del qs, ks, vs, out
         emit(phase="kernel_bwd", **rec)
         if not ok:
@@ -1253,8 +1286,6 @@ def kernel_record(name, recs, part, err_keys, launches_by_path):
     main = recs["main_bf16"] if part is None else recs["main_bf16"][part]
     f32 = recs["main_f32"] if part is None else recs["main_f32"][part]
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    # The forward's records carry its design and rate (the backward kernels
-    # are not redesigned yet).
     extra = ("design", "kernel_tflops")
     rec = {
         "name": name, "route": "cuda", "source": source,
@@ -1269,14 +1300,22 @@ def kernel_record(name, recs, part, err_keys, launches_by_path):
         "shape": "B=1 H=32 L=2048 D=128 causal bf16",
         "f32": {k: f32[k] for k in timing + extra if k in f32},
     }
+    keys = ("kernel_ms", "kernel_tflops", "bound_ms", "design")
     if part is None:
-        rec["f32_out"] = {k: recs["main_bf16_f32out"][k] for k in (
-            "kernel_ms", "kernel_tflops", "bound_ms", "design")}
+        rec["f32_out"] = {k: recs["main_bf16_f32out"][k] for k in keys}
         rec["lk_ne_lq"] = {
-            case: {k: recs[case][k] for k in (
-                "kernel_ms", "kernel_tflops", "bound_ms", "out_dtype",
-                "design")}
+            case: {**{k: recs[case][k] for k in keys},
+                   "out_dtype": recs[case]["out_dtype"]}
             for case in ("lk_ne_lq_bf16", "lk_ne_lq_f32out")}
+    else:
+        # The ring carry's form: flash_bwd_block at Lq 512 / Lk 2048, bf16
+        # in, f32 out, beside the same call with a bf16 output.
+        rec["f32_out"] = {k: recs["block_lk_ne_lq_f32out"][part][k]
+                          for k in keys}
+        rec["lk_ne_lq"] = {
+            case: {**{k: recs[case][part][k] for k in keys},
+                   "out_dtype": recs[case]["out_dtype"]}
+            for case in ("lk_ne_lq_bf16", "block_lk_ne_lq_f32out")}
     return rec
 
 
@@ -1374,5 +1413,46 @@ def main() -> int:
     return 0
 
 
+def _children() -> list:
+    """The pids of this process's live or unreaped children (Linux)."""
+    me, pids = str(os.getpid()), []
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except (OSError, ValueError):
+            continue
+        if stat[stat.rfind(")") + 2:].split()[1] == me:
+            pids.append(int(pid))
+    return pids
+
+
+def stop_children() -> None:
+    """Leave no process of this run behind.  The spawned phases' queues
+    start multiprocessing's resource tracker, a child that would otherwise
+    outlive the script as an orphan until it reads the end of its pipe:
+    it is stopped and reaped here.  Any other child still present is a
+    fault of a phase: it is killed, reaped and named on stderr."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    for pid in _children():
+        if pid == getattr(tracker, "_pid", None):
+            continue
+        print(f"chip_smoke: killing a leftover child, pid {pid}",
+              file=sys.stderr, flush=True)
+        try:
+            os.kill(pid, 9)
+            os.waitpid(pid, 0)
+        except (ChildProcessError, ProcessLookupError):
+            pass
+    if getattr(tracker, "_fd", None) is not None:
+        tracker._stop()   # closes its pipe and waits for it to exit
+
+
 if __name__ == "__main__":
+    # Registered before main() imports multiprocessing, so that it runs
+    # after multiprocessing's own exit handler has released the queues'
+    # semaphores and joined the spawned ranks.
+    atexit.register(stop_children)
     sys.exit(main())

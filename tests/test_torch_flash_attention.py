@@ -21,7 +21,6 @@ import jax.numpy as jnp
 # The modules, not the functions of the same name the packages export.
 jfa = importlib.import_module("torchmpi_tpu.ops.flash_attention")
 tfa = importlib.import_module("torchmpi_tpu_torch.ops.flash_attention")
-from torchmpi_tpu_torch.tools import flash_tile_probe  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -223,6 +222,87 @@ def test_plain_version_does_not_count_as_a_launch():
             tfa.flash_bwd_dkv_launches) == before
 
 
+@pytest.mark.parametrize("part,shifted", [
+    ("dq", "q"), ("dq", "do"), ("dkv", "k"), ("dkv", "v")])
+def test_bf16_bwd_kernels_refuse_unaligned_tensors(monkeypatch, part,
+                                                   shifted):
+    # The tensor-core dq and dk/dv kernels read q, k, v and do with TMA:
+    # the wrappers check every one, with the forward's message, before a
+    # launch.  (The checks of device and shape are the card's business.)
+    monkeypatch.setattr(tfa, "_check_bwd_kernel_inputs", lambda *a: None)
+
+    def no_launch(*a, **kw):
+        raise AssertionError("an unaligned tensor reached the launch")
+
+    monkeypatch.setattr(tfa, "_launch", no_launch)
+    flat = torch.zeros(2 * 8 * 128 + 1, dtype=torch.bfloat16)
+    ins = {n: flat[:2 * 8 * 128].view(2, 8, 128) for n in "qkv"}
+    ins["do"] = ins["q"]
+    ins[shifted] = flat[1:].view(2, 8, 128)
+    row = torch.zeros((2, 8, 1))
+    fn = {"dq": tfa._flash_bh_bwd_dq_kernel,
+          "dkv": tfa._flash_bh_bwd_dkv_kernel}[part]
+    with pytest.raises(ValueError,
+                       match=f"bf16 flash kernels need 16-byte aligned "
+                             f"tensors; {shifted} is not"):
+        fn(ins["q"], ins["k"], ins["v"], ins["do"], row, row, causal=True,
+           scale=0.1, out_dtype=torch.bfloat16)
+
+
+def _tc_bwd_model(q, k, v, do, lse, delta, *, scale, split):
+    """The tensor-core backward's arithmetic in f32 PyTorch, causal: s and
+    dp in f32, p and ds handed to the second-stage products as bf16 (or as
+    bf16 hi + lo parts, which sum exactly in f32)."""
+    def as_operand(x):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if split else hi
+
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    rows = torch.arange(q.shape[1])[:, None]
+    cols = torch.arange(k.shape[1])[None, :]
+    p = torch.exp(torch.where(rows >= cols, s, torch.tensor(-1e30)) - lse)
+    ds = p * (torch.einsum("bqd,bkd->bqk", do, v) - delta) * scale
+    p, ds = as_operand(p), as_operand(ds)
+    return (torch.einsum("bqk,bkd->bqd", ds, k),
+            torch.einsum("bqk,bqd->bkd", ds, q),
+            torch.einsum("bqk,bqd->bkd", p, do))
+
+
+def test_bf16_p_and_ds_fit_the_bf16_tolerance_and_need_a_split_for_f32():
+    # Why the f32-output kernels split p and ds: a causal flash_bwd_block
+    # as a ring caller runs it (Lk > Lq, lse + log 2, another output's
+    # delta), bf16-rounded inputs, D = 128.  Against the f32 plain
+    # backward, bf16 p and ds stay inside chip_smoke.py's bf16-output
+    # tolerance (1e-2 abs + 1e-2 rel) but break its f32-output one (5e-4
+    # abs + 1e-3 rel); the hi + lo split keeps that one.
+    rs = np.random.RandomState(21)
+    bh, lq, lk, d = 2, 256, 512, 128
+    q, do = (torch.from_numpy(rs.randn(bh, lq, d).astype(np.float32))
+             .bfloat16().float() for _ in range(2))
+    k, v = (torch.from_numpy(rs.randn(bh, lk, d).astype(np.float32))
+            .bfloat16().float() for _ in range(2))
+    scale = d ** -0.5
+    _, lse = tfa._flash_bh_plain(q, k, v, causal=True, block_q=lq,
+                                 block_k=lk, scale=scale,
+                                 out_dtype=torch.float32)
+    lse = lse + np.log(2.0)
+    delta = torch.from_numpy(rs.randn(bh, lq, 1).astype(np.float32))
+    kw = dict(causal=True, block_q=lq, block_k=lk, scale=scale,
+              out_dtype=torch.float32)
+    ref = (tfa._flash_bh_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+           *tfa._flash_bh_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+
+    def worst(split, atol, rtol):
+        got = _tc_bwd_model(q, k, v, do, lse, delta, scale=scale,
+                            split=split)
+        return max(float(((a - b).abs() / (atol + rtol * b.abs())).max())
+                   for a, b in zip(got, ref))
+
+    assert worst(False, 1e-2, 1e-2) <= 1.0
+    assert worst(False, 5e-4, 1e-3) > 1.0
+    assert worst(True, 5e-4, 1e-3) <= 1.0
+
+
 def test_bf16_kernel_refuses_unaligned_tensors():
     # The tensor-core forward reads q, k, v with TMA and writes o in vector
     # stores; a view one element in is not on a 16-byte boundary.
@@ -241,47 +321,26 @@ def test_bf16_kernel_refuses_unaligned_tensors():
     ("void (anonymous namespace)::cuda_core::flash_fwd_f32<float>(float "
      "const*, float const*, float const*, float*, float*, int, int, float, "
      "int)", "flash_attention_fwd"),
-    ("void (anonymous namespace)::flash_bwd_dq_kernel<__nv_bfloat16, "
-     "__nv_bfloat16>(...)", "flash_attention_bwd_dq"),
+    ("void (anonymous namespace)::tc::flash_bwd_dq_wgmma<false>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
+     "const*, float const*, void*, int, int, float, float, int)",
+     "flash_attention_bwd_dq"),
+    ("void (anonymous namespace)::tc::flash_bwd_dkv_wgmma<true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
+     "const*, float const*, void*, void*, int, int, float, float, int)",
+     "flash_attention_bwd_dkv"),
+    ("void (anonymous namespace)::cuda_core::flash_bwd_dq_kernel<float, "
+     "float>(...)", "flash_attention_bwd_dq"),
+    ("void (anonymous namespace)::cuda_core::flash_bwd_dkv_kernel<float, "
+     "__nv_bfloat16>(...)", "flash_attention_bwd_dkv"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "matmul")])
 def test_profile_train_sorts_the_port_kernels_by_name(name, kind):
-    # tools/profile_train sums device time by kernel name; the forward's
-    # tensor-core and CUDA-core kernels both count as the forward.
+    # tools/profile_train sums device time by kernel name; each pass's
+    # tensor-core and CUDA-core kernels count as that pass.
     from torchmpi_tpu_torch.tools import profile_train
 
     assert profile_train.kind_of(name) == kind
-
-
-def test_tile_probe_refuses_cpu_tensors():
-    q = torch.zeros((64, 128), dtype=torch.bfloat16)
-    k = torch.zeros((128, 128), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="contiguous bf16 CUDA tensor"):
-        flash_tile_probe.tile_probe(q, k, k)
-
-
-@pytest.mark.cuda
-def test_wgmma_tile_matches_a_plain_product_on_the_card():
-    # One tile of the tensor-core forward's two products alone: S = q k^T
-    # (B4's S product, 64 x 128 x 128) and O = bf16(S) v, so that a wrong
-    # descriptor, swizzle or fragment layout shows up here and not as a
-    # plausible-looking attention error.  bf16 x bf16 is exact in f32, so
-    # only the summation order differs: 1e-4 relative to the largest entry.
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    g = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn((64, 128), generator=g, device="cuda").bfloat16()
-    k, v = (torch.randn((128, 128), generator=g, device="cuda").bfloat16()
-            for _ in range(2))
-    before = tfa.flash_fwd_launches
-    s, o = flash_tile_probe.tile_probe(q, k, v)
-    assert tfa.flash_fwd_launches == before
-    want_s = q.float() @ k.float().T
-    torch.testing.assert_close(s, want_s, rtol=0,
-                               atol=1e-4 * float(want_s.abs().max()))
-    want_o = s.bfloat16().float() @ v.float()
-    torch.testing.assert_close(o, want_o, rtol=0,
-                               atol=1e-4 * float(want_o.abs().max()))
 
 
 @pytest.mark.cuda
@@ -341,39 +400,78 @@ def test_kernel_matches_plain_version_on_the_card(dtype, causal, lq, lk):
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,lq,lk", [
-    ("bfloat16", True, 256, 256), ("float32", True, 256, 256),
-    ("bfloat16", False, 128, 384), ("float32", False, 100, 300)])
-def test_bwd_kernels_match_plain_versions_on_the_card(dtype, causal, lq, lk):
-    # The dq and dk/dv kernels exist only on the card; chip_smoke.py runs
-    # the same comparison at the training path's full shape.
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+def _bwd_inputs(dtype, causal, lq, lk, ring, seed=1):
+    """q, k, v, do on the card, the forward's lse and the delta of its
+    output; ``ring``: as a ring caller hands them in, lse + log 2 (a second
+    chunk of equal mass) and another output's delta."""
     dt = getattr(torch, dtype)
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q, do = (torch.randn((8, lq, 128), generator=g, device="cuda").to(dt)
              for _ in range(2))
     k, v = (torch.randn((8, lk, 128), generator=g, device="cuda").to(dt)
             for _ in range(2))
     with torch.no_grad():
         o, lse = tfa.flash_fwd_block(q, k, v, causal=causal)
-    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    if ring:
+        return (q, k, v, do, lse + float(np.log(2.0)),
+                torch.randn((8, lq, 1), generator=g, device="cuda"))
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out,causal,lq,lk", [
+    ("bfloat16", None, True, 256, 256), ("float32", None, True, 256, 256),
+    ("bfloat16", None, False, 128, 384), ("float32", None, False, 100, 300),
+    ("bfloat16", None, True, 100, 300), ("bfloat16", None, False, 100, 300),
+    ("bfloat16", "float32", True, 512, 2048),
+    ("bfloat16", "float32", False, 100, 300)])
+def test_bwd_kernels_match_plain_versions_on_the_card(dtype, out, causal, lq,
+                                                      lk):
+    # The dq and dk/dv kernels exist only on the card; chip_smoke.py runs
+    # the same comparison at the training path's full shape.  bf16 runs
+    # the tensor-core kernels (ragged Lq 100 / Lk 300 and Lk != Lq
+    # included; an f32 output as the ring carry, with the ring's lse and
+    # delta), f32 the CUDA-core ones.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    odt = getattr(torch, out or dtype)
+    q, k, v, do, lse, delta = _bwd_inputs(dtype, causal, lq, lk,
+                                          ring=out is not None)
     before = (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches)
-    got = tfa.flash_bwd_block(q, k, v, do, lse, delta, causal=causal)
+    got = tfa.flash_bwd_block(q, k, v, do, lse, delta, causal=causal,
+                              out_dtype=odt)
     assert (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches) == (
         before[0] + 1, before[1] + 1)
     bq, bk = tfa._resolve_blocks(lq, lk, None, None)
     kw = dict(causal=causal, block_q=bq, block_k=bk, scale=128 ** -0.5,
-              out_dtype=dt)
+              out_dtype=odt)
     ref = (tfa._flash_bh_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
            *tfa._flash_bh_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
-    # f32: the same f32 products summed in another order.  bf16 output:
-    # both sides round one f32 value, so one last-place flip.
-    tol = dict(rtol=1e-3, atol=5e-4) if dtype == "float32" else \
+    # f32 output: the same f32 products summed in another order (and, from
+    # bf16 inputs, p and ds as bf16 hi + lo parts).  bf16 output: one
+    # last-place flip, and the bf16 p and ds of the tensor-core kernels.
+    tol = dict(rtol=1e-3, atol=5e-4) if odt == torch.float32 else \
         dict(rtol=1e-2, atol=1e-2)
     for a, b in zip(got, ref):
+        assert a.dtype == odt
         torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out,causal,lq,lk", [
+    ("bfloat16", True, 512, 512), ("float32", True, 512, 2048),
+    ("bfloat16", False, 100, 300)])
+def test_bf16_bwd_kernels_are_deterministic_on_the_card(out, causal, lq, lk):
+    # Two passes and no atomics: every output row is summed by one CTA in
+    # a fixed order, so two calls give bitwise-equal dq, dk and dv.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    args = _bwd_inputs("bfloat16", causal, lq, lk, ring=out == "float32")
+    odt = getattr(torch, out)
+    first = tfa.flash_bwd_block(*args, causal=causal, out_dtype=odt)
+    second = tfa.flash_bwd_block(*args, causal=causal, out_dtype=odt)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_build_is_keyed_by_source_and_refuses_without_nvcc(monkeypatch,

@@ -219,3 +219,39 @@ def test_chip_smoke_refuses_without_a_gpu(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_leaves_no_process_behind(tmp_path):
+    # chip_smoke.py's exit handler, registered as its main block does,
+    # stops multiprocessing's resource tracker (started by a spawned
+    # rank's queue) and kills a stray child: both are gone, and reaped,
+    # when the script has exited.
+    script = tmp_path / "run.py"
+    script.write_text(
+        "import atexit, subprocess, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke\n"
+        "def put(q):\n"
+        "    q.put(1)\n"
+        "if __name__ == '__main__':\n"
+        "    atexit.register(chip_smoke.stop_children)\n"
+        "    import multiprocessing as mp\n"
+        "    from multiprocessing import resource_tracker\n"
+        "    ctx = mp.get_context('spawn')\n"
+        "    q = ctx.Queue()\n"
+        "    p = ctx.Process(target=put, args=(q,))\n"
+        "    p.start()\n"
+        "    assert q.get(timeout=60) == 1\n"
+        "    p.join()\n"
+        "    stray = subprocess.Popen(['sleep', '300'],\n"
+        "                             stdout=subprocess.DEVNULL,\n"
+        "                             stderr=subprocess.DEVNULL)\n"
+        "    print(resource_tracker._resource_tracker._pid, stray.pid)\n")
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    tracker, stray = (int(x) for x in res.stdout.split())
+    assert f"killing a leftover child, pid {stray}" in res.stderr
+    assert "Traceback" not in res.stderr and "leaked" not in res.stderr
+    for pid in (tracker, stray):
+        assert not pathlib.Path(f"/proc/{pid}").exists()

@@ -6,8 +6,7 @@ source, every header beside it and the compiler flags: an edited source
 builds anew, an unchanged one loads the library already built.  Nothing is
 built at import: the first call of a kernel's wrapper builds it.  A tool's
 source elsewhere (``tools/csrc``) builds the same way when its directory is
-named; its digest also covers every source and header of ``ops/csrc``,
-which it may include.
+named.
 
 A missing ``nvcc`` or a failed build raises :class:`BuildError`; there is
 no fallback.
@@ -59,10 +58,7 @@ def library_path(name: str, src_dir: Optional[Path] = None) -> Path:
     if not src.is_file():
         raise BuildError(f"no kernel source {src}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    deps = [src] + sorted(src_dir.glob("*.cuh"))
-    if src_dir != CSRC:   # a tool's source may include the kernels' sources
-        deps += sorted(CSRC.glob("*.cu*"))
-    for p in deps:
+    for p in [src] + sorted(src_dir.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

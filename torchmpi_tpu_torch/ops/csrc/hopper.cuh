@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention_fwd.cu, conv3x3.cu): inline PTX for warpgroup MMA
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, conv3x3.cu): inline PTX for warpgroup MMA
 // (wgmma), mbarriers, cp.async and TMA, and the host-side encoding of a TMA
 // tensor map.  Header only; every kernel source that includes it is rebuilt
 // when it changes (_build.library_path hashes every *.cuh beside the
@@ -124,7 +124,36 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(TRANS_B));
 }
 
+#define HOPPER_D32 HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+#define HOPPER_D32_STR                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (64 x 64, f32) += A (64 x 16) * B (16 x 64), bf16 operands, both from
+// shared memory, A K-major, B K-major (TRANS_B = 0) or MN-major
+// (TRANS_B = 1).  Fragment: as m64n128k16's with j < 8, thread t of the
+// warpgroup holds d[4j + e] at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2)
+// and column 8 j + 2 (t % 4) + e % 2.  So k16 step u of a product that
+// takes this tile as its A operand from registers reads n8 blocks 2u and
+// 2u + 1: d[8u .. 8u + 7] packed in pairs, as for the m64n128 fragment.
+// scale_d = 0 overwrites d instead of adding to it.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_STR
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : HOPPER_D32
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
 #undef HOPPER_D8
+#undef HOPPER_D32
+#undef HOPPER_D32_STR
 #undef HOPPER_D64
 #undef HOPPER_D64_STR
 
@@ -194,6 +223,22 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+// 4 bytes global -> shared, zeros if src_bytes is 0.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// Arrive on `bar` once this thread's cp.async copies so far have landed
+// (the barrier's count includes this arrival: .noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -12,7 +12,9 @@ with a plain PyTorch version of the same algebra beside it:
 - the FlashAttention-2 backward in two passes, from the forward's lse and
   delta = rowsum(do * o): dq (``tmpi_flash_bwd_dq``,
   :func:`_flash_bh_bwd_dq_plain`) and dk/dv (``tmpi_flash_bwd_dkv``,
-  :func:`_flash_bh_bwd_dkv_plain`), both in ``csrc/flash_attention_bwd.cu``.
+  :func:`_flash_bh_bwd_dkv_plain`), both in ``csrc/flash_attention_bwd.cu``;
+  bf16 inputs run on the tensor cores as the forward's do, f32 inputs on
+  the CUDA cores.
 
 A CPU tensor takes the plain version; a CUDA tensor goes to the kernel or
 raises, never falling back.  :func:`flash_attention` is differentiable
@@ -243,11 +245,12 @@ def _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta,
 
 
 def _check_aligned(**tensors: torch.Tensor) -> None:
-    """The tensor-core forward stages q, k, v with TMA and writes o in
-    vector stores: each must start on a 16-byte boundary."""
+    """The tensor-core kernels stage their bf16 inputs with TMA and write
+    their outputs in vector stores: each must start on a 16-byte
+    boundary."""
     bad = [name for name, t in tensors.items() if t.data_ptr() % 16]
     if bad:
-        raise ValueError(f"the bf16 flash kernel needs 16-byte aligned "
+        raise ValueError(f"the bf16 flash kernels need 16-byte aligned "
                          f"tensors; {', '.join(bad)} is not (a view at an "
                          f"odd offset? pass a .clone())")
 
@@ -311,6 +314,8 @@ def _flash_bh_bwd_dq_kernel(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
     global flash_bwd_dq_launches
     _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
     dq = torch.empty(qbh.shape, dtype=out_dtype, device=qbh.device)
+    if qbh.dtype == torch.bfloat16:
+        _check_aligned(q=qbh, k=kbh, v=vbh, do=dobh, dq=dq)
     _launch("tmpi_flash_bwd_dq", (qbh, kbh, vbh, dobh, lse, delta), (dq,),
             causal=causal, scale=scale)
     flash_bwd_dq_launches += 1
@@ -324,6 +329,8 @@ def _flash_bh_bwd_dkv_kernel(qbh, kbh, vbh, dobh, lse, delta, *,
     _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
     dk = torch.empty(kbh.shape, dtype=out_dtype, device=kbh.device)
     dv = torch.empty(kbh.shape, dtype=out_dtype, device=kbh.device)
+    if qbh.dtype == torch.bfloat16:
+        _check_aligned(q=qbh, k=kbh, v=vbh, do=dobh, dk=dk, dv=dv)
     _launch("tmpi_flash_bwd_dkv", (qbh, kbh, vbh, dobh, lse, delta),
             (dk, dv), causal=causal, scale=scale)
     flash_bwd_dkv_launches += 1

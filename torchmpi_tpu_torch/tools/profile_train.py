@@ -31,8 +31,10 @@ import subprocess
 import time
 
 KINDS = (("flash_attention_fwd", ("flash_fwd_wgmma", "flash_fwd_f32")),
-         ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
-         ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+         ("flash_attention_bwd_dq", ("flash_bwd_dq_wgmma",
+                                     "flash_bwd_dq_kernel")),
+         ("flash_attention_bwd_dkv", ("flash_bwd_dkv_wgmma",
+                                      "flash_bwd_dkv_kernel")),
          ("convolution", ("conv", "fprop", "dgrad", "wgrad", "winograd")),
          ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
