@@ -12,13 +12,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the build time.
 3. kernel: the flash-attention forward kernel (B4) against its plain
    PyTorch version at the training and generate paths' shape (B=1, H=32,
-   L=2048, D=128, causal) in bf16 (the tensor-core kernel) and f32 (the
-   CUDA-core one) and bf16 in with f32 out (timed), plus a non-causal bf16
-   case, an Lk != Lq pair (bf16 in, f32 out and bf16 out, both timed) and
-   ragged cases (Lq 100, Lk 300: f32,
-   and bf16 causal and not); each record names its design, and the timed
-   ones their TFLOP/s, the main ones the kernel's time in PERF.md before
-   its redesign; then the backward kernels, dq (B5) and
+   L=2048, D=128, causal) in bf16 (one bf16 product a product) and f32
+   (one split launch for q, k, v, then three bf16 products a product),
+   f32 in with bf16 out and bf16 in with f32 out (all timed), plus a
+   non-causal bf16 case, an Lk != Lq pair (bf16 in, f32 out and bf16 out,
+   both timed) and ragged cases (Lq 100, Lk 300: f32, timed, and bf16
+   causal and not), each checked call launching B4 once (and the split
+   once for f32 inputs); the split alone is timed (back to back, and its
+   device time alone by CUDA-graph replay) and held bit for bit against
+   its plain version at the main f32 shape; each record names its design,
+   and the timed ones their TFLOP/s; then the backward kernels, dq (B5) and
    dk/dv (B6), against theirs in the same cases (bf16 on the tensor
    cores, f32 on the CUDA cores; the two Lk != Lq ones, bf16 out and the
    f32-out ring carry, through flash_bwd_block with an external lse and
@@ -36,6 +39,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    4 slots, max_len 2048, four requests of 37, 300, 700 and 1500 prompt
    tokens and 16 new tokens each, single-stepped through iteration() until
    every request is done; the shortest is held against make_generate_fn.
+   Then one f32 prefill of a 2048-token prompt through
+   ``llama._prefill(attn="auto")`` on the runner's parameters: B4 and the
+   split must launch once per layer each (every B4 launch on f32 inputs),
+   and its last-row logits are held against the same prefill through full
+   attention (F32_PREFILL_RTOL of their norm); both prefills are timed.
 6. train: make_train_step at Llama-3-8B width, bf16 weights from a seeded
    torch.Generator, B=1, L=2048, attn="flash", remat="dots",
    loss_chunk=512, plain SGD for 4 steps on one repeated batch of the
@@ -77,14 +85,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    14, 256) with w (3, 3, 256, 256)) in bf16 and f32, each error beside its
    tolerance, with the kernel's, the plain version's and ``F.conv2d``'s
    forward and forward+backward times (cuDNN, channels_last, TF32 off; a
-   yardstick only) beside the bound, its design (bf16: tensor cores, f32:
-   CUDA cores), TFLOP/s and time in PERF.md before its redesign; then two
-   bf16 edge cases, checked and not timed: x (3, 5, 9, 72) to 40 channels
-   (off the kernel's tiles) and x (2, 6, 7, 13) to 20 (C and Cout not
-   multiples of 8).  Its path is ``conv3x3`` with the
-   bench's blocks (bn=8, bc=256) once at each shape in bf16: the count is
-   set to 0 just before each of those checked calls and read just after,
-   and the two must launch the kernel twice.
+   yardstick only) beside the bound, its design (bf16: one bf16 product,
+   f32: one split launch for x and w, then three bf16 products) and
+   TFLOP/s, the f32 split alone timed (as for B4) and held bit for bit
+   against its plain version; then two edge cases in both types, checked
+   (the f32 ones timed too): x (3, 5, 9, 72) to 40 channels (off the
+   kernel's tiles) and x (2, 6, 7, 13) to 20 (C and Cout not multiples of
+   8).  Its path is ``conv3x3`` with the bench's blocks (bn=8, bc=256)
+   once at each shape in each type: the counts are set to 0 just before
+   each of those checked calls and read just after, and they must launch
+   the kernel twice in each type and the split twice.
 10. train_resnet_async: ResNet-50 as in phase 8, 2 ranks, 3 steps of
    ``eager_async`` with ``use_pallas_collectives`` on and the ``"ready"``
    drain, then the same 3 steps from the same start with the ``"barrier"``
@@ -143,7 +153,16 @@ TRAIN_LR = 1.0
 TRAIN_REMAT = "dots"
 FWD_PER_LAYER = {"none": 1, "dots": 2, "full": 2}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 no TF32
+# Dense peak rates by input type (H100 SXM data sheet).  A bound is the
+# least time the card needs for the work, whatever implements it; the least
+# time for f32-accurate products on this card is three bf16 products (A_hi
+# B_hi + A_hi B_lo + A_lo B_hi) at the 989 TFLOP/s dense bf16 tensor-core
+# rate, so f32 rows are bounded at 989e12 / 3 operations a second (the
+# CUDA cores' f32 FMAs reach 67e12), whatever their kernel runs on.
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 989e12 / 3}
+BOUND_RATE = {"bfloat16": "989e12 operations/s: dense bf16 tensor cores",
+              "float32": "989e12 / 3 operations/s: an f32-accurate product "
+                         "as three bf16 products on the tensor cores"}
 
 
 def emit(**obj) -> None:
@@ -194,7 +213,26 @@ RESNET_ASYNC_RUNS = (("eager_async-ready", "eager_async", "ready"),
                      ("eager_sync", "eager_sync", "ready"))
 
 # What each kernel runs on, by input dtype (the sources dispatch on it).
-DESIGN = {"bfloat16": "wgmma bf16→f32", "float32": "f32 FMA, CUDA cores"}
+F32_SPLIT = "wgmma, three bf16 products"
+DESIGN = {
+    "flash_attention_fwd": {"bfloat16": "wgmma bf16→f32",
+                            "float32": F32_SPLIT},
+    "flash_attention_bwd_dq": {"bfloat16": "wgmma bf16→f32",
+                               "float32": "f32 FMA, CUDA cores"},
+    "flash_attention_bwd_dkv": {"bfloat16": "wgmma bf16→f32",
+                                "float32": "f32 FMA, CUDA cores"},
+    "conv3x3": {"bfloat16": "wgmma bf16→f32", "float32": F32_SPLIT},
+}
+# The f32 prefill of the serve phase: prompt length, and its last-row
+# logits' tolerance against the same prefill through full attention, as a
+# share of their norm.  Both sides are f32; B4 with f32 inputs is held at
+# 2e-4 abs against its plain version on unit-scale inputs (its three bf16
+# products miss an f32 product by ~2^-16 relative), so each layer's
+# attention output moves by ~1e-5 of its scale, and 32 residual layers of
+# random weights leave the logits well inside 1e-3 of their norm; a kernel
+# fault (a wrong tile, a lost lo part) moves them by far more.
+F32_PREFILL_LEN = 2048
+F32_PREFILL_RTOL = 1e-3
 
 COUNTERS = {"flash_attention_fwd": "flash_fwd_launches",
             "flash_attention_bwd_dq": "flash_bwd_dq_launches",
@@ -224,6 +262,32 @@ def cuda_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 10) -> float:
+    """Device time of ``fn`` alone: ``iters`` calls captured in one CUDA
+    graph, whose replay is timed with CUDA events, so no host dispatch is
+    counted (``cuda_ms`` times back-to-back calls, which for a short
+    kernel may read the host's pace instead)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -289,35 +353,62 @@ def conv_bound_ms(n, h, w, c, cout, in_dtype, esize):
     return bound_ms(ops, nbytes, in_dtype)
 
 
-def phase_conv_kernel(torch, conv):
+def conv_atol(dtype: str, scale: float) -> float:
+    """B7's tolerance at an output of largest magnitude ``scale``.  f32:
+    the same f32 products (three bf16 products for each, in the kernel)
+    summed in another order, 1e-5 of the scale.  bf16: both sides sum in
+    f32 and round once, so at most one bf16 ulp at the output's scale."""
+    if dtype == "float32":
+        return 1e-5 * scale
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def phase_conv_kernel(torch, conv, split):
     """B7 against its plain version at the bench's two shapes in bf16 and
-    f32, timed beside F.conv2d, with the count set to 0 just before each
-    checked call and read just after.  Returns the records and the path's
-    launches (the bf16 calls)."""
+    f32, timed beside F.conv2d, then the edge cases in both types (f32
+    timed too), with the counts (B7's and the split's) set to 0 just before
+    each checked call and read just after.  Returns the records and the
+    path's launches by dtype (the checked calls at the bench's shapes)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(3)
     recs = {}
-    for shape, xshape, cout in CONV_SHAPES:
+
+    def checked(name, xshape, cout, bn, bc, dtype, extra):
         n, h, w_, c = xshape
-        for dtype in ("bfloat16", "float32"):
-            dt = getattr(torch, dtype)
-            x = torch.randn(xshape, generator=g, device="cuda").to(dt)
-            w = (torch.randn((3, 3, c, cout), generator=g, device="cuda")
-                 / math.sqrt(9 * c)).to(dt)
-            with torch.no_grad():
-                conv.conv3x3_launches = 0
-                got = conv.conv3x3(x, w, bn=CONV_BN, bc=CONV_BC)
-                torch.cuda.synchronize()
-                launched = conv.conv3x3_launches
-                want = conv.conv3x3_plain(x, w)
-            scale = float(want.float().abs().max())
-            err = float((got.float() - want.float()).abs().max())
-            # f32: the same f32 products summed in another order.  bf16:
-            # both sides sum in f32 and round once, so at most one bf16
-            # ulp at the output's scale.
-            atol = (1e-5 * scale if dtype == "float32"
-                    else 2.0 ** (math.floor(math.log2(scale)) - 7))
+        dt = getattr(torch, dtype)
+        x = torch.randn(xshape, generator=g, device="cuda").to(dt)
+        w = (torch.randn((3, 3, c, cout), generator=g, device="cuda")
+             / math.sqrt(9 * c)).to(dt)
+        with torch.no_grad():
+            conv.conv3x3_launches = split.bf16_split_launches = 0
+            got = conv.conv3x3(x, w, bn=bn, bc=bc)
+            torch.cuda.synchronize()
+            launched = conv.conv3x3_launches
+            split_launched = split.bf16_split_launches
+            want = conv.conv3x3_plain(x, w)
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        rec = {"case": f"{name}_{dtype}", "x": list(xshape),
+               "w": [3, 3, c, cout], "bn": bn, "bc": bc, "dtype": dtype,
+               "max_abs_err": err, "atol": conv_atol(dtype, scale),
+               "out_scale": scale,
+               "finite": bool(torch.isfinite(got.float()).all()),
+               "launches": launched, "split_launches": split_launched,
+               "design": DESIGN["conv3x3"][dtype],
+               **(extra(x, w, want) if extra else {})}
+        emit(phase="conv_kernel", **rec)
+        if not (err <= rec["atol"] and rec["finite"] and launched == 1
+                and split_launched == (dtype == "float32")
+                and got.dtype == dt):
+            raise AssertionError(f"conv3x3 kernel disagrees with its plain "
+                                 f"version: {rec}")
+        recs[rec["case"]] = rec
+
+    def timing(xshape, cout, bn, bc):
+        n, h, w_, c = xshape
+
+        def extra(x, w, want):
             # F.conv2d on the same memory: x NHWC is NCHW channels_last.
             xc = x.permute(0, 3, 1, 2)
             wc = w.permute(3, 2, 0, 1).contiguous(
@@ -325,97 +416,99 @@ def phase_conv_kernel(torch, conv):
             xg = xc.detach().requires_grad_(True)
             wg = wc.detach().requires_grad_(True)
             gout = torch.randn((n, cout, h, w_), generator=g,
-                               device="cuda").to(dt).contiguous(
+                               device="cuda").to(x.dtype).contiguous(
                                    memory_format=torch.channels_last)
 
             def fwd_bwd():
                 out = F.conv2d(xg, wg, padding=1)
                 return torch.autograd.grad(out, (xg, wg), gout)
 
+            dtype = str(x.dtype).split(".")[-1]
             with torch.no_grad():
                 kernel_ms = cuda_ms(torch, lambda: conv.conv3x3(
-                    x, w, bn=CONV_BN, bc=CONV_BC))
+                    x, w, bn=bn, bc=bc))
                 plain_ms = cuda_ms(torch, lambda: conv.conv3x3_plain(x, w))
                 library_ms = cuda_ms(torch, lambda: F.conv2d(xc, wc,
                                                              padding=1))
                 lib_err = float((F.conv2d(xc, wc, padding=1).permute(
                     0, 2, 3, 1).float() - want.float()).abs().max())
-            library_fwd_bwd_ms = cuda_ms(torch, fwd_bwd)
+                more = {}
+                if dtype == "float32":
+                    more["split_ms"] = cuda_ms(
+                        torch, lambda: split.bf16_split("conv3x3", x, w))
+                    more["split_device_ms"] = graph_ms(
+                        torch, lambda: split.bf16_split("conv3x3", x, w))
+                    bufs = split.bf16_split("conv3x3", x, w)
+                    more["split_bitwise_equal"] = all(
+                        torch.equal(b, split.bf16_split_plain(t))
+                        for b, t in zip(bufs, (x, w)))
+                    del bufs
             bound, bound_by = conv_bound_ms(n, h, w_, c, cout, dtype,
                                             x.element_size())
-            rec = {"case": f"{shape}_{dtype}", "x": list(xshape),
-                   "w": [3, 3, c, cout], "dtype": dtype,
-                   "max_abs_err": err, "atol": atol, "out_scale": scale,
-                   "finite": bool(torch.isfinite(got.float()).all()),
-                   "launches": launched, "kernel_ms": kernel_ms,
-                   "plain_ms": plain_ms,
-                   "library_ms": library_ms,
-                   "library_fwd_bwd_ms": library_fwd_bwd_ms,
-                   "library_max_abs_err": lib_err,
-                   "bound_ms": bound, "bound_by": bound_by,
-                   "design": DESIGN[dtype],
-                   "kernel_tflops": 2.0 * n * h * w_ * 9 * c * cout
-                   / kernel_ms / 1e9}
-            emit(phase="conv_kernel", **rec)
-            if not (err <= atol and rec["finite"]):
-                raise AssertionError(f"conv3x3 kernel disagrees with its "
-                                     f"plain version: {rec}")
-            recs[rec["case"]] = rec
-            del x, w, got, want, xc, wc, xg, wg, gout
+            return {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms,
+                    "library_fwd_bwd_ms": cuda_ms(torch, fwd_bwd),
+                    "library_max_abs_err": lib_err, "bound_ms": bound,
+                    "bound_by": bound_by, "bound_rate": BOUND_RATE[dtype],
+                    "kernel_tflops": 2.0 * n * h * w_ * 9 * c * cout
+                    / kernel_ms / 1e9, **more}
+        return extra
+
+    for name, xshape, cout in CONV_SHAPES:
+        for dtype in ("bfloat16", "float32"):
+            checked(name, xshape, cout, CONV_BN, CONV_BC, dtype,
+                    timing(xshape, cout, CONV_BN, CONV_BC))
+    # The edge cases, the f32 ones timed as well.
     for name, xshape, cout, bn, bc in CONV_EDGE_CASES:
-        c = xshape[-1]
-        x = torch.randn(xshape, generator=g, device="cuda").bfloat16()
-        w = (torch.randn((3, 3, c, cout), generator=g, device="cuda")
-             / math.sqrt(9 * c)).bfloat16()
-        with torch.no_grad():
-            conv.conv3x3_launches = 0
-            got = conv.conv3x3(x, w, bn=bn, bc=bc)
-            torch.cuda.synchronize()
-            launched = conv.conv3x3_launches
-            want = conv.conv3x3_plain(x, w)
-        scale = float(want.float().abs().max())
-        err = float((got.float() - want.float()).abs().max())
-        atol = 2.0 ** (math.floor(math.log2(scale)) - 7)   # one bf16 ulp
-        rec = {"case": f"{name}_bfloat16", "x": list(xshape),
-               "w": [3, 3, c, cout], "bn": bn, "bc": bc, "dtype": "bfloat16",
-               "max_abs_err": err, "atol": atol, "out_scale": scale,
-               "finite": bool(torch.isfinite(got.float()).all()),
-               "launches": launched, "design": DESIGN["bfloat16"]}
-        emit(phase="conv_kernel", **rec)
-        if not (err <= atol and rec["finite"] and launched == 1):
-            raise AssertionError(f"conv3x3 kernel disagrees with its plain "
-                                 f"version: {rec}")
-        recs[rec["case"]] = rec
+        for dtype in ("bfloat16", "float32"):
+            checked(name, xshape, cout, bn, bc, dtype,
+                    timing(xshape, cout, bn, bc) if dtype == "float32"
+                    else None)
+    bad = [r for r in recs.values() if r.get("split_bitwise_equal") is False]
+    if bad:
+        raise AssertionError(f"the split kernel disagrees with its plain "
+                             f"version: {bad}")
     torch.cuda.empty_cache()
-    # The path: the op as the bench calls it (bn=8, bc=256), in bf16, once
-    # at each shape; its launches are those of the checked calls above.
-    launches = sum(recs[f"{shape}_bfloat16"]["launches"]
-                   for shape, _, _ in CONV_SHAPES)
+    # The path: the op as the bench calls it (bn=8, bc=256), once at each
+    # shape in each type; its launches are those of the checked calls above.
+    launches = {dtype: sum(recs[f"{shape}_{dtype}"]["launches"]
+                           for shape, _, _ in CONV_SHAPES)
+                for dtype in ("bfloat16", "float32")}
+    split_launches = sum(recs[f"{shape}_float32"]["split_launches"]
+                         for shape, _, _ in CONV_SHAPES)
     emit(phase="conv_kernel", path="conv3x3", launches=launches,
+         split_launches=split_launches,
          shapes=[s for s, _, _ in CONV_SHAPES], bn=CONV_BN, bc=CONV_BC)
-    if launches != len(CONV_SHAPES):
+    if launches != dict.fromkeys(launches, len(CONV_SHAPES)) \
+            or split_launches != len(CONV_SHAPES):
         raise AssertionError(f"the conv3x3 path launched the kernel "
-                             f"{launches} times, expected {len(CONV_SHAPES)}")
+                             f"{launches} and the split {split_launches} "
+                             f"times, expected {len(CONV_SHAPES)} each")
     return recs, launches
 
 
-def phase_kernel(torch, fa):
-    """Kernel against its plain version; returns the main-shape record."""
+def phase_kernel(torch, fa, split):
+    """B4 against its plain version, the counts (B4's and the split's) set
+    to 0 just before each checked call and read just after; returns the
+    records by case."""
     g = torch.Generator(device="cuda").manual_seed(0)
     # (name, BH, Lq, Lk, causal, in dtype, out dtype, o atol, o rtol).
     # f32: same f32 products, different summation order: 2e-4 abs.
     # bf16 out: both sides compute in f32 and round once to bf16, where a
     # last-place flip is 2^-7 relative: 1e-2 abs + 1e-2 rel.
     # lse is f32 on both sides, log of a sum of <= 2048 terms: 1e-3 abs.
-    # bf16 inputs run the tensor-core kernel: its bf16 P moves a bf16 o by
-    # at most 2^-9 of sum p|v| / l, inside the bf16 tolerance; with an f32
-    # output it forms P V as P_hi V + P_lo V and holds the f32 2e-4.  The
-    # main shape with an f32 output and the lk_ne_lq pair are timed too, f32
-    # out against bf16 out.
+    # bf16 inputs: the bf16 P moves a bf16 o by at most 2^-9 of
+    # sum p|v| / l, inside the bf16 tolerance; with an f32 output the
+    # kernel forms P V as P_hi V + P_lo V and holds the f32 2e-4.  f32
+    # inputs: one split launch for q, k and v, then three bf16 products for
+    # each product, which hold the f32 2e-4 (and the bf16 tolerance for a
+    # bf16 output).  The main shape in every type pair, the lk_ne_lq pair
+    # (f32 out against bf16 out) and ragged_f32 are timed.
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         ("main_bf16", 32, 2048, 2048, True, bf16, None, 1e-2, 1e-2),
         ("main_f32", 32, 2048, 2048, True, f32, None, 2e-4, 0.0),
+        ("main_f32_bf16out", 32, 2048, 2048, True, f32, bf16, 1e-2, 1e-2),
         ("main_bf16_f32out", 32, 2048, 2048, True, bf16, f32, 2e-4, 0.0),
         ("noncausal_bf16", 8, 1024, 1024, False, bf16, None, 1e-2, 1e-2),
         ("lk_ne_lq_f32out", 32, 512, 2048, True, bf16, f32, 2e-4, 0.0),
@@ -424,8 +517,10 @@ def phase_kernel(torch, fa):
         ("ragged_bf16", 4, 100, 300, False, bf16, None, 1e-2, 1e-2),
         ("ragged_bf16_causal", 4, 100, 300, True, bf16, None, 1e-2, 1e-2),
     ]
-    timed = ("main_bf16", "main_f32", "main_bf16_f32out", "lk_ne_lq_f32out",
-             "lk_ne_lq_bf16")
+    timed = ("main_bf16", "main_f32", "main_f32_bf16out", "main_bf16_f32out",
+             "lk_ne_lq_f32out", "lk_ne_lq_bf16", "ragged_f32")
+    with_library = ("main_bf16", "main_f32", "main_f32_bf16out",
+                    "ragged_f32")
     records = {}
     for name, bh, lq, lk, causal, dt, odt, atol, rtol in cases:
         q = torch.randn((bh, lq, 128), generator=g, device="cuda").to(dt)
@@ -443,8 +538,11 @@ def phase_kernel(torch, fa):
             return fa._flash_bh_plain(q, k, v, causal=causal, block_q=bq,
                                       block_k=bk, scale=scale, out_dtype=odt)
 
+        fa.flash_fwd_launches = split.bf16_split_launches = 0
         o, lse = kern()
         torch.cuda.synchronize()
+        launched = fa.flash_fwd_launches
+        split_launched = split.bf16_split_launches
         po, plse = plain()
         diff = (o.float() - po.float()).abs()
         o_err = float(diff.max())
@@ -452,12 +550,14 @@ def phase_kernel(torch, fa):
         lse_err = float((lse - plse).abs().max())
         finite = bool(torch.isfinite(o.float()).all()
                       and torch.isfinite(lse).all())
+        dtype = str(dt).split(".")[-1]
         rec = {"case": name, "bh": bh, "lq": lq, "lk": lk, "causal": causal,
-               "dtype": str(dt).split(".")[-1],
-               "out_dtype": str(odt).split(".")[-1],
+               "dtype": dtype, "out_dtype": str(odt).split(".")[-1],
                "o_max_abs_err": o_err, "o_atol": atol, "o_rtol": rtol,
                "lse_max_abs_err": lse_err, "lse_atol": 1e-3,
-               "finite": finite, "design": DESIGN[str(dt).split(".")[-1]]
+               "finite": finite, "launches": launched,
+               "split_launches": split_launched,
+               "design": DESIGN["flash_attention_fwd"][dtype]
                + (", P V as P_hi V + P_lo V" if (dt, odt) == (bf16, f32)
                   else "")}
         if name in timed:
@@ -468,14 +568,29 @@ def phase_kernel(torch, fa):
             rec["bound_ms"], rec["bound_by"] = attention_bound_ms(
                 bh, lq, lk, 128, causal, rec["dtype"], esize,
                 torch.tensor([], dtype=odt).element_size())
-        if name in ("main_bf16", "main_f32"):
+            rec["bound_rate"] = BOUND_RATE[dtype]
+        if name in with_library:
             rec["plain_ms"] = cuda_ms(torch, plain, warmup=1, iters=3)
             qs, ks, vs = (x.view(1, bh, -1, 128) for x in (q, k, v))
             rec["library_ms"] = cuda_ms(
                 torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=causal))
+        if name == "main_f32":
+            # The split alone at the path's shape, and bit for bit against
+            # its plain version.
+            rec["split_ms"] = cuda_ms(torch, lambda: split.bf16_split(
+                "flash_attention_fwd", q, k, v))
+            rec["split_device_ms"] = graph_ms(torch, lambda: split.bf16_split(
+                "flash_attention_fwd", q, k, v))
+            bufs = split.bf16_split("flash_attention_fwd", q, k, v)
+            rec["split_bitwise_equal"] = all(
+                torch.equal(b, split.bf16_split_plain(t))
+                for b, t in zip(bufs, (q, k, v)))
+            del bufs
         emit(phase="kernel", **rec)
-        if not (o_ok and lse_err <= 1e-3 and finite):
+        if not (o_ok and lse_err <= 1e-3 and finite and launched == 1
+                and split_launched == (dt == f32)
+                and rec.get("split_bitwise_equal", True)):
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"in case {name}: {rec}")
         records[name] = rec
@@ -559,9 +674,10 @@ def phase_kernel_bwd(torch, fa):
                "block_op": block,
                **{f"{k}_max_abs_err": e for k, e in errs.items()},
                "atol": atol, "rtol": rtol,
-               "design": DESIGN[dtype] + (", P and dS as hi + lo bf16"
-                                          if (dt, odt) == (bf16, f32)
-                                          else "")}
+               # dq and dk/dv share their design in each type.
+               "design": DESIGN["flash_attention_bwd_dq"][dtype]
+               + (", P and dS as hi + lo bf16" if (dt, odt) == (bf16, f32)
+                  else "")}
         if name in timed:
             esize = q.element_size()
             osize = torch.tensor([], dtype=odt).element_size()
@@ -573,6 +689,7 @@ def phase_kernel_bwd(torch, fa):
                              "kernel_tflops": attention_bwd_tflops(
                                  part, bh, lq, lk, 128, causal, ms),
                              "bound_ms": b_ms, "bound_by": b_by,
+                             "bound_rate": BOUND_RATE[dtype],
                              "design": rec["design"]}
         if name.startswith("main"):
             # The library yardstick: scaled_dot_product_attention's
@@ -728,7 +845,62 @@ def phase_generate(torch, llama, fa, layers: int):
     return rec, cfg
 
 
-def phase_serve(torch, llama, fa, engine_mod, serving, cfg):
+def f32_prefill(torch, llama, fa, split, cfg, params):
+    """B4 in f32 on its path: one prefill of a F32_PREFILL_LEN-token prompt
+    through ``llama._prefill(attn="auto")`` on f32 parameters (flash from
+    1024 tokens on), with the counts set to 0 just before it and read just
+    after: B4 once per layer, each launch after one split of its f32 q, k
+    and v.  Its last-row logits are held against the same prefill through
+    full attention on the same parameters; both are timed."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab, (1, F32_PREFILL_LEN), generator=g,
+                           device="cuda")
+
+    def prefill(attn):
+        cache = llama.init_kv_cache(cfg, 1, F32_PREFILL_LEN, torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = llama._prefill(cfg, params, cache, prompt, attn=attn)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3
+
+    prefill("auto")                 # warm-up: the f32 kernels' first loads
+    reset_counts(fa)
+    split.bf16_split_launches = 0
+    logits_flash, flash_ms = prefill("auto")
+    counts = read_counts(fa)
+    split_launches = split.bf16_split_launches
+    logits_full, full_ms = prefill("full")
+    rel = float((logits_flash - logits_full).norm() / logits_full.norm())
+    rec = {"phase": "serve_f32_prefill", "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "prompt_len": F32_PREFILL_LEN,
+           "dtype": str(params["embed"].dtype).split(".")[-1],
+           "attn": "auto", "launches": counts,
+           "split_launches": split_launches,
+           "prefill_ms_flash": flash_ms, "prefill_ms_full": full_ms,
+           "logits_rel_err_vs_full": rel, "rtol": F32_PREFILL_RTOL,
+           "greedy_first_token_flash_vs_full":
+               [int(logits_flash.argmax()), int(logits_full.argmax())],
+           "finite": bool(torch.isfinite(logits_flash).all())}
+    print(json.dumps(rec), flush=True)
+    want = {**dict.fromkeys(counts, 0), "flash_attention_fwd": cfg.n_layers}
+    if rec["dtype"] != "float32" or counts != want \
+            or split_launches != cfg.n_layers:
+        raise AssertionError(f"the f32 prefill launched {counts} and the "
+                             f"split {split_launches} times, expected the "
+                             f"forward and the split {cfg.n_layers} times "
+                             f"each on f32 parameters: {rec}")
+    if not (rec["finite"] and rel < F32_PREFILL_RTOL):
+        raise AssertionError(f"the f32 prefill through B4 is {rel:.3g} from "
+                             f"full attention's logits (rtol "
+                             f"{F32_PREFILL_RTOL}): {rec}")
+    return rec
+
+
+def phase_serve(torch, llama, fa, split, engine_mod, serving, cfg):
+    """The engine's requests (full-attention prefills, as the JAX runner),
+    then the f32 prefill through B4 on the runner's parameters.  Returns
+    the requests' launch counts and the prefill's record."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     runner = engine_mod.LlamaRunner(4, cfg=cfg, rng_seed=2, max_len=2048)
@@ -783,7 +955,8 @@ def phase_serve(torch, llama, fa, engine_mod, serving, cfg):
                              f"make_generate_fn's {ref}")
     if counts["flash_attention_bwd_dq"] or counts["flash_attention_bwd_dkv"]:
         raise AssertionError(f"serving launched a backward kernel: {counts}")
-    return counts
+    torch.cuda.empty_cache()
+    return counts, f32_prefill(torch, llama, fa, split, cfg, runner.params)
 
 
 def phase_ring_kernels():
@@ -1261,21 +1434,27 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
 
 def conv_kernel_record(recs, launches):
     """The ``kernels`` entry of B7: the 7x7x512 bf16 case's times, the
-    largest error over every case, the other cases beside."""
-    main = recs["7x7x512_bfloat16"]
+    largest error over every case, the f32 case at the same shape and the
+    other cases beside; launches of the path in both types."""
+    main, f32 = recs["7x7x512_bfloat16"], recs["7x7x512_float32"]
     timing = ("kernel_ms", "plain_ms", "library_ms", "library_fwd_bwd_ms",
-              "bound_ms", "bound_by")
+              "bound_ms", "bound_by", "bound_rate")
+    keys = timing + ("max_abs_err", "design", "kernel_tflops", "split_ms",
+                     "split_device_ms")
     return {"name": "conv3x3", "route": "cuda", "source": CONV_SRC,
             "replaces": CONV_REPLACES[0],
-            "replaces_function": CONV_REPLACES[1], "launches": launches,
-            "launches_by_path": {"conv3x3": launches},
+            "replaces_function": CONV_REPLACES[1],
+            "launches": sum(launches.values()),
+            "launches_by_path": {"conv3x3": sum(launches.values())},
+            "launches_by_dtype": launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
             "ms": main["kernel_ms"], **{k: main[k] for k in timing},
             "design": main["design"], "kernel_tflops": main["kernel_tflops"],
             "library": CONV_LIBRARY,
             "shape": "x (128, 7, 7, 512) w (3, 3, 512, 512) bf16",
-            "cases": {case: {k: r[k] for k in timing + (
-                "max_abs_err", "design", "kernel_tflops") if k in r}
+            "f32": {**{k: f32[k] for k in keys if k in f32},
+                    "launches": launches["float32"]},
+            "cases": {case: {k: r[k] for k in keys if k in r}
                       for case, r in recs.items()}}
 
 
@@ -1285,8 +1464,9 @@ def kernel_record(name, recs, part, err_keys, launches_by_path):
     source, replaces, function, library = KERNELS[name]
     main = recs["main_bf16"] if part is None else recs["main_bf16"][part]
     f32 = recs["main_f32"] if part is None else recs["main_f32"][part]
-    timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    extra = ("design", "kernel_tflops")
+    timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "bound_rate")
+    extra = ("design", "kernel_tflops", "split_ms", "split_device_ms")
     rec = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "replaces_function": function,
@@ -1298,10 +1478,15 @@ def kernel_record(name, recs, part, err_keys, launches_by_path):
         **{k: main[k] for k in extra if k in main},
         "library": library,
         "shape": "B=1 H=32 L=2048 D=128 causal bf16",
-        "f32": {k: f32[k] for k in timing + extra if k in f32},
+        "f32": {**{k: f32[k] for k in timing + extra if k in f32},
+                # f32 inputs on a path: the serve phase's f32 prefill (B4).
+                "launches": launches_by_path["serve_f32_prefill"][name]},
     }
     keys = ("kernel_ms", "kernel_tflops", "bound_ms", "design")
     if part is None:
+        rec["f32_bf16out"] = {k: recs["main_f32_bf16out"][k]
+                              for k in timing + extra
+                              if k in recs["main_f32_bf16out"]}
         rec["f32_out"] = {k: recs["main_bf16_f32out"][k] for k in keys}
         rec["lk_ne_lq"] = {
             case: {**{k: recs[case][k] for k in keys},
@@ -1343,6 +1528,7 @@ def main() -> int:
 
     fa = importlib.import_module("torchmpi_tpu_torch.ops.flash_attention")
     conv = importlib.import_module("torchmpi_tpu_torch.ops.conv3x3")
+    split = importlib.import_module("torchmpi_tpu_torch.ops.bf16_split")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1359,9 +1545,9 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p, HERE) for p in libs])
 
-    kernel_recs = phase_kernel(torch, fa)
+    kernel_recs = phase_kernel(torch, fa, split)
     bwd_recs = phase_kernel_bwd(torch, fa)
-    conv_recs, conv_launches = phase_conv_kernel(torch, conv)
+    conv_recs, conv_launches = phase_conv_kernel(torch, conv, split)
     rings = phase_ring_kernels()
     resnet_rec = phase_train_resnet(torch, rings)
     async_rec, async_launches = phase_train_resnet_async()
@@ -1374,9 +1560,17 @@ def main() -> int:
     emit(phase="prefill_breakdown", prefill_ms=gen["prefill_ms"],
          flash_kernel_ms=attn_ms, flash_kernel_share=attn_ms / gen["prefill_ms"])
     torch.cuda.empty_cache()
-    launches = {"generate": gen["launches"],
-                "serve": phase_serve(torch, llama, fa, engine_mod, serving,
-                                     cfg)}
+    serve_counts, prefill_rec = phase_serve(torch, llama, fa, split,
+                                            engine_mod, serving, cfg)
+    launches = {"generate": gen["launches"], "serve": serve_counts,
+                "serve_f32_prefill": prefill_rec["launches"]}
+    # B4's share of the f32 prefill: its f32 time at this very shape, times
+    # its launches, over the measured prefill.
+    attn_ms = (kernel_recs["main_f32"]["kernel_ms"]
+               * prefill_rec["launches"]["flash_attention_fwd"])
+    emit(phase="f32_prefill_breakdown",
+         prefill_ms=prefill_rec["prefill_ms_flash"], flash_kernel_ms=attn_ms,
+         flash_kernel_share=attn_ms / prefill_rec["prefill_ms_flash"])
     torch.cuda.empty_cache()
     train = phase_train(torch, llama, fa, train_mod, args.layers)
     launches["train"] = train["launches"]

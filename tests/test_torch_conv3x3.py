@@ -131,6 +131,51 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     assert not called
 
 
+def _rounded_product(a, b, form):
+    """``a @ b`` in the tensor cores' arithmetic, in f32 PyTorch:
+    ``"split3"`` A_hi B_hi + A_hi B_lo + A_lo B_hi from bf16 hi + lo parts
+    (each product exact in f32), ``"bf16"`` or ``"tf32"`` one product of
+    the rounded operands (TF32: 10 significand bits, ties away)."""
+    def parts(x):
+        hi = x.bfloat16().float()
+        return hi, (x - hi).bfloat16().float()
+
+    if form == "split3":
+        (ah, al), (bh, bl) = parts(a), parts(b)
+        return ah @ bh + ah @ bl + al @ bh
+    if form == "tf32":
+        def r(x):
+            return ((x.view(torch.int32) + 0x1000) & ~0x1fff).view(
+                torch.float32)
+    else:
+        def r(x):
+            return x.bfloat16().float()
+    return r(a) @ r(b)
+
+
+@pytest.mark.parametrize("form,fits", [("split3", True), ("bf16", False),
+                                       ("tf32", False)])
+def test_f32_inputs_need_three_bf16_products(form, fits):
+    # Why the f32 kernel forms each chunk's product as three bf16
+    # products: at C = Cout = 64 (K = 576) over 200 pixels, the
+    # three-product form stays inside chip_smoke.py's f32 tolerance (1e-5
+    # of the output's scale; ~0.4 of it), where one bf16 product (~200x
+    # over) or one TF32 product (~30x over) does not.
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(2, 10, 10, 64).astype(np.float32))
+    w = torch.from_numpy((rs.randn(3, 3, 64, 64) / 24.0).astype(np.float32))
+    ref = tconv.conv3x3_plain(x, w)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    got = torch.zeros(200, 64)
+    for tap in range(9):
+        win = xp[:, tap // 3:tap // 3 + 10, tap % 3:tap % 3 + 10]
+        got += _rounded_product(win.reshape(200, 64), w[tap // 3, tap % 3],
+                                form)
+    worst = float((got.reshape(ref.shape) - ref).abs().max()) / (
+        1e-5 * float(ref.abs().max()))
+    assert (worst <= 0.75) if fits else (worst > 5.0), worst
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("shape", [(16, 7, 7, 512, 512),
@@ -143,9 +188,11 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
 def test_kernel_matches_plain_version_on_the_card(dtype, shape):
     # The CUDA kernel exists only on the card; chip_smoke.py runs the same
     # comparison at the bench's full batch of 128.  bf16 runs the
-    # tensor-core kernel: "ragged_tiles" has N*H*W, C and Cout off its
-    # 128 x 128 tile and 64-channel chunk, "c13" a C and a Cout that are
-    # not multiples of 8 (its masked element loads).
+    # tensor-core kernel in one product a chunk, f32 in three from its
+    # split (one split launch for x and w): "ragged_tiles" has N*H*W, C and
+    # Cout off its 128 x 128 tile and 64-channel chunk, "c13" a C and a
+    # Cout that are not multiples of 8 (its masked element loads; the
+    # split's element-by-element path).
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,9 +202,12 @@ def test_kernel_matches_plain_version_on_the_card(dtype, shape):
     x = torch.randn((n, h, wd, c), generator=g, device="cuda").to(dt)
     w = (torch.randn((3, 3, c, cout), generator=g, device="cuda")
          * 0.05).to(dt)
-    before = tconv.conv3x3_launches
+    split = importlib.import_module("torchmpi_tpu_torch.ops.bf16_split")
+    before = (tconv.conv3x3_launches, split.bf16_split_launches)
     got = tconv.conv3x3(x, w, bn=n, bc=cout)
-    assert tconv.conv3x3_launches == before + 1
+    assert (tconv.conv3x3_launches, split.bf16_split_launches) == (
+        before[0] + 1, before[1] + (dtype == "float32"))
+    assert got.dtype == dt
     want = tconv.conv3x3_plain(x, w)
     scale = float(want.float().abs().max())
     # f32: summation order only.  bf16: one ulp at the output's scale.

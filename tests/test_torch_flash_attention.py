@@ -303,6 +303,101 @@ def test_bf16_p_and_ds_fit_the_bf16_tolerance_and_need_a_split_for_f32():
     assert worst(True, 5e-4, 1e-3) <= 1.0
 
 
+def _split_parts(x):
+    """x's bf16 hi and lo parts, as f32 values."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _tf32(x):
+    """x rounded to TF32's 10 significand bits (to nearest, ties away)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def _product(eq, a, b, form):
+    """One product of the tensor cores' arithmetic in f32 PyTorch:
+    ``"split3"`` A_hi B_hi + A_hi B_lo + A_lo B_hi (each exact in f32),
+    ``"bf16"`` or ``"tf32"`` one product of the rounded operands."""
+    if form == "split3":
+        (ah, al), (bh, bl) = _split_parts(a), _split_parts(b)
+        return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)
+                + torch.einsum(eq, al, bh))
+    r = _tf32 if form == "tf32" else (lambda x: x.bfloat16().float())
+    return torch.einsum(eq, r(a), r(b))
+
+
+@pytest.mark.parametrize("form,fits", [("split3", True), ("bf16", False),
+                                       ("tf32", False)])
+def test_f32_inputs_need_three_bf16_products(form, fits):
+    # Why the f32-input kernel forms S = Q K^T and O = P V as three bf16
+    # products each: causal, bh 2, L 256, D 128, against the f32 plain
+    # forward, the three-product form stays inside chip_smoke.py's f32
+    # tolerance (2e-4 abs on o; ~0.07 of it), where one bf16 product (~40x
+    # over) or one TF32 product (~6x over) does not.
+    q, k, v = (torch.from_numpy(a) for a in _qkv(8, (2, 256, 128)))
+    scale = 128 ** -0.5
+    ref, _ = tfa._flash_bh_plain(q, k, v, causal=True, block_q=256,
+                                 block_k=256, scale=scale,
+                                 out_dtype=torch.float32)
+    s = _product("bqd,bkd->bqk", q, k, form) * scale
+    rows, cols = torch.arange(256)[:, None], torch.arange(256)[None, :]
+    s = torch.where(rows >= cols, s, torch.tensor(tfa.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _product("bqk,bkd->bqd", p, v, form) / p.sum(-1, keepdim=True)
+    worst = float((o - ref).abs().max()) / 2e-4
+    assert (worst <= 0.5) if fits else (worst > 2.0), worst
+
+
+def test_f32_kernel_gets_its_inputs_as_one_split(monkeypatch):
+    # The f32 forward hands the kernel q, k and v as their bf16 hi + lo
+    # buffers, made by one call of the split for all three, and keeps the
+    # f32 tensors for shapes and the dtype code.  (On CPU tensors the split
+    # takes its plain version; the launch is the card's business.)
+    monkeypatch.setattr(tfa, "_check_kernel_inputs", lambda *a: None)
+    seen, splits = {}, []
+    real_split = tfa.bf16_split
+
+    def split(library, *xs):
+        splits.append(library)
+        return real_split(library, *xs)
+
+    monkeypatch.setattr(tfa, "bf16_split", split)
+    monkeypatch.setattr(tfa, "_launch", lambda symbol, ins, outs, **kw:
+                        seen.update(symbol=symbol, ins=ins, outs=outs, **kw))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, (2, 8, 128), lk=24))
+    o, lse = tfa._flash_bh_kernel(q, k, v, causal=True, scale=0.1,
+                                  out_dtype=torch.bfloat16)
+    assert splits == ["flash_attention_fwd"]
+    assert seen["symbol"] == "tmpi_flash_fwd"
+    assert all(a is b for a, b in zip(seen["ins"], (q, k, v)))
+    assert all(a is b for a, b in zip(seen["outs"], (o, lse)))
+    assert o.dtype == torch.bfloat16 and len(seen["feed"]) == 3
+    for x, buf in zip((q, k, v), seen["feed"]):
+        assert buf.shape == (2, *x.shape) and buf.dtype == torch.bfloat16
+        assert torch.equal(buf[0], x.bfloat16())
+        assert torch.equal(buf[1], (x - x.bfloat16().float()).bfloat16())
+
+
+def test_f32_kernel_refuses_unaligned_tensors(monkeypatch):
+    # The split reads f32 q, k, v in 16-byte pieces and the kernel writes o
+    # in vector stores: an f32 view one element in is refused before any
+    # split or launch.
+    monkeypatch.setattr(tfa, "_check_kernel_inputs", lambda *a: None)
+
+    def no_call(*a, **kw):
+        raise AssertionError("an unaligned tensor reached the kernels")
+
+    monkeypatch.setattr(tfa, "bf16_split", no_call)
+    monkeypatch.setattr(tfa, "_launch", no_call)
+    flat = torch.zeros(2 * 8 * 128 + 1)
+    q = flat[:2 * 8 * 128].view(2, 8, 128)
+    v = flat[1:].view(2, 8, 128)
+    with pytest.raises(ValueError, match="f32 flash kernels need 16-byte "
+                                         "aligned tensors; v is not"):
+        tfa._flash_bh_kernel(q, q, v, causal=False, scale=0.1,
+                             out_dtype=torch.float32)
+
+
 def test_bf16_kernel_refuses_unaligned_tensors():
     # The tensor-core forward reads q, k, v with TMA and writes o in vector
     # stores; a view one element in is not on a 16-byte boundary.
@@ -318,9 +413,9 @@ def test_bf16_kernel_refuses_unaligned_tensors():
     ("void (anonymous namespace)::tc::flash_fwd_wgmma<false>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, void*, float*, int, int, float, int)",
      "flash_attention_fwd"),
-    ("void (anonymous namespace)::cuda_core::flash_fwd_f32<float>(float "
-     "const*, float const*, float const*, float*, float*, int, int, float, "
-     "int)", "flash_attention_fwd"),
+    ("void (anonymous namespace)::tc::flash_fwd_wgmma<true, true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, void*, float*, int, "
+     "int, float, int)", "flash_attention_fwd"),
     ("void (anonymous namespace)::tc::flash_bwd_dq_wgmma<false>("
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
      "const*, float const*, void*, int, int, float, float, int)",
@@ -376,9 +471,9 @@ def test_bf16_in_f32_out_keeps_f32_accuracy_on_the_card(causal, lq, lk):
     ("bfloat16", True, 512, 2048)])
 def test_kernel_matches_plain_version_on_the_card(dtype, causal, lq, lk):
     # The CUDA kernel exists only on the card; chip_smoke.py runs the same
-    # comparison at the generate path's full shape.  bf16 runs the
-    # tensor-core kernel (ragged Lq 100 / Lk 300 and Lk != Lq included),
-    # f32 the CUDA-core one.
+    # comparison at the generate path's full shape.  bf16 forms each of
+    # its two products as one bf16 product (ragged Lq 100 / Lk 300 and
+    # Lk != Lq included), f32 as three.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
@@ -398,6 +493,55 @@ def test_kernel_matches_plain_version_on_the_card(dtype, causal, lq, lk):
         dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(o.float(), po.float(), **tol)
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out,causal,lq,lk", [
+    ("bfloat16", True, 256, 256), ("bfloat16", False, 100, 300),
+    ("float32", True, 100, 300), ("float32", True, 512, 2048)])
+def test_f32_inputs_match_plain_version_on_the_card(out, causal, lq, lk):
+    # f32 q, k, v: one split launch for all three, then one launch of the
+    # three-product kernel, for either output type; f32 out at the f32
+    # cases' 2e-4, bf16 out at the bf16 tolerance.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    split = importlib.import_module("torchmpi_tpu_torch.ops.bf16_split")
+    odt = getattr(torch, out)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn((8, n, 128), generator=g, device="cuda")
+               for n in (lq, lk, lk))
+    before = (tfa.flash_fwd_launches, split.bf16_split_launches)
+    o, lse = tfa.flash_fwd_block(q, k, v, causal=causal, out_dtype=odt)
+    assert (tfa.flash_fwd_launches, split.bf16_split_launches) == (
+        before[0] + 1, before[1] + 1)
+    bq, bk = tfa._resolve_blocks(lq, lk, None, None)
+    po, plse = tfa._flash_bh_plain(q, k, v, causal=causal, block_q=bq,
+                                   block_k=bk, scale=128 ** -0.5,
+                                   out_dtype=odt)
+    tol = dict(rtol=0, atol=2e-4) if out == "float32" else \
+        dict(rtol=1e-2, atol=1e-2)
+    assert o.dtype == odt
+    torch.testing.assert_close(o.float(), po.float(), **tol)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("library", ["flash_attention_fwd", "conv3x3"])
+def test_split_kernel_matches_its_plain_version_on_the_card(library):
+    # Bit for bit, in both libraries that export it: aligned operands of a
+    # length that is a multiple of 8, a ragged tail, and a source one
+    # element into its storage (element by element).
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    split = importlib.import_module("torchmpi_tpu_torch.ops.bf16_split")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    flat = torch.randn(4099, generator=g, device="cuda") * 100
+    xs = (flat[:4096].view(32, 128), flat[:1001], flat[1:4097])
+    before = split.bf16_split_launches
+    got = split.bf16_split(library, *xs)
+    assert split.bf16_split_launches == before + 1
+    for x, buf in zip(xs, got):
+        assert torch.equal(buf, split.bf16_split_plain(x))
 
 
 def _bwd_inputs(dtype, causal, lq, lk, ring, seed=1):
@@ -516,6 +660,40 @@ def test_chip_smoke_bound_at_the_generate_shape():
     ms, by = chip_smoke.attention_bound_ms(32, 1, 2048, 128, False,
                                            "bfloat16", 2, 2)
     assert by == "bytes"       # one query row against the cache: a read
+
+
+def test_chip_smoke_f32_bound_is_three_bf16_products():
+    # f32 rows are bounded at 989e12 / 3 operations a second, the dense
+    # bf16 rate over the three products an f32-accurate product takes on
+    # the tensor cores: B4 f32 at the generate shape 0.104 ms, B5 / B6 f32
+    # 0.156 / 0.209 ms at the training shape, B7 f32 0.090 ms at each
+    # bench shape.
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    assert chip_smoke.PEAK_OPS_PER_S["float32"] == 989e12 / 3
+    one_product = 2.0 * 32 * (2048 * 2049 // 2) * 128
+    ms, by = chip_smoke.attention_bound_ms(32, 2048, 2048, 128, True,
+                                           "float32", 4, 4)
+    assert by == "operations"
+    assert ms == pytest.approx(2 * one_product / (989e12 / 3) * 1e3)
+    assert ms == pytest.approx(0.104, abs=0.001)
+    for kernel, want in (("dq", 0.156), ("dkv", 0.209)):
+        ms, by = chip_smoke.attention_bwd_bound_ms(kernel, 32, 2048, 2048,
+                                                   128, True, "float32", 4,
+                                                   4)
+        assert by == "operations" and ms == pytest.approx(want, abs=0.001)
+    for n, h, c in ((128, 7, 512), (128, 14, 256)):
+        ms, by = chip_smoke.conv_bound_ms(n, h, h, c, c, "float32", 4)
+        assert by == "operations"
+        assert ms == pytest.approx(2.0 * n * h * h * 9 * c * c
+                                   / (989e12 / 3) * 1e3)
+        assert ms == pytest.approx(0.090, abs=0.001)
 
 
 def test_chip_smoke_backward_bounds_at_the_training_shape():

@@ -9,9 +9,11 @@ f32 sum and one cast on store.
 
 * The kernel (``csrc/conv3x3.cu``, ``tmpi_conv3x3``) is an implicit GEMM
   that reads the one-pixel halo as zeros itself, so nothing is padded
-  before it and no patch matrix reaches device memory: on the tensor cores
-  (wgmma, cp.async staging; helpers in ``csrc/hopper.cuh``) for bf16, on
-  the CUDA cores for f32.  It takes any C and Cout and tiles its own way;
+  before it and no patch matrix reaches device memory, on the tensor cores
+  (wgmma, cp.async staging; helpers in ``csrc/hopper.cuh``): bf16 in one
+  product, f32, split into bf16 hi + lo parts by one launch of
+  :mod:`.bf16_split` for x and w, in three bf16 products (an f32 output).
+  It takes any C and Cout and tiles its own way;
   ``bn`` and ``bc`` keep the JAX function's contract (they must divide N
   and Cout) and nothing else.
 * :func:`conv3x3_plain` is the same algebra in torch ops: pad, nine f32
@@ -28,6 +30,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from .bf16_split import bf16_split
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,7 +67,9 @@ def _check_kernel_inputs(x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _conv3x3_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``tmpi_conv3x3`` on the current stream of x's device."""
+    """``tmpi_conv3x3`` on the current stream of x's device; f32 x and w
+    go to it as their bf16 hi + lo split, made by one launch of the split
+    kernel for both."""
     global conv3x3_launches
     from .. import _build
 
@@ -71,13 +77,15 @@ def _conv3x3_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     N, H, W, C = x.shape
     cout = w.shape[-1]
     out = torch.empty((N, H, W, cout), dtype=x.dtype, device=x.device)
+    xk, wk = bf16_split("conv3x3", x, w) if x.dtype == torch.float32 \
+        else (x, w)
     fn = _build.load("conv3x3").tmpi_conv3x3
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C,
+        err = fn(xk.data_ptr(), wk.data_ptr(), out.data_ptr(), N, H, W, C,
                  cout, _DTYPE_CODES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"tmpi_conv3x3 launch failed: CUDA error {err}")

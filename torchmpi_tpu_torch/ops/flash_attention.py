@@ -6,9 +6,11 @@ with a plain PyTorch version of the same algebra beside it:
 - the online-softmax forward (running max, denominator and output
   accumulator in f32 across k tiles, causal fill -1e30, whole k tiles above
   the diagonal skipped): ``csrc/flash_attention_fwd.cu``,
-  :func:`_flash_bh_plain`.  bf16 inputs run on the tensor cores (wgmma, TMA
-  staging; the shared helpers are ``csrc/hopper.cuh``), f32 inputs on the
-  CUDA cores; the source names the choice and its numerics;
+  :func:`_flash_bh_plain`.  It runs on the tensor cores (wgmma, TMA
+  staging; the shared helpers are ``csrc/hopper.cuh``): bf16 inputs in one
+  product, f32 inputs, split into bf16 hi + lo parts by one launch of
+  :mod:`.bf16_split` for q, k and v, in three bf16 products; the source
+  names the choice and its numerics;
 - the FlashAttention-2 backward in two passes, from the forward's lse and
   delta = rowsum(do * o): dq (``tmpi_flash_bwd_dq``,
   :func:`_flash_bh_bwd_dq_plain`) and dk/dv (``tmpi_flash_bwd_dkv``,
@@ -34,6 +36,8 @@ import math
 from typing import Optional
 
 import torch
+
+from .bf16_split import bf16_split
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 128
@@ -244,13 +248,14 @@ def _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_aligned(**tensors: torch.Tensor) -> None:
-    """The tensor-core kernels stage their bf16 inputs with TMA and write
-    their outputs in vector stores: each must start on a 16-byte
-    boundary."""
+def _check_aligned(kind: str = "bf16", **tensors: torch.Tensor) -> None:
+    """The tensor-core kernels stage their bf16 inputs (f32 inputs: their
+    bf16 split, read in 16-byte pieces) with TMA and write their outputs
+    in vector stores: each must start on a 16-byte boundary.  ``kind``
+    names the input type in the message."""
     bad = [name for name, t in tensors.items() if t.data_ptr() % 16]
     if bad:
-        raise ValueError(f"the bf16 flash kernels need 16-byte aligned "
+        raise ValueError(f"the {kind} flash kernels need 16-byte aligned "
                          f"tensors; {', '.join(bad)} is not (a view at an "
                          f"odd offset? pass a .clone())")
 
@@ -275,16 +280,19 @@ def _kernel_entry(symbol: str):
     return fn
 
 
-def _launch(symbol: str, ins, outs, *, causal: bool, scale: float) -> None:
+def _launch(symbol: str, ins, outs, *, causal: bool, scale: float,
+            feed=None) -> None:
     """Launch ``symbol`` on the current stream of q's device, reading
     ``ins`` (q, k, v first) and writing ``outs``; raises if the launch was
-    refused."""
+    refused.  ``feed``, where given, holds the buffers the kernel reads in
+    place of ``ins`` (f32 inputs as their bf16 split), which still give
+    the shapes and the input type's code."""
     qbh, kbh = ins[0], ins[1]
     BH, Lq, D = qbh.shape
     fn = _kernel_entry(symbol)
     with torch.cuda.device(qbh.device):
         stream = torch.cuda.current_stream(qbh.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (*ins, *outs)), BH, Lq,
+        err = fn(*(t.data_ptr() for t in (*(feed or ins), *outs)), BH, Lq,
                  kbh.shape[1], D, float(scale), int(causal),
                  _DTYPE_CODES[qbh.dtype], _DTYPE_CODES[outs[0].dtype],
                  stream)
@@ -294,16 +302,18 @@ def _launch(symbol: str, ins, outs, *, causal: bool, scale: float) -> None:
 
 def _flash_bh_kernel(qbh, kbh, vbh, *, causal: bool, scale: float,
                      out_dtype):
-    """The forward (``tmpi_flash_fwd``)."""
+    """The forward (``tmpi_flash_fwd``); f32 inputs go to it as their bf16
+    hi + lo split, made by one launch of the split kernel for all three."""
     global flash_fwd_launches
     _check_kernel_inputs(qbh, kbh, vbh, out_dtype)
     BH, L, D = qbh.shape
     o = torch.empty((BH, L, D), dtype=out_dtype, device=qbh.device)
     lse = torch.empty((BH, L, 1), dtype=torch.float32, device=qbh.device)
-    if qbh.dtype == torch.bfloat16:
-        _check_aligned(q=qbh, k=kbh, v=vbh, o=o)
+    f32 = qbh.dtype == torch.float32
+    _check_aligned("f32" if f32 else "bf16", q=qbh, k=kbh, v=vbh, o=o)
+    feed = bf16_split("flash_attention_fwd", qbh, kbh, vbh) if f32 else None
     _launch("tmpi_flash_fwd", (qbh, kbh, vbh), (o, lse), causal=causal,
-            scale=scale)
+            scale=scale, feed=feed)
     flash_fwd_launches += 1
     return o, lse
 

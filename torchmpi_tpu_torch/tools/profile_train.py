@@ -30,7 +30,7 @@ import json
 import subprocess
 import time
 
-KINDS = (("flash_attention_fwd", ("flash_fwd_wgmma", "flash_fwd_f32")),
+KINDS = (("flash_attention_fwd", ("flash_fwd_wgmma",)),
          ("flash_attention_bwd_dq", ("flash_bwd_dq_wgmma",
                                      "flash_bwd_dq_kernel")),
          ("flash_attention_bwd_dkv", ("flash_bwd_dkv_wgmma",
