@@ -398,6 +398,176 @@ def test_f32_kernel_refuses_unaligned_tensors(monkeypatch):
                              out_dtype=torch.float32)
 
 
+def _bf16_rn(x):
+    """f32 values rounded to bf16 (to nearest, ties to even), as f32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _toward_zero(x):
+    """f64 values rounded to f32 toward zero: to nearest, then one ulp in
+    where that went out past x."""
+    r = x.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(x)
+    return (r.view(np.int32) - over).view(np.float32)
+
+
+def _tc_product(acc, a, b, split, first=False):
+    """acc + A B (A (m, n), B (n, p), f32 numpy) in the tensor cores'
+    arithmetic: ``split`` A_hi B_hi + A_hi B_lo + A_lo B_hi from bf16 hi +
+    lo parts, else one product of bf16(A) and bf16(B); one k16 step at a
+    time along n, each step's sum (exact: bf16 x bf16 products) added into
+    the f32 accumulator rounding toward zero, as wgmma does.  ``first``:
+    the first step overwrites acc."""
+    def parts(x):
+        hi = _bf16_rn(x)
+        return (hi, _bf16_rn(x - hi)) if split else (hi,)
+
+    a, b = parts(a), parts(b)
+    pairs = [(a[0], b[0])] + ([(a[0], b[1]), (a[1], b[0])] if split else [])
+    for x, y in pairs:
+        for j in range(0, x.shape[1], 16):
+            step = (x[:, j:j + 16].astype(np.float64)
+                    @ y[j:j + 16].astype(np.float64))
+            acc = _toward_zero(step if first else acc + step)
+            first = False
+    return acc
+
+
+def _split_bwd_model_error(split, L=2048, rows=64, tile=32, d=128):
+    """The f32 backward kernels' arithmetic at one head, causal, L = 2048,
+    on the rows with the longest sums: dq of the last 64 q rows (each over
+    up to 2048 keys) and dk, dv of the first 64 k rows (each over 2048 q
+    rows).  S and dP come from three bf16 products (or one), p and ds are
+    formed in f32 and split in registers, and each second-stage product
+    runs tile by tile (32 rows, 2 k16 steps a part): 384 truncating steps
+    into each accumulator.  Returns the worst error over dq, dk and dv in
+    units of the f32 tolerance, 5e-4 abs + 1e-3 rel, against the f64
+    gradients of the same f32 inputs, lse and delta."""
+    rs = np.random.RandomState(17)
+    q, k, v, do = (rs.randn(L, d).astype(np.float32) for _ in range(4))
+    scale = d ** -0.5
+    f64 = np.float64
+    s = np.where(np.tril(np.ones((L, L), bool)),
+                 q.astype(f64) @ k.T.astype(f64) * scale, -np.inf)
+    m = s.max(1, keepdims=True)
+    lse = (m + np.log(np.exp(s - m).sum(1, keepdims=True))).astype(np.float32)
+    p = np.exp(s - lse.astype(f64))
+    delta = (do.astype(f64) * (p @ v.astype(f64))).sum(
+        1, keepdims=True).astype(np.float32)
+    ds = p * (do.astype(f64) @ v.T.astype(f64) - delta.astype(f64)) * scale
+    want = (ds[-rows:] @ k, ds[:, :rows].T @ q, p[:, :rows].T @ do)
+
+    def p_ds(st, dpt, lse_r, delta_r, keep):
+        x = np.where(keep, st * np.float32(scale) - lse_r, -np.inf)
+        pp = np.exp(x.astype(np.float32))
+        return pp, (pp * (dpt - delta_r) * np.float32(scale)).astype(
+            np.float32)
+
+    zero = np.zeros((rows, L), np.float32)
+    sq = _tc_product(zero, q[-rows:], k.T, split, first=True)
+    dpq = _tc_product(zero, do[-rows:], v.T, split, first=True)
+    keep = np.arange(L - rows, L)[:, None] >= np.arange(L)[None]
+    _, dsq = p_ds(sq, dpq, lse[-rows:], delta[-rows:], keep)
+    st = _tc_product(zero, k[:rows], q.T, split, first=True)
+    dpt = _tc_product(zero, v[:rows], do.T, split, first=True)
+    keep = np.arange(L)[None] >= np.arange(rows)[:, None]
+    pt, dst = p_ds(st, dpt, lse.T, delta.T, keep)
+    dq, dk, dv = (np.zeros((rows, d), np.float32) for _ in range(3))
+    for t in range(0, L, tile):
+        dq = _tc_product(dq, dsq[:, t:t + tile], k[t:t + tile], split)
+        dv = _tc_product(dv, pt[:, t:t + tile], do[t:t + tile], split)
+        dk = _tc_product(dk, dst[:, t:t + tile], q[t:t + tile], split)
+    return max(float((np.abs(g - w) / (5e-4 + 1e-3 * np.abs(w))).max())
+               for g, w in zip((dq, dk, dv), want))
+
+
+@pytest.mark.parametrize("form,fits", [("split3", True), ("bf16", False)])
+def test_f32_backward_needs_three_bf16_products(form, fits):
+    # Why the f32-input backward forms every product as three bf16
+    # products, and why it needs no per-chunk sums: with the tensor cores'
+    # truncating accumulation modelled step by step, the three-product form
+    # keeps dq, dk and dv within ~0.04 of chip_smoke.py's f32 tolerance at
+    # L = 2048, where one bf16 product (bf16 inputs, p and ds) is ~16x over.
+    worst = _split_bwd_model_error(form == "split3")
+    assert (worst <= 0.25) if fits else (worst > 2.0), worst
+
+
+def test_f32_backward_splits_its_inputs_once_for_both_passes(monkeypatch):
+    # An f32 backward call splits q, k, v and do with one launch of the
+    # backward library's split, and both passes read those four buffers
+    # (with lse and delta) in place of the f32 tensors, which still give
+    # the shapes and the dtype code.  (On CPU tensors the split takes its
+    # plain version; the launches are the card's business.)
+    monkeypatch.setattr(tfa, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(tfa, "_check_bwd_kernel_inputs", lambda *a: None)
+    splits, launches = [], []
+    real_split = tfa.bf16_split
+
+    def split(library, *xs):
+        splits.append((library, xs))
+        return real_split(library, *xs)
+
+    monkeypatch.setattr(tfa, "bf16_split", split)
+    monkeypatch.setattr(tfa, "_launch", lambda symbol, ins, outs, **kw:
+                        launches.append((symbol, ins, outs, kw["feed"])))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(10, (2, 8, 128), lk=24))
+    do = torch.from_numpy(_qkv(11, (2, 8, 128))[0])
+    lse, delta = torch.zeros((2, 8, 1)), torch.ones((2, 8, 1))
+    dq, dk, dv = tfa._flash_bh_bwd(q, k, v, do, lse, delta, causal=True,
+                                   block_q=8, block_k=8,
+                                   out_dtype=torch.bfloat16)
+    assert [lib for lib, _ in splits] == ["flash_attention_bwd"]
+    assert all(a is b for a, b in zip(splits[0][1], (q, k, v, do)))
+    assert [sym for sym, *_ in launches] == ["tmpi_flash_bwd_dq",
+                                             "tmpi_flash_bwd_dkv"]
+    first, second = launches[0][3], launches[1][3]
+    assert len(first) == 6 and all(a is b for a, b in zip(first, second))
+    assert first[4] is lse and first[5] is delta
+    for x, buf in zip((q, k, v, do), first[:4]):
+        assert buf.shape == (2, *x.shape) and buf.dtype == torch.bfloat16
+        assert torch.equal(buf[0], x.bfloat16())
+        assert torch.equal(buf[1], (x - x.bfloat16().float()).bfloat16())
+    for sym, ins, outs, _ in launches:
+        assert all(a is b for a, b in zip(ins, (q, k, v, do, lse, delta)))
+    assert launches[0][2] == (dq,) and launches[1][2] == (dk, dv)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("part,shifted", [
+    ("dq", "q"), ("dq", "do"), ("dkv", "k"), ("dkv", "v"), ("both", "do")])
+def test_f32_bwd_kernels_refuse_unaligned_tensors(monkeypatch, part,
+                                                  shifted):
+    # The split reads the f32 inputs in 16-byte pieces and the kernels write
+    # their outputs in vector stores: an f32 view one element in is refused
+    # before any split or launch, called pass by pass or as one backward.
+    monkeypatch.setattr(tfa, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(tfa, "_check_bwd_kernel_inputs", lambda *a: None)
+
+    def no_call(*a, **kw):
+        raise AssertionError("an unaligned tensor reached the kernels")
+
+    monkeypatch.setattr(tfa, "bf16_split", no_call)
+    monkeypatch.setattr(tfa, "_launch", no_call)
+    flat = torch.zeros(2 * 8 * 128 + 1)
+    ins = {n: flat[:2 * 8 * 128].view(2, 8, 128) for n in ("q", "k", "v",
+                                                           "do")}
+    ins[shifted] = flat[1:].view(2, 8, 128)
+    row = torch.zeros((2, 8, 1))
+    args = (ins["q"], ins["k"], ins["v"], ins["do"], row, row)
+    fn = {"dq": tfa._flash_bh_bwd_dq_kernel,
+          "dkv": tfa._flash_bh_bwd_dkv_kernel}.get(part)
+    with pytest.raises(ValueError,
+                       match=f"f32 flash kernels need 16-byte aligned "
+                             f"tensors; {shifted} is not"):
+        if fn is None:
+            tfa._flash_bh_bwd(*args, causal=True, block_q=8, block_k=8)
+        else:
+            fn(*args, causal=True, scale=0.1, out_dtype=torch.float32)
+
+
 def test_bf16_kernel_refuses_unaligned_tensors():
     # The tensor-core forward reads q, k, v with TMA and writes o in vector
     # stores; a view one element in is not on a 16-byte boundary.
@@ -424,15 +594,20 @@ def test_bf16_kernel_refuses_unaligned_tensors():
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
      "const*, float const*, void*, void*, int, int, float, float, int)",
      "flash_attention_bwd_dkv"),
-    ("void (anonymous namespace)::cuda_core::flash_bwd_dq_kernel<float, "
-     "float>(...)", "flash_attention_bwd_dq"),
-    ("void (anonymous namespace)::cuda_core::flash_bwd_dkv_kernel<float, "
-     "__nv_bfloat16>(...)", "flash_attention_bwd_dkv"),
+    ("void (anonymous namespace)::tc::flash_bwd_dq_wgmma<true, true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
+     "const*, float const*, void*, int, int, float, float, int)",
+     "flash_attention_bwd_dq"),
+    ("void (anonymous namespace)::tc::flash_bwd_dkv_wgmma<false, true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
+     "const*, float const*, void*, void*, int, int, float, float, int)",
+     "flash_attention_bwd_dkv"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "matmul")])
 def test_profile_train_sorts_the_port_kernels_by_name(name, kind):
     # tools/profile_train sums device time by kernel name; each pass's
-    # tensor-core and CUDA-core kernels count as that pass.
+    # instantiations (bf16 inputs, and f32 inputs as three bf16 products)
+    # count as that pass.
     from torchmpi_tpu_torch.tools import profile_train
 
     assert profile_train.kind_of(name) == kind
@@ -575,7 +750,7 @@ def test_bwd_kernels_match_plain_versions_on_the_card(dtype, out, causal, lq,
     # the same comparison at the training path's full shape.  bf16 runs
     # the tensor-core kernels (ragged Lq 100 / Lk 300 and Lk != Lq
     # included; an f32 output as the ring carry, with the ring's lse and
-    # delta), f32 the CUDA-core ones.
+    # delta), f32 the same kernels as three bf16 products.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     odt = getattr(torch, out or dtype)
@@ -599,6 +774,60 @@ def test_bwd_kernels_match_plain_versions_on_the_card(dtype, out, causal, lq,
     for a, b in zip(got, ref):
         assert a.dtype == odt
         torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out,causal,lq,lk", [
+    ("float32", True, 2048, 2048), ("bfloat16", True, 2048, 2048),
+    ("float32", False, 100, 300), ("bfloat16", True, 100, 300),
+    ("float32", True, 512, 2048)])
+def test_f32_bwd_kernels_match_plain_versions_on_the_card(out, causal, lq,
+                                                          lk):
+    # f32 q, k, v, do: one split launch for all four, then one launch of
+    # each three-product pass, for either output type; f32 out at the f32
+    # cases' 5e-4 abs + 1e-3 rel (the main shape's 2048-step sums
+    # included), bf16 out at the bf16 tolerance.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    split = importlib.import_module("torchmpi_tpu_torch.ops.bf16_split")
+    odt = getattr(torch, out)
+    q, k, v, do, lse, delta = _bwd_inputs("float32", causal, lq, lk,
+                                          ring=lq != lk)
+    before = (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches,
+              split.bf16_split_launches)
+    got = tfa.flash_bwd_block(q, k, v, do, lse, delta, causal=causal,
+                              out_dtype=odt)
+    assert (tfa.flash_bwd_dq_launches, tfa.flash_bwd_dkv_launches,
+            split.bf16_split_launches) == (before[0] + 1, before[1] + 1,
+                                           before[2] + 1)
+    bq, bk = tfa._resolve_blocks(lq, lk, None, None)
+    kw = dict(causal=causal, block_q=bq, block_k=bk, scale=128 ** -0.5,
+              out_dtype=odt)
+    ref = (tfa._flash_bh_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+           *tfa._flash_bh_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+    tol = dict(rtol=1e-3, atol=5e-4) if out == "float32" else \
+        dict(rtol=1e-2, atol=1e-2)
+    for a, b in zip(got, ref):
+        assert a.dtype == odt
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_split_kernel_takes_four_operands_on_the_card():
+    # The backward's split: q, k, v and do in one launch, bit for bit,
+    # beside a ragged tail and a source one element into its storage.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    split = importlib.import_module("torchmpi_tpu_torch.ops.bf16_split")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    flat = torch.randn(8195, generator=g, device="cuda") * 100
+    xs = (flat[:4096].view(32, 128), flat[4096:8192].view(2, 16, 128),
+          flat[:1001], flat[1:4097])
+    before = split.bf16_split_launches
+    got = split.bf16_split("flash_attention_bwd", *xs)
+    assert split.bf16_split_launches == before + 1
+    for x, buf in zip(xs, got):
+        assert torch.equal(buf, split.bf16_split_plain(x))
 
 
 @pytest.mark.cuda

@@ -3,13 +3,14 @@ kernels take f32 inputs.
 
 ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (round to nearest even both
 times; ``x - hi`` is exact in f32), stored as one ``(2, *x.shape)`` bf16
-buffer, hi first.  The flash forward (B4) and the 3x3 convolution (B7)
-form each f32 product from these as three bf16 products (``A_hi B_hi +
-A_hi B_lo + A_lo B_hi``); ``csrc/bf16_split.cuh`` says why that form.
+buffer, hi first.  The flash forward (B4), the flash backward (B5, B6) and
+the 3x3 convolution (B7) form each f32 product from these as three bf16
+products (``A_hi B_hi + A_hi B_lo + A_lo B_hi``); ``csrc/bf16_split.cuh``
+says why that form.
 
 * The kernel (``tmpi_bf16_split`` in ``csrc/bf16_split.cuh``, which the
-  flash forward's and the convolution's sources include, so each library
-  exports it) splits up to three tensors in one launch.
+  flash forward's and backward's and the convolution's sources include, so
+  each library exports it) splits up to four tensors in one launch.
 * :func:`bf16_split_plain` is the same arithmetic in torch ops.
 
 A CPU tensor takes the plain version; a CUDA tensor goes to the kernel or
@@ -22,7 +23,7 @@ import ctypes
 
 import torch
 
-MAX_OPERANDS = 3
+MAX_OPERANDS = 4
 
 # Launches of the split kernel in this process (the plain version does not
 # count); chip_smoke.py reads it.

@@ -151,7 +151,31 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
+#define HOPPER_D16 HOPPER_D8(0), HOPPER_D8(8)
+#define HOPPER_D16_STR                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32, f32) += A (64 x 16) * B (16 x 32), bf16 operands, both from
+// shared memory, as m64n64k16_ss with j < 4: thread t of the warpgroup holds
+// d[4j + e] at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2) and column
+// 8 j + 2 (t % 4) + e % 2, so a product that takes this tile as its A
+// operand from registers reads d[8u .. 8u + 7] in k16 step u.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_D16_STR
+      ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : HOPPER_D16
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
 #undef HOPPER_D8
+#undef HOPPER_D16
+#undef HOPPER_D16_STR
 #undef HOPPER_D32
 #undef HOPPER_D32_STR
 #undef HOPPER_D64

@@ -14,9 +14,10 @@ with a plain PyTorch version of the same algebra beside it:
 - the FlashAttention-2 backward in two passes, from the forward's lse and
   delta = rowsum(do * o): dq (``tmpi_flash_bwd_dq``,
   :func:`_flash_bh_bwd_dq_plain`) and dk/dv (``tmpi_flash_bwd_dkv``,
-  :func:`_flash_bh_bwd_dkv_plain`), both in ``csrc/flash_attention_bwd.cu``;
-  bf16 inputs run on the tensor cores as the forward's do, f32 inputs on
-  the CUDA cores.
+  :func:`_flash_bh_bwd_dkv_plain`), both in ``csrc/flash_attention_bwd.cu``,
+  on the tensor cores as the forward: bf16 inputs in one product, f32
+  inputs, split by one launch of :mod:`.bf16_split` for q, k, v and do that
+  both passes read, in three bf16 products.
 
 A CPU tensor takes the plain version; a CUDA tensor goes to the kernel or
 raises, never falling back.  :func:`flash_attention` is differentiable
@@ -318,31 +319,48 @@ def _flash_bh_kernel(qbh, kbh, vbh, *, causal: bool, scale: float,
     return o, lse
 
 
-def _flash_bh_bwd_dq_kernel(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
-                            scale: float, out_dtype):
-    """The dq pass (``tmpi_flash_bwd_dq``)."""
-    global flash_bwd_dq_launches
+def _bwd_split(qbh, kbh, vbh, dobh, lse, delta, out_dtype):
+    """What the backward kernels read in place of q, k, v and do: for f32
+    inputs their bf16 hi + lo buffers, made by one split launch for all
+    four, which both passes can share; for bf16 inputs nothing, ``()``.
+    Checks the inputs, and their alignment, before any split or launch."""
     _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
+    f32 = qbh.dtype == torch.float32
+    _check_aligned("f32" if f32 else "bf16", q=qbh, k=kbh, v=vbh, do=dobh)
+    if not f32:
+        return ()
+    return tuple(bf16_split("flash_attention_bwd", qbh, kbh, vbh, dobh))
+
+
+def _flash_bh_bwd_dq_kernel(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
+                            scale: float, out_dtype, split=None):
+    """The dq pass (``tmpi_flash_bwd_dq``).  f32 inputs read ``split``
+    (:func:`_bwd_split`'s buffers), or are split here with one launch."""
+    global flash_bwd_dq_launches
+    if split is None:
+        split = _bwd_split(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
     dq = torch.empty(qbh.shape, dtype=out_dtype, device=qbh.device)
-    if qbh.dtype == torch.bfloat16:
-        _check_aligned(q=qbh, k=kbh, v=vbh, do=dobh, dq=dq)
+    _check_aligned("f32" if split else "bf16", dq=dq)
     _launch("tmpi_flash_bwd_dq", (qbh, kbh, vbh, dobh, lse, delta), (dq,),
-            causal=causal, scale=scale)
+            causal=causal, scale=scale,
+            feed=(*split, lse, delta) if split else None)
     flash_bwd_dq_launches += 1
     return dq
 
 
 def _flash_bh_bwd_dkv_kernel(qbh, kbh, vbh, dobh, lse, delta, *,
-                             causal: bool, scale: float, out_dtype):
-    """The dk/dv pass (``tmpi_flash_bwd_dkv``)."""
+                             causal: bool, scale: float, out_dtype,
+                             split=None):
+    """The dk/dv pass (``tmpi_flash_bwd_dkv``); ``split`` as for dq."""
     global flash_bwd_dkv_launches
-    _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
+    if split is None:
+        split = _bwd_split(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
     dk = torch.empty(kbh.shape, dtype=out_dtype, device=kbh.device)
     dv = torch.empty(kbh.shape, dtype=out_dtype, device=kbh.device)
-    if qbh.dtype == torch.bfloat16:
-        _check_aligned(q=qbh, k=kbh, v=vbh, do=dobh, dk=dk, dv=dv)
+    _check_aligned("f32" if split else "bf16", dk=dk, dv=dv)
     _launch("tmpi_flash_bwd_dkv", (qbh, kbh, vbh, dobh, lse, delta),
-            (dk, dv), causal=causal, scale=scale)
+            (dk, dv), causal=causal, scale=scale,
+            feed=(*split, lse, delta) if split else None)
     flash_bwd_dkv_launches += 1
     return dk, dv
 
@@ -393,9 +411,11 @@ def _flash_bh_bwd(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
             qbh, kbh, vbh, dobh, lse, delta,
             out_dtype=kbh.dtype if out_dtype is None else out_dtype, **kw)
         return dq, dk, dv
-    # The kernels take q and k of one dtype, so dq's and dk/dv's agree.
-    kw = dict(causal=causal, scale=scale,
-              out_dtype=qbh.dtype if out_dtype is None else out_dtype)
+    # The kernels take q and k of one dtype, so dq's and dk/dv's agree;
+    # f32 inputs are split once, for both passes.
+    out_dtype = qbh.dtype if out_dtype is None else out_dtype
+    kw = dict(causal=causal, scale=scale, out_dtype=out_dtype,
+              split=_bwd_split(qbh, kbh, vbh, dobh, lse, delta, out_dtype))
     dq = _flash_bh_bwd_dq_kernel(qbh, kbh, vbh, dobh, lse, delta, **kw)
     return (dq, *_flash_bh_bwd_dkv_kernel(qbh, kbh, vbh, dobh, lse, delta,
                                           **kw))

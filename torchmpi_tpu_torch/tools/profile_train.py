@@ -3,13 +3,16 @@ and device time by kind of kernel.
 
     python -m torchmpi_tpu_torch.tools.profile_train [--layers N]
         [--seq L] [--remat dots|full|none] [--steps S]
+        [--dtype bfloat16|float32]
     python -m torchmpi_tpu_torch.tools.profile_train --model resnet50
         [--batch B] [--steps S]
 
-``llama`` (the default) initialises Llama-3-8B width (bf16, random weights
-from a seeded ``torch.Generator``) on the current GPU and builds
-``make_train_step`` as ``chip_smoke.py``'s train phase does (B=1,
-attn="flash", loss_chunk=512, plain SGD).  ``resnet50`` runs one rank's
+``llama`` (the default) initialises Llama-3-8B width (``--dtype``, bf16 by
+default, random weights from a seeded ``torch.Generator``) on the current
+GPU and builds ``make_train_step`` as ``chip_smoke.py``'s train and
+train_f32 phases do (B=1, attn="flash", loss_chunk=512, plain SGD; f32
+runs every flash kernel as three bf16 products after a split launch, and
+needs ``--layers 16`` or fewer to fit the card).  ``resnet50`` runs one rank's
 share of ``chip_smoke.py``'s train_resnet step alone on the card: ResNet-50
 at full width, f32 with TF32 off, ``--batch`` images of 224x224x3, the
 engine's loss and gradients and SGD update with no gradient sync.  After
@@ -31,10 +34,9 @@ import subprocess
 import time
 
 KINDS = (("flash_attention_fwd", ("flash_fwd_wgmma",)),
-         ("flash_attention_bwd_dq", ("flash_bwd_dq_wgmma",
-                                     "flash_bwd_dq_kernel")),
-         ("flash_attention_bwd_dkv", ("flash_bwd_dkv_wgmma",
-                                      "flash_bwd_dkv_kernel")),
+         ("flash_attention_bwd_dq", ("flash_bwd_dq_wgmma",)),
+         ("flash_attention_bwd_dkv", ("flash_bwd_dkv_wgmma",)),
+         ("bf16_split", ("split_kernel",)),
          ("convolution", ("conv", "fprop", "dgrad", "wgrad", "winograd")),
          ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
@@ -55,6 +57,9 @@ def main() -> int:
                     choices=["none", "dots", "full"])
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--model", default="llama", choices=["llama", "resnet50"])
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="llama: the weights' type")
     ap.add_argument("--batch", type=int, default=32,
                     help="resnet50: images per step")
     args = ap.parse_args()
@@ -127,11 +132,11 @@ def _llama(args):
 
     cfg = dataclasses.replace(llama.llama3_8b(), n_layers=args.layers)
     g = torch.Generator(device="cuda").manual_seed(4)
-    params = llama.init(g, cfg, dtype=torch.bfloat16)
+    params = llama.init(g, cfg, dtype=getattr(torch, args.dtype))
     data, _ = synthetic_tokens(cfg, n_seq=1, seq_len=args.seq)
     batch = torch.from_numpy(data).to("cuda", torch.long)
     tokens, targets = batch[:, :-1], batch[:, 1:]
-    step = llama.make_train_step(cfg, lr=1.0, attn="flash",
+    step = llama.make_train_step(cfg, lr=0.25, attn="flash",
                                  remat=args.remat, loss_chunk=512)
 
     def run(n):
@@ -142,7 +147,7 @@ def _llama(args):
         return float(loss)
 
     return run, {"model": "llama", "n_layers": cfg.n_layers,
-                 "d_model": cfg.d_model, "dtype": "bfloat16", "batch": 1,
+                 "d_model": cfg.d_model, "dtype": args.dtype, "batch": 1,
                  "seq": args.seq, "remat": args.remat, "loss_chunk": 512,
                  "per_step": args.seq}
 
