@@ -124,6 +124,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    launch B1 once per bucket of ``nn.bucketing.plan_ready_order`` (every
    bucket lies above the small-message cutoff) and B2/B3 never; step ms and
    the seconds blocked in handle waits are printed.
+11. train_mnist: config 1, the MNIST MLP 784-1024-1024-10 at full width
+   (f32, TF32 off), trained by ``examples/mnist_allreduce.py``'s ``run``
+   (the example's own entry, through ``import torchmpi_tpu_torch as mpi``)
+   on 2 ranks spawned on the one card, global batch 128, lr 0.1, 3 epochs
+   of synthetic MNIST (8192 training and 8192 held-out examples), in
+   ``compiled`` (through its ``DataPipeline``), ``eager_sync`` and
+   ``eager_async``: in every mode the epoch loss must fall by at least 0.2
+   and the held-out accuracy exceed 95%; every compiled step must launch B1
+   3 times (w0, w1, the tail bucket) and step 1's rings equal the plain
+   schedule bit for bit on both ranks; eager_async launches B1 once a step
+   (its one bucket) and eager_sync never; the eager modes check the
+   replicas every 10 steps and at the end.  Then the compiled run again
+   with ``data_pipeline="off"``, which must give the same losses and
+   parameters bit for bit, saving at step 40 and 80, and a fresh engine
+   resumed from the save at step 40, which must give the continuous run's
+   losses and step-80 parameters (bit for bit, or within the printed
+   tolerance).  Step ms (median), the rings' ms a step (CUDA events),
+   images/s per card and the device stage's wait are printed per mode.
 
 Then a line with the card's name and power limit, a ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of
@@ -235,6 +253,23 @@ RESNET_ASYNC_STEPS = 3
 RESNET_ASYNC_RUNS = (("eager_async-ready", "eager_async", "ready"),
                      ("eager_async-barrier", "eager_async", "barrier"),
                      ("eager_sync", "eager_sync", "ready"))
+
+# The train_mnist phase (config 1): the MNIST MLP 784-1024-1024-10 at full
+# width, f32, global batch 128 over 2 ranks, lr 0.1, 3 epochs of synthetic
+# MNIST (8192 examples, 8192 held out), as examples/mnist_allreduce.py runs
+# it.  B1 launches a step by mode: compiled rings w0 and w1 alone and the
+# other four leaves in one tail bucket; eager_async rings its one bucket;
+# eager_sync goes through gloo.  The bars are tests/test_examples.py's for
+# synthetic data.  Resume: saved at MNIST_SAVE_AT, resumed to
+# MNIST_RESUME_TO in a fresh engine.
+MNIST_MODES = ("compiled", "eager_sync", "eager_async")
+MNIST_EPOCHS, MNIST_BATCH, MNIST_LR = 3, 128, 0.1
+MNIST_RINGS = {"compiled": 3, "eager_sync": 0, "eager_async": 1}
+MNIST_MIN_LOSS_DROP, MNIST_MIN_ACCURACY = 0.2, 0.95
+MNIST_SAVE_AT, MNIST_RESUME_TO = 40, 80
+# Relative to a leaf's largest magnitude, if a resumed run is not bitwise
+# equal (another cuBLAS algorithm in the fresh engine).
+MNIST_RESUME_RTOL = 1e-6
 
 # What each kernel runs on, by input dtype (the sources dispatch on it).
 F32_SPLIT = "wgmma, three bf16 products"
@@ -1506,15 +1541,263 @@ def phase_train_resnet_async():
                  for label, run in r0["runs"].items()}
 
 
+def mnist_rank_main(ckpt_dir: str) -> dict:
+    """One rank of the train_mnist phase (spawned): the example in each
+    mode, then the compiled run again with the data pipeline off, saving at
+    MNIST_SAVE_AT, and a fresh engine resumed from that save."""
+    import torch
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch.collectives import cuda_ring
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine
+    from torchmpi_tpu_torch.examples import mnist_allreduce
+    from torchmpi_tpu_torch.models import mlp
+    from torchmpi_tpu_torch.runtime import config, lifecycle
+    from torchmpi_tpu_torch.utils import checkpoint as ckpt
+    from torchmpi_tpu_torch.utils.data import ShardedIterator, load_mnist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The group outlives each run (lifecycle.start adopts it), so the runs
+    # of this rank share one process group.
+    rank, p = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                       % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group(lifecycle.choose_backend(dev, p),
+                            init_method="env://", rank=rank, world_size=p)
+    try:
+        def counts():
+            return {"ring_allreduce": cuda_ring.ring_allreduce_launches,
+                    "ring_reduce_scatter": cuda_ring.ring_reduce_scatter_launches,
+                    "ring_allgather": cuda_ring.ring_allgather_launches}
+
+        ring_s = [0.0]
+        check = {"on": False, "rings": 0, "unequal": 0, "max_abs_err": 0.0}
+        _ring_timer(torch, cuda_ring, ring_s, check)
+
+        def measured(box, check_first=False):
+            """Hooks that time each step (host clock around synchronised
+            steps), its rings (CUDA events) and its launches."""
+            def on_sample(state):
+                torch.cuda.synchronize()
+                check["on"] = check_first and not box["step_ms"]
+                box["t0"], box["c0"], ring_s[0] = (time.perf_counter(),
+                                                   counts(), 0.0)
+
+            def on_update(state):
+                torch.cuda.synchronize()
+                check["on"] = False
+                box["step_ms"].append((time.perf_counter() - box["t0"]) * 1e3)
+                box["ring_ms"].append(ring_s[0])
+                c = counts()
+                box["launches"].append({k: c[k] - box["c0"][k] for k in c})
+                box["checks"] += (state["t"] % mnist_allreduce.CHECK_FREQUENCY
+                                  == 0 and state["engine"].mode != "compiled")
+
+            return {"on_sample": on_sample, "on_update": on_update}
+
+        def new_box():
+            return {"step_ms": [], "ring_ms": [], "launches": [], "checks": 0}
+
+        # The main path: the example, through its entry point, per mode.
+        runs, params = {}, {}
+        for k in RING_KERNELS:
+            setattr(cuda_ring, f"{k}_launches", 0)
+        for mode in MNIST_MODES:
+            args = mnist_allreduce.parse_args(
+                ["--mode", mode, "--data", "synthetic", "--epochs",
+                 str(MNIST_EPOCHS), "--batch", str(MNIST_BATCH), "--lr",
+                 str(MNIST_LR)])
+            box = new_box()
+            out = mnist_allreduce.run(args, hooks=measured(
+                box, check_first=mode == "compiled"))
+            params[mode] = out.pop("params")
+            runs[mode] = {**out, **box}
+        main_launches = counts()
+
+        # The compiled run again with the pipeline off (each step stages its
+        # own batch), saving at MNIST_SAVE_AT and MNIST_RESUME_TO.
+        config.set("use_pallas_collectives", True)
+        config.set("data_pipeline", "off")
+        device = lifecycle.start()
+        try:
+            ds, _ = load_mnist("train", prefer="synthetic")
+
+            def batches():
+                return ShardedIterator(ds, global_batch=MNIST_BATCH,
+                                       num_shards=p)
+
+            box, losses = new_box(), []
+            hooks = measured(box)
+            mgr = ckpt.CheckpointManager(ckpt_dir,
+                                         save_interval=MNIST_SAVE_AT,
+                                         keep=1000)
+            saver = ckpt.checkpoint_hooks(mgr)
+
+            def on_update(state):
+                hooks["on_update"](state)
+                losses.append(float(state["loss"]))
+                saver["on_update"](state)
+
+            engine = AllReduceSGDEngine(
+                mlp.loss_fn, lr=MNIST_LR, mode="compiled",
+                hooks={**hooks, "on_update": on_update})
+            state = engine.train(mlp.init(0, device=device), batches(),
+                                 epochs=MNIST_EPOCHS)
+            off_params = {k: v.cpu() for k, v in state["params"].items()}
+            dist.barrier()                  # rank 0 has written the saves
+
+            # A fresh engine from the save at MNIST_SAVE_AT, on the batches
+            # of steps MNIST_SAVE_AT + 1 to MNIST_RESUME_TO.
+            config.set("data_pipeline", "auto")
+            template = {"params": mlp.init(1, device=device)}
+            start, _ = ckpt.restore(ckpt_dir, template, step=MNIST_SAVE_AT,
+                                    strict=False)
+            want, _ = ckpt.restore(ckpt_dir, template, step=MNIST_RESUME_TO,
+                                   strict=False)
+            it = batches()
+            seen = [b for _ in range(-(-MNIST_RESUME_TO // len(it)))
+                    for b in it][MNIST_SAVE_AT:MNIST_RESUME_TO]
+            resumed_losses = []
+            fresh = AllReduceSGDEngine(
+                mlp.loss_fn, lr=MNIST_LR, mode="compiled", hooks={
+                    "on_update": lambda s: resumed_losses.append(
+                        float(s["loss"]))})
+            rstate = fresh.train(start["params"], seen, epochs=1,
+                                 start_step=MNIST_SAVE_AT)
+            cont = losses[MNIST_SAVE_AT:MNIST_RESUME_TO]
+            resume = {
+                "saved_at": MNIST_SAVE_AT, "to": MNIST_RESUME_TO,
+                "t": rstate["t"], "rtol": MNIST_RESUME_RTOL,
+                "bitwise_equal": resumed_losses == cont and all(
+                    torch.equal(rstate["params"][k], v)
+                    for k, v in want["params"].items()),
+                "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                         zip(resumed_losses, cont)),
+                "param_max_rel_diff": max(
+                    float((rstate["params"][k] - v).abs().max())
+                    / float(v.abs().max())
+                    for k, v in want["params"].items())}
+        finally:
+            lifecycle.stop()
+        return {
+            "rank": rank, "p": p, "runs": runs,
+            "main_launches": main_launches,
+            "step1_rings_vs_plain": {k: v for k, v in check.items()
+                                     if k != "on"},
+            "pipeline_off": {"losses": losses, "step_ms": box["step_ms"],
+                             "launches": box["launches"]},
+            "pipeline_on_equals_off": (
+                runs["compiled"]["losses"] == losses
+                and all(torch.equal(params["compiled"][k], off_params[k])
+                        for k in off_params)),
+            "resume": resume}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_mnist():
+    """Config 1 on 2 ranks of the one card: the MNIST MLP at full width
+    through the example in each mode (B1 3 times a compiled step, step 1's
+    rings bit for bit against the plain schedule), pipeline on = off bit
+    for bit, and a resumed run equal to the continuous one."""
+    import tempfile
+
+    from torchmpi_tpu_torch.engine.sgdengine import ring_plan
+    from torchmpi_tpu_torch.models import mlp
+    from torchmpi_tpu_torch.runtime import config, launch
+    from torchmpi_tpu_torch.tools import ring_bench
+    from torchmpi_tpu_torch.utils import tree
+
+    # The compiled step's rings (leaf sizes in tree order, the engine's
+    # plan at the default cutoff) and their bytes bound at p = 2.
+    leaves = tree.leaves(mlp.init(0, device="cpu"))
+    sizes = [sum(leaves[i].numel() for i in ring) for ring in ring_plan(
+        leaves, int(config.get("small_allreduce_size_gpu")))]
+    bound = sum(ring_bench.bound_ms("allreduce", n, 2, 4) for n in sizes)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".mnist_ckpt_") as d:
+        res = launch.spawn(2, mnist_rank_main, (d,), timeout_s=600)
+    r0 = res[0]
+    summary = {}
+    for mode in MNIST_MODES:
+        run = r0["runs"][mode]
+        per_epoch = len(run["losses"]) // MNIST_EPOCHS
+        epoch_loss = [sum(run["losses"][e * per_epoch:(e + 1) * per_epoch])
+                      / per_epoch for e in range(MNIST_EPOCHS)]
+        steady = sorted(run["step_ms"][1:])
+        step_ms = steady[len(steady) // 2]
+        ring_ms = sorted(run["ring_ms"][1:])[len(steady) // 2]
+        summary[mode] = {
+            "steps": run["steps"], "epoch_loss": epoch_loss,
+            "accuracy": [r["runs"][mode]["accuracy"] for r in res],
+            "median_step_ms": step_ms, "median_ring_ms": ring_ms,
+            "images_per_s_per_card": MNIST_BATCH / (step_ms / 1e3),
+            "replica_checks": run["checks"],
+            "launches_per_step": run["launches"][1],
+            "data_wait_s": run["stage"]["wait_s"] if run["stage"] else None,
+            "staged": run["stage"]}
+    off = sorted(r0["pipeline_off"]["step_ms"][1:])
+    rec = {"phase": "train_mnist", "model": "mlp 784-1024-1024-10",
+           "dtype": "float32", "ranks": 2, "global_batch": MNIST_BATCH,
+           "lr": MNIST_LR, "epochs": MNIST_EPOCHS, "data": "synthetic",
+           "modes": summary, "compiled_ring_sizes": sizes,
+           "compiled_ring_bound_ms_per_step": bound,
+           "pipeline_off_median_step_ms": off[len(off) // 2],
+           "pipeline_on_equals_off": [r["pipeline_on_equals_off"]
+                                      for r in res],
+           "resume": [r["resume"] for r in res],
+           "step1_rings_vs_plain": [r["step1_rings_vs_plain"] for r in res],
+           "launches": r0["main_launches"],
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(rec), flush=True)
+    for r in res:
+        for mode in MNIST_MODES:
+            run = r["runs"][mode]
+            want = {"ring_allreduce": MNIST_RINGS[mode],
+                    "ring_reduce_scatter": 0, "ring_allgather": 0}
+            if any(s != want for s in run["launches"]):
+                raise AssertionError(f"rank {r['rank']} {mode}: launches "
+                                     f"{run['launches'][:3]}..., expected "
+                                     f"{want} a step")
+            if run["accuracy"] <= MNIST_MIN_ACCURACY:
+                raise AssertionError(f"{mode}: held-out accuracy "
+                                     f"{run['accuracy']}")
+            if not all(math.isfinite(x) for x in run["losses"]):
+                raise AssertionError(f"{mode}: non-finite loss")
+            if mode != "compiled" and run["checks"] < 1:
+                raise AssertionError(f"{mode}: no replica check ran")
+        held = r["step1_rings_vs_plain"]
+        if held["rings"] != MNIST_RINGS["compiled"] or held["unequal"]:
+            raise AssertionError(f"rank {r['rank']}: step 1's rings against "
+                                 f"the plain schedule: {held}")
+        if not r["pipeline_on_equals_off"]:
+            raise AssertionError(f"rank {r['rank']}: compiled with the data "
+                                 f"pipeline differs from without it")
+        res_ = r["resume"]
+        close = max(res_["loss_max_rel_diff"],
+                    res_["param_max_rel_diff"]) <= MNIST_RESUME_RTOL
+        if res_["t"] != MNIST_RESUME_TO or not (res_["bitwise_equal"]
+                                                or close):
+            raise AssertionError(f"rank {r['rank']}: resumed run differs "
+                                 f"from the continuous one: {res_}")
+    for mode, s in summary.items():
+        if not s["epoch_loss"][0] - s["epoch_loss"][-1] >= MNIST_MIN_LOSS_DROP:
+            raise AssertionError(f"{mode}: epoch loss {s['epoch_loss']} fell "
+                                 f"by less than {MNIST_MIN_LOSS_DROP}")
+    return rec
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
-                       async_launches, async_rec):
+                       async_launches, async_rec, mnist_rec):
     """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
     work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
     an eager_async step beside (times, bound and the largest error over
     them, the ring_kernels cases and step 1's rings of both train phases);
     B2 and B3 at n = 25,557,032 in f32, the collectives path's size.
     Launches of every path (train_resnet_async: its two eager_async
-    runs)."""
+    runs; train_mnist: the example's three runs)."""
     replaces, function, kind, library = RING_KERNELS[name]
     big = next(r for r in rings[2]["records"]
                if r["kind"] == kind and "kernel_ms" in r)
@@ -1523,7 +1806,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
                "train_resnet_async": sum(
                    n for label, n in async_launches.items()
                    if label.startswith("eager_async"))
-               if name == "ring_allreduce" else 0}
+               if name == "ring_allreduce" else 0,
+               "train_mnist": mnist_rec["launches"][name]}
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     err = max(r["max_abs_err"] for p in (2, 4)
               for r in rings[p]["records"] if r["kind"] == kind)
@@ -1536,7 +1820,7 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
         err = max([err, step["max_abs_err"]]
                   + [rings[p]["bucket_rings"]["max_abs_err"] for p in (2, 4)]
                   + [h["max_abs_err"]
-                     for r in (train_rec, async_rec)
+                     for r in (train_rec, async_rec, mnist_rec)
                      for h in r["step1_rings_vs_plain"]])
         return {**rec, "max_abs_err": err, "ms": step["kernel_ms"],
                 **{k: step[k] for k in timing},
@@ -1682,6 +1966,7 @@ def main() -> int:
     rings = phase_ring_kernels()
     resnet_rec = phase_train_resnet(torch, rings)
     async_rec, async_launches = phase_train_resnet_async()
+    mnist_rec = phase_train_mnist()
     if args.layers != 32:
         emit(phase="cut", n_layers=args.layers, of=32)
     gen, cfg = phase_generate(torch, llama, fa, args.layers)
@@ -1751,7 +2036,8 @@ def main() -> int:
         kernel_record("flash_attention_bwd_dkv", bwd_recs, "dkv",
                       ("dk_max_abs_err", "dv_max_abs_err"), launches),
         *(ring_kernel_record(name, rings, resnet_rec["launches"],
-                             resnet_rec, async_launches, async_rec)
+                             resnet_rec, async_launches, async_rec,
+                             mnist_rec)
           for name in RING_KERNELS),
         conv_kernel_record(conv_recs, conv_launches),
     ])

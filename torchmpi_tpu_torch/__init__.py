@@ -1,9 +1,10 @@
 """torchmpi_tpu_torch — the PyTorch and CUDA port of ``torchmpi_tpu``.
 
 A package beside the JAX one, ported slice by slice; the JAX package stays
-the reference each ported module is tested against.  Three slices are
-ported: Llama inference and the serving engine, Llama training on one NVIDIA
-GPU, and data-parallel ResNet training across processes:
+the reference each ported module is tested against.  Ported so far: Llama
+inference and the serving engine, Llama training on one NVIDIA GPU, and
+data-parallel training across processes (ResNet, and the MNIST MLP of the
+reference's flagship example):
 
 - ``models.llama`` — dense Llama prefill, KV-cache decode and generation;
   the forward, loss and SGD training step;
@@ -13,21 +14,94 @@ GPU, and data-parallel ResNet training across processes:
 - ``serving`` — the continuous-batching engine and its KV block pool;
 - ``runtime.config``, ``obs.tracer``, ``obs.journal`` — the knobs, spans
   and journal those modules read;
-- ``models.resnet``, ``engine`` (``AllReduceSGDEngine``), ``nn`` (parameter
-  and gradient sync, bucketing), ``collectives`` (``eager`` over
-  ``torch.distributed``, the ring kernels of ``cuda_ring``, the
-  ``selector``), ``runtime.communicator`` and ``runtime.lifecycle`` (one
-  process per rank), ``utils`` (tree order, meters, synthetic data);
-- ``examples.train_llama`` and ``examples.train_resnet`` — the training
-  entry points (``python -m torchmpi_tpu_torch.examples.train_resnet
-  --nproc 2``).
+- ``models.resnet``, ``models.mlp``, ``models.cnn``, ``engine``
+  (``AllReduceSGDEngine``), ``nn`` (parameter and gradient sync,
+  bucketing), ``collectives`` (``eager`` over ``torch.distributed``, the
+  ring kernels of ``cuda_ring``, the ``selector``), ``runtime.communicator``
+  and ``runtime.lifecycle`` (one process per rank);
+- ``data`` — the input data plane: a host stage, a device stage that
+  copies each batch through pinned memory on a side CUDA stream, and
+  ``DataPipeline``, which the engine's compiled mode reads through;
+- ``utils`` — tree order, meters, MNIST (real and synthetic), logging and
+  checkpoints (the JAX package's on-disk layout);
+- ``examples.train_llama``, ``examples.train_resnet`` and
+  ``examples.mnist_allreduce`` — the training entry points
+  (``python -m torchmpi_tpu_torch.examples.mnist_allreduce --nproc 2``).
+
+The top level is the reference's ``mpi`` table, as in the JAX package::
+
+    import torchmpi_tpu_torch as mpi
+    mpi.start()                      # one process per rank
+    x = mpi.allreduce(x)             # over the current communicator
+    mpi.stop()
+
+``rank()`` and ``size()`` count processes, one per rank.  The names whose
+machinery comes with the hierarchical collectives (ROADMAP.md slice 3, item
+4) raise ``NotImplementedError``: ``allgatherv``, ``alltoall``,
+``broadcast_scalar``, ``reduce_scalar``, ``sendreceive_scalar``,
+``set_communicator``, ``set_collective_span`` and
+``collective_availability``.
 
 Entry points run on the current CUDA device unless the caller passes
 ``device="cpu"``; the kernels build with ``nvcc`` at first use
 (``_build.py``).  Nothing here imports JAX.
 """
 
-__version__ = "0.1.0"
+from .version import __version__  # noqa: F401
 
-from . import (collectives, engine, models, nn, obs, ops,  # noqa: F401,E402
-               runtime, serving, utils)
+from . import (collectives, data, engine, models, nn, obs,  # noqa: F401,E402
+               ops, runtime, serving, utils)
+from .collectives import (  # noqa: F401,E402
+    allgather,
+    allgatherv,
+    allreduce,
+    allreduce_scalar,
+    alltoall,
+    async_,
+    broadcast,
+    broadcast_scalar,
+    reduce,
+    reduce_scalar,
+    reduce_scatter,
+    sendreceive,
+    sendreceive_scalar,
+)
+from .runtime import config  # noqa: F401,E402
+from .runtime.communicator import Communicator, stack  # noqa: F401,E402
+from .runtime.handles import SynchronizationHandle, sync_all  # noqa: F401,E402
+from .runtime.handles import wait as sync_handle  # noqa: F401,E402
+from .runtime.handles import wait_all as sync_handles  # noqa: F401,E402
+from .runtime.lifecycle import (  # noqa: F401,E402
+    barrier,
+    process_count,
+    process_rank,
+    rank,
+    size,
+    start,
+    started,
+    stop,
+)
+
+_LATER = collectives.eager._LATER
+
+
+def push_communicator(keys, name=None):
+    """Split the current communicator by per-rank key; returns the new
+    level (reference: torchmpi_push_communicator)."""
+    return stack.push(keys, name=name)
+
+
+def set_communicator(level, type=None):  # noqa: A002 - the JAX signature
+    """The (level, intra/inter) cursor: not ported yet."""
+    raise NotImplementedError(f"set_communicator: {_LATER}")
+
+
+def set_collective_span(begin, end):
+    """The span of levels a hierarchical collective covers: not ported
+    yet."""
+    raise NotImplementedError(f"set_collective_span: {_LATER}")
+
+
+def collective_availability(*args, **kwargs):
+    """The selector's table of implementations per cell: not ported yet."""
+    raise NotImplementedError(f"collective_availability: {_LATER}")

@@ -1,3 +1,3 @@
 """The data-parallel training engine (``sgdengine``)."""
 
-from .sgdengine import AllReduceSGDEngine, sgd_update  # noqa: F401
+from .sgdengine import AllReduceSGDEngine, sample_array, sgd_update  # noqa: F401

@@ -25,6 +25,13 @@ modes are ported:
   updates.  The parameters equal ``eager_sync``'s bit for bit;
   ``state["blocked_s"]`` holds the seconds the step sat in handle waits.
 
+In ``compiled`` mode ``train()`` and ``test()`` read their iterator
+through ``data.engine_wrap``, as the JAX engine does: under the default
+``data_pipeline="auto"`` a ``DataPipeline`` stages each batch on the device
+ahead of the step, and ``"off"`` stages it inside the step; both place it
+through ``data.stage_rank_major``, so the values are the same bit for bit.
+``sample_array`` gives a hook this rank's batch either way.
+
 ``compiled`` with the knob off is GSPMD over the global batch in JAX, so
 batch norm there normalizes with cross-rank statistics; it raises here
 until the slice that brings them.  ``optimizer=``, ``zero1`` and
@@ -42,6 +49,8 @@ import torch
 
 from .. import nn as mpinn
 from ..collectives import cuda_ring, eager
+from ..data.pipeline import engine_wrap
+from ..data.staging import Staged, stage_rank_major
 from ..runtime import communicator as _comm_mod
 from ..runtime import config
 from ..utils import tree as _tree
@@ -59,6 +68,27 @@ def sgd_update(params, grads, lr):
     """``p - lr * g`` leaf by leaf; new tensors."""
     with torch.no_grad():
         return _tree.tree_map(lambda p, g: p - lr * g, params, grads)
+
+
+def sample_array(state, rank: Optional[int] = None):
+    """This rank's ``(x, y)`` of ``state["sample"]`` whichever way
+    ``data_pipeline`` is set: a ``Staged`` payload (the pipeline's) gives
+    its tensor, a rank-major host batch its row ``rank`` (default:
+    ``state["comm"].rank``).  Accepts the engine ``state`` or a bare
+    ``(x, y)`` pair.  (The JAX ``sample_array`` returns the global batch;
+    here a rank holds only its own row, so that row is the one layout both
+    modes share.)"""
+    if isinstance(state, dict):
+        sample = state["sample"]
+        rank = state["comm"].rank if rank is None else rank
+    else:
+        sample = state
+
+    def unwrap(a):
+        return a.array if isinstance(a, Staged) else a[rank]
+
+    xb, yb = sample
+    return unwrap(xb), unwrap(yb)
 
 
 def value_and_grad(loss_fn: LossFn, params, batch):
@@ -161,11 +191,13 @@ class AllReduceSGDEngine:
 
     @staticmethod
     def _local(batch, rank: int, device: torch.device):
-        """This rank's row of a rank-major ``(p, b, ...)`` batch."""
+        """This rank's ``(x, y)`` on ``device``: a pre-staged pair (the data
+        pipeline's) as it is, else this rank's row of a rank-major ``(p,
+        b, ...)`` host batch, staged now; labels as int64."""
         xb, yb = batch
-        x = torch.as_tensor(xb[rank]).to(device, non_blocking=True)
-        y = torch.as_tensor(yb[rank]).to(device, torch.long, non_blocking=True)
-        return x, y
+        x, _ = stage_rank_major(xb, device, rank)
+        y, _ = stage_rank_major(yb, device, rank, dtype=torch.long)
+        return x.array, y.array.long()
 
     def train(self, params: Any, iterator, epochs: int = 1,
               opt_state: Any = None, start_step: int = 0) -> Dict[str, Any]:
@@ -182,6 +214,13 @@ class AllReduceSGDEngine:
         }
         if self.sync_parameters_on_start:
             state["params"] = mpinn.synchronize_parameters(params, comm)
+        if self.mode == "compiled":
+            # The input plane: batches arrive staged on the device by a
+            # background thread, per the data_pipeline knob ("off" hands
+            # the iterator back and each step stages its own batch).
+            # state["sample"] then holds (Staged, Staged): hooks read it
+            # through sample_array.
+            iterator = engine_wrap(iterator, comm, device)
         self._hook("on_start", state)
         for epoch in range(epochs):
             state["epoch"] = epoch
@@ -244,6 +283,8 @@ class AllReduceSGDEngine:
         comm = self.comm
         device = _tree.leaves(params)[0].device
         meter = AverageValueMeter()
+        if self.mode == "compiled":
+            iterator = engine_wrap(iterator, comm, device)
         with torch.no_grad():
             for batch in iterator:
                 val = metric_fn(params, self._local(batch, comm.rank, device))

@@ -12,10 +12,13 @@ ring kernels (``use_pallas_collectives`` on); ``--mode eager_sync`` through
 ``nn.synchronize_gradients``; ``--mode eager_async`` as async bucket
 allreduces drained per ``--async-drain`` (``ready``: each bucket's
 parameters update as its collective completes; ``barrier``: after all of
-them), through the ring kernels above the small-message cutoff.  The data is ``synthetic_mnist`` at the image
-size asked for.  Every ``--stats-every`` steps the BN running statistics are
+them), through the ring kernels above the small-message cutoff; the
+compiled mode reads its batches through a ``DataPipeline``.  The data is
+``synthetic_mnist`` at the image size asked for.  Every ``--stats-every`` steps the BN running statistics are
 refreshed from the last batch, and the run ends with an inference-mode
-evaluation.  The defaults are a small net on 32x32 images; ``--depth 50
+evaluation.  ``--ckpt-dir`` saves the parameters and the BN statistics
+every ``--ckpt-every`` steps and at the end, asynchronously, and a rerun
+with the same directory resumes from the latest save.  The defaults are a small net on 32x32 images; ``--depth 50
 --width 1.0 --image 224 --classes 1000`` is ResNet-50 at full width.
 """
 
@@ -47,6 +50,9 @@ def parse_args(argv=None):
                          "rank, as under torchrun)")
     ap.add_argument("--stats-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="enable periodic async checkpointing and resume")
+    ap.add_argument("--ckpt-every", type=int, default=20)
     return ap.parse_args(argv)
 
 
@@ -54,10 +60,13 @@ def run(args) -> dict:
     """One rank's run; returns its final numbers."""
     import torch
 
-    from torchmpi_tpu_torch.engine import AllReduceSGDEngine
+    from torchmpi_tpu_torch.data import DataPipeline
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine, sample_array
     from torchmpi_tpu_torch.models import resnet
-    from torchmpi_tpu_torch.runtime import config, lifecycle
-    from torchmpi_tpu_torch.utils.data import ShardedIterator, synthetic_mnist
+    from torchmpi_tpu_torch.runtime import communicator, config, lifecycle
+    from torchmpi_tpu_torch.utils import checkpoint as ckpt
+    from torchmpi_tpu_torch.utils.data import (ShardedIterator, resume_at,
+                                               synthetic_mnist)
 
     config.set("use_pallas_collectives", args.mode != "eager_sync")
     config.set("engine_async_drain", args.async_drain)
@@ -69,14 +78,37 @@ def run(args) -> dict:
         n = max(p * args.batch * args.steps, p * args.batch)
         ds = synthetic_mnist(n=n, n_classes=args.classes, seed=args.seed,
                              image_shape=(args.image, args.image, 3))
-        it = ShardedIterator(ds, global_batch=p * args.batch, num_shards=p,
-                             seed=args.seed)
         params, bn_state = resnet.init(args.seed, cfg, device=device)
         update_stats = resnet.make_update_stats_fn(cfg)
         box = {"state": bn_state, "x": None}
 
+        mgr, start_step, hooks = None, 0, {}
+        if args.ckpt_dir:
+            mgr = ckpt.AsyncCheckpointManager(args.ckpt_dir,
+                                              save_interval=args.ckpt_every)
+            step0 = ckpt.agreed_latest_step(args.ckpt_dir)
+            if step0 is not None:
+                # The BN statistics resume with the parameters: trained
+                # parameters beside fresh statistics evaluate to garbage.
+                tree, meta = ckpt.restore(
+                    args.ckpt_dir, {"params": params, "stats": bn_state},
+                    step=step0, strict=False)
+                params, box["state"] = tree["params"], tree["stats"]
+                start_step = int(meta.get("t", meta["step"]))
+                if rank == 0:
+                    print(f"resumed from step {start_step}", flush=True)
+            hooks = ckpt.checkpoint_hooks(
+                mgr, extra=lambda s: {"stats": box["state"]})
+
+        base = ShardedIterator(ds, global_batch=p * args.batch, num_shards=p,
+                               seed=args.seed)
+        epochs = max(1, -(-args.steps // len(base)))
+        it, done_epochs = resume_at(base, start_step)
+        if args.mode == "compiled":
+            it = DataPipeline(it, communicator.stack.current())
+
         def on_sample(state):
-            box["x"] = state["sample"][0][rank]
+            box["x"] = sample_array(state)[0]
 
         def on_update(state):
             if state["t"] % args.stats_every == 0:
@@ -85,12 +117,16 @@ def run(args) -> dict:
             if rank == 0:
                 print(f"step {state['t']}: loss {float(state['loss']):.4f}",
                       flush=True)
+            if "on_update" in hooks:
+                hooks["on_update"](state)
 
         engine = AllReduceSGDEngine(
             resnet.make_loss_fn(cfg), lr=args.lr, mode=args.mode,
-            hooks={"on_sample": on_sample, "on_update": on_update})
-        epochs = max(1, -(-args.steps // len(it)))
-        state = engine.train(params, it, epochs=epochs)
+            hooks={**hooks, "on_sample": on_sample, "on_update": on_update})
+        state = engine.train(params, it, epochs=epochs - done_epochs,
+                             start_step=start_step)
+        if mgr is not None:
+            mgr.close()
         eval_it = ShardedIterator(ds, global_batch=p * args.batch,
                                   num_shards=p, shuffle=False)
         acc = engine.test(state["params"], eval_it,

@@ -1,3 +1,4 @@
-"""Models of the port: dense Llama (``llama``) and ResNet (``resnet``)."""
+"""Models of the port: dense Llama (``llama``), ResNet (``resnet``) and the
+MNIST MLP and convnet (``mlp``, ``cnn``)."""
 
-from . import llama, resnet  # noqa: F401
+from . import cnn, llama, mlp, resnet  # noqa: F401

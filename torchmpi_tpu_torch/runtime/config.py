@@ -9,7 +9,9 @@ collective selector and the ring collectives (``use_pallas_collectives``,
 ``small_allreduce_size_gpu``, the buffer geometry), the async collectives
 (``num_async_collectives_in_flight``), gradient bucketing
 (``gradient_bucket_bytes``) and the engine's asynchronous gradient sync
-(``engine_async_drain``, ``sync_gradient_frequency``).
+(``engine_async_drain``, ``sync_gradient_frequency``), the input data plane
+(``data_*``, read only by ``data/pipeline.py:knob_defaults``) and the
+logger's level (``verbose``).
 """
 
 from __future__ import annotations
@@ -72,6 +74,32 @@ class Constants:
     # The async backward syncs gradients every N steps; the steps between
     # update with this rank's own gradients.
     sync_gradient_frequency: int = 1
+
+    # --- input data plane (data/: host stage -> device stage -> engine;
+    # every read goes through data/pipeline.py:knob_defaults) ---
+    # Engine input adapter (engine_wrap, compiled mode only): "off" hands
+    # the iterator back untouched (the engine copies each batch itself,
+    # inside the step); "on" wraps every train()/test() iterator that is
+    # not already a pipeline in DataPipeline; "auto" is "on" except that a
+    # list of pre-staged Staged pairs passes through.
+    data_pipeline: str = _env("TORCHMPI_TPU_DATA_PIPELINE", "auto", str)
+    # Staged batches the device stage keeps queued beyond the one the
+    # consumer holds: at most depth + 2 batches live on the device.
+    data_prefetch_depth: int = _env("TORCHMPI_TPU_DATA_PREFETCH_DEPTH",
+                                    2, int)
+    # Host-stage transform worker threads (0: one producer, no pool); only
+    # meaningful with a per-batch transform, order stays deterministic.
+    data_host_workers: int = 0
+    # Bound (batches) on the host stage's output queue.
+    data_host_depth: int = 4
+    # Reuse the device stage's pinned host buffers (HostScratchPool) once
+    # their copy has completed; off on the CPU, where the "copy" aliases.
+    data_reuse_host_buffers: bool = True
+
+    # --- logging ---
+    # 1 lifts the loggers' default level from INFO to DEBUG
+    # (utils/logging.py; TORCHMPI_TPU_LOG_LEVEL wins over it).
+    verbose: int = _env("TORCHMPI_TPU_VERBOSE", 0, int)
 
     # --- observability: off by default, so span() is one config read ---
     # Master switch of the Python span tracer.

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -31,6 +31,7 @@ from .communicator import Communicator, stack
 _lock = threading.Lock()
 _started = False
 _owns_group = False
+_device: Optional[torch.device] = None
 
 
 def started() -> bool:
@@ -54,7 +55,7 @@ def start(device: Union[str, torch.device, None] = None) -> torch.device:
     """Join the process group, bind this rank's device and push the world
     communicator; returns the device.  ``device="cpu"`` runs on the CPU
     (gloo); otherwise a GPU is required."""
-    global _started, _owns_group
+    global _started, _owns_group, _device
     import torch.distributed as dist
 
     with _lock:
@@ -87,13 +88,14 @@ def start(device: Union[str, torch.device, None] = None) -> torch.device:
         stack.reset(Communicator(range(dist.get_world_size()),
                                  my_rank=dist.get_rank()))
         _started = True
+        _device = dev
         return dev
 
 
 def stop() -> None:
     """Free the ring collectives' staging memory, drop the communicator
     stack and leave the process group if :func:`start` joined it."""
-    global _started, _owns_group
+    global _started, _owns_group, _device
     import torch.distributed as dist
 
     from ..collectives import cuda_ring
@@ -107,6 +109,14 @@ def stop() -> None:
             dist.destroy_process_group()
         _owns_group = False
         _started = False
+        _device = None
+
+
+def device() -> torch.device:
+    """The device :func:`start` bound this rank to."""
+    if _device is None:
+        raise RuntimeError("the runtime is not started; call start() first")
+    return _device
 
 
 def rank() -> int:
@@ -115,8 +125,22 @@ def rank() -> int:
 
 
 def size() -> int:
-    """The world's size in ranks (one process each)."""
+    """The world's size in ranks, one process each.  (The JAX package's
+    ``size()`` counts devices, which one controller process drives many
+    of; here a rank is a process with one device, so the two counts are
+    one.)"""
     return stack.world().size
+
+
+def process_rank() -> int:
+    """This process's index in the world: :func:`rank`, since every rank
+    is a process of its own."""
+    return rank()
+
+
+def process_count() -> int:
+    """The number of processes in the world: :func:`size`."""
+    return size()
 
 
 def barrier() -> None:

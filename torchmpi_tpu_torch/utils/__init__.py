@@ -1,4 +1,6 @@
-"""Utilities of the port: tree flattening in JAX order, meters, synthetic
-data."""
+"""Utilities of the port: tree flattening in JAX order (``tree``), meters
+(``meters``), MNIST, real and synthetic, and the sharded batch iterator
+(``data``), the rank-prefixed logger (``logging``) and checkpoints on the
+JAX package's disk layout (``checkpoint``)."""
 
-from . import data, meters, tree  # noqa: F401
+from . import checkpoint, data, logging, meters, tree  # noqa: F401

@@ -1,14 +1,21 @@
-"""Synthetic data and the sharded batch iterator.
+"""Datasets and the sharded batch iterator.
 
-Counterpart of ``torchmpi_tpu/utils/data.py``'s ``Dataset``,
-``synthetic_mnist`` (the same numpy stream, bit for bit) and
-``ShardedIterator`` (rank-major ``(p, b, ...)`` batches, the same shuffle).
-Each process takes its own row r of every batch (the engine does).
+Counterpart of ``torchmpi_tpu/utils/data.py``: ``Dataset``,
+``synthetic_mnist`` (the same numpy stream, bit for bit), real MNIST
+(:func:`real_mnist`, :func:`load_mnist`: the same cache directory,
+``TORCHMPI_TPU_DATA`` variable, IDX parser, fallback policy and provenance
+string) and ``ShardedIterator`` (rank-major ``(p, b, ...)`` batches, the
+same shuffle).  Each process takes its own row r of every batch (the engine
+does).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import logging
+import os
+import struct
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -37,6 +44,116 @@ def synthetic_mnist(n: int = 8192, seed: int = 0, n_classes: int = 10,
     x = centers[y] + noise * rng.randn(n, d).astype(np.float32)
     x = np.clip(x, 0.0, 1.0).reshape(n, *image_shape)
     return Dataset(x=x, y=y)
+
+
+# ------------------------------------------------------------- real MNIST
+# The reference's CI trains the real set.  These load the IDX files from a
+# local cache, downloading once from the public mirrors when a caller asks
+# for the real set and the cache is cold; load_mnist(prefer="synthetic")
+# never touches the network.
+
+_MNIST_FILES = {
+    "train": ("train-images-idx3-ubyte.gz", "train-labels-idx1-ubyte.gz"),
+    "test": ("t10k-images-idx3-ubyte.gz", "t10k-labels-idx1-ubyte.gz"),
+}
+_MNIST_MIRRORS = (
+    "https://storage.googleapis.com/cvdf-datasets/mnist/",
+    "https://ossci-datasets.s3.amazonaws.com/mnist/",
+)
+
+
+def mnist_cache_dir() -> str:
+    """``TORCHMPI_TPU_DATA``, else ``~/.cache/torchmpi_tpu/mnist`` (the JAX
+    package's cache, shared)."""
+    return os.environ.get(
+        "TORCHMPI_TPU_DATA",
+        os.path.join(os.path.expanduser("~"), ".cache", "torchmpi_tpu",
+                     "mnist"))
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """Parse one gzipped IDX file (big-endian magic, dims, raw bytes)."""
+    with gzip.open(path, "rb") as f:
+        _, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
+        if dtype_code != 0x08:  # unsigned byte, the only MNIST dtype
+            raise ValueError(f"{path}: unsupported IDX dtype {dtype_code:#x}")
+        dims = struct.unpack(f">{ndim}I", f.read(4 * ndim))
+        data = np.frombuffer(f.read(), np.uint8)
+    if data.size != int(np.prod(dims)):
+        raise ValueError(f"{path}: truncated IDX payload")
+    return data.reshape(dims)
+
+
+def real_mnist(split: str = "train", cache_dir: Optional[str] = None,
+               download: bool = True, timeout: float = 20.0) -> Dataset:
+    """The MNIST ``split`` ('train': 60k, 'test': 10k) as float32 images in
+    [0, 1] and int32 labels, from ``cache_dir`` (default
+    :func:`mnist_cache_dir`); a missing file is downloaded once when
+    ``download``.  Raises ``RuntimeError`` when the data is unavailable."""
+    import urllib.request
+
+    if split not in _MNIST_FILES:
+        raise ValueError(f"split must be 'train' or 'test', got {split!r}")
+    cache = cache_dir or mnist_cache_dir()
+    os.makedirs(cache, exist_ok=True)
+    paths = []
+    for fname in _MNIST_FILES[split]:
+        path = os.path.join(cache, fname)
+        if not os.path.exists(path):
+            if not download:
+                raise RuntimeError(f"MNIST file missing: {path}")
+            last = None
+            for mirror in _MNIST_MIRRORS:
+                try:
+                    tmp = f"{path}.{os.getpid()}.tmp"
+                    with urllib.request.urlopen(mirror + fname,
+                                                timeout=timeout) as r, \
+                            open(tmp, "wb") as out:
+                        out.write(r.read())
+                    os.replace(tmp, path)
+                    last = None
+                    break
+                except Exception as e:  # noqa: BLE001 - try the next mirror
+                    last = e
+            if last is not None:
+                raise RuntimeError(
+                    f"could not download {fname} (offline?): {last}")
+        paths.append(path)
+    images = _read_idx(paths[0]).astype(np.float32) / 255.0
+    labels = _read_idx(paths[1]).astype(np.int32)
+    if images.shape[0] != labels.shape[0]:
+        raise ValueError("MNIST images/labels length mismatch")
+    return Dataset(x=images, y=labels)
+
+
+def load_mnist(split: str = "train", prefer: str = "auto",
+               n_synthetic: int = 8192, limit: int = 0) -> Tuple[Dataset, str]:
+    """Dataset and provenance, ``'real'`` or ``'synthetic'``.
+
+    ``prefer='auto'`` tries the real set (cached or downloadable) and falls
+    back to :func:`synthetic_mnist` (train seed 0, test seed 1, the class
+    centres of seed 0); ``'real'`` raises when it is unavailable;
+    ``'synthetic'`` skips the attempt.  ``limit`` > 0 caps the examples."""
+    if prefer not in ("auto", "real", "synthetic"):
+        raise ValueError(f"prefer must be auto|real|synthetic, got {prefer!r}")
+    ds = src = None
+    if prefer != "synthetic":
+        try:
+            ds, src = real_mnist(split), "real"
+        except (RuntimeError, OSError) as e:
+            if prefer == "real":
+                raise
+            logging.getLogger(__name__).info(
+                "real MNIST unavailable (%s); using synthetic", e)
+    if ds is None:
+        seed = 0 if split == "train" else 1
+        ds, src = synthetic_mnist(n=n_synthetic, seed=seed,
+                                  center_seed=0), "synthetic"
+    if limit < 0:
+        raise ValueError(f"limit must be >= 0, got {limit}")
+    if limit:
+        ds = Dataset(x=ds.x[:limit], y=ds.y[:limit])
+    return ds, src
 
 
 class ShardedIterator:
@@ -87,3 +204,32 @@ class ShardedIterator:
                                             *self.ds.x.shape[1:]),
                        self.ds.y[b].reshape(self.num_shards, per))
 
+
+
+class _Skipping:
+    """An epoch iterable whose first pass skips its first ``skip``
+    batches."""
+
+    def __init__(self, it, skip: int):
+        self.it = it
+        self.skip = skip
+
+    def __len__(self):
+        return len(self.it)
+
+    def __iter__(self):
+        skip, self.skip = self.skip, 0
+        for i, batch in enumerate(self.it):
+            if i >= skip:
+                yield batch
+
+
+def resume_at(it: ShardedIterator, step: int):
+    """``(iterable, done_epochs)``: ``it`` continued at global step
+    ``step`` of a run that started at step 0, for a run resumed from a
+    checkpoint.  The epochs already done are skipped (the shuffle of epoch
+    e is seeded ``seed + e``), and so are the batches of the resumed epoch
+    already trained on; train ``epochs - done_epochs`` more epochs."""
+    done_epochs, skip = divmod(int(step), len(it))
+    it.epoch = done_epochs
+    return (_Skipping(it, skip) if skip else it), done_epochs

@@ -66,3 +66,23 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     others = [flatten(r)[0] for r in rest]
     return unflatten(td, [fn(x, *(o[i] for o in others))
                           for i, x in enumerate(lv)])
+
+
+def flatten_with_paths(tree: Any) -> List[Tuple[Tuple[Any, ...], Any]]:
+    """``(path, leaf)`` pairs in JAX order, as
+    ``jax.tree_util.tree_flatten_with_path`` gives them: a path is the dict
+    keys and sequence indices from the root to the leaf."""
+    out: List[Tuple[Tuple[Any, ...], Any]] = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, x in enumerate(t):
+                walk(x, path + (i,))
+        elif t is not None:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
