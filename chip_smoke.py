@@ -77,15 +77,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    one staging slot, B1 once more at the 43 ring sizes of a ResNet-50
    compiled training step (f32, mean, the engine's collective ids) and at
    the 4 bucket sizes of an eager_async step (f32, mean, in dispatch
-   order), each rank's result held against the plain schedule bit for
-   bit; kernel, plain and library (gloo on the same tensors) times at n =
-   25,557,032 in f32, for the 43 rings of a step and for the 4 buckets; the public collectives driven once through
-   the selector at n = 25,557,032 (the ``collectives`` path); the first
-   call of a ring on a new collective id while rank 0's stream is busy,
-   bit for bit (its staging must be zeroed before a neighbour sends); two forced
-   stalls (a rank that never enters, and one that enters after its
+   order), each rank's result held against its plain version bit for
+   bit (B1 and B2 are one-shot: ``_oneshot_*_plain`` sums each element in
+   the ring's order; B3 runs the ring's steps, ``_ring_allgather_plain``),
+   each kernel's record naming its design; kernel, plain and library
+   (gloo on the same tensors) times at n = 25,557,032 in f32, for the 43
+   rings of a step and for the 4 buckets; the public collectives driven
+   once through the selector at n = 25,557,032 (the ``collectives`` path);
+   the first call of a ring on a new collective id while rank 0's stream
+   is busy, bit for bit (its staging must be zeroed before a peer
+   signals); three B1 calls back to back on one id (both staging slots,
+   then the first reused; one input an offset view), each bit for bit; two
+   forced stalls (a rank that never enters, and one that enters after its
    neighbour gave up) that must raise within their deadline without
-   lowering the aborted rank's flag words.
+   lowering the aborted rank's READY word.
 8. train_resnet: ResNet-50 at full width (224x224x3, 1000 classes, f32, TF32
    off) trained data-parallel by AllReduceSGDEngine in ``compiled`` mode
    with ``use_pallas_collectives`` on, 2 ranks spawned on the one card, 32
@@ -226,13 +231,22 @@ RING_KERNELS = {
                        "torch.distributed.all_gather (gloo, via the host)"),
 }
 RESNET_STEPS, RESNET_BATCH, RESNET_LR, RESNET_RINGS = 5, 32, 0.1, 43
-# The ring kernels' design on one card (ops/csrc/ring.cu, chosen by
-# tools/ring_probe.py): the ranks' contexts are time-sliced, so each ring
-# step is a send and an add (or store) kernel ordered across processes by
-# stream waits on monotone flag words, not one kernel spinning on flags.
-RING_DESIGN = ("two kernels per ring step (send into the neighbour's "
-               "cudaIpc slot; add or store), ordered across processes by "
-               "cuStreamWaitValue64 on monotone data/credit words")
+# Each ring kernel's design on one card (ops/csrc/ring.cu): the ranks'
+# contexts are time-sliced, so nothing spins on a peer (tools/ring_probe.py)
+# and the orders across processes are stream waits on monotone flag words.
+ONESHOT = ("one-shot: a STAGE kernel (this rank's input into its own cudaIpc "
+           "slot, then an add to every peer's READY word), one "
+           "cuStreamWaitValue64, a REDUCE kernel (every rank's slot, in the "
+           "ring's order, into the output)")
+RING_DESIGN = {
+    "ring_allreduce": ONESHOT,
+    "ring_reduce_scatter": ONESHOT,
+    "ring_allgather": ("ring steps: two kernels per step (send into the "
+                       "neighbour's cudaIpc slot; store), ordered across "
+                       "processes by cuStreamWaitValue64 on monotone "
+                       "data/credit words"),
+}
+KIND_KERNEL = {kind: name for name, (_, _, kind, _) in RING_KERNELS.items()}
 
 # The convolution kernel (B7): the bench's two shapes (x NHWC, Cout) and
 # blocks, the TPU kernel it replaces and the library call timed beside it.
@@ -1134,24 +1148,29 @@ def phase_ring_kernels():
             if "kernel_ms" in rec:
                 rec["bound_ms"] = ring_bench.bound_ms(rec["kind"], rec["n"], p,
                                                       4)
-                emit(phase="ring_kernels", design=RING_DESIGN, **rec)
+                emit(phase="ring_kernels",
+                     design=RING_DESIGN[KIND_KERNEL[rec["kind"]]], **rec)
         rings = r0["resnet_rings"]
         rings["bound_ms"] = sum(ring_bench.bound_ms("allreduce", n, p, 4)
                                 for n in rings["sizes"])
-        emit(phase="ring_kernels", design=RING_DESIGN, resnet_step_rings={
+        emit(phase="ring_kernels", design=RING_DESIGN["ring_allreduce"],
+             resnet_step_rings={
             k: v for k, v in rings.items() if k != "sizes"})
         buckets = r0["bucket_rings"]
         buckets["bound_ms"] = sum(ring_bench.bound_ms("allreduce", n, p, 4)
                                   for n in buckets["sizes"])
-        emit(phase="ring_kernels", design=RING_DESIGN,
+        emit(phase="ring_kernels", design=RING_DESIGN["ring_allreduce"],
              resnet_async_bucket_rings=buckets)
         bad += [r[key] for r in results
                 for key in ("resnet_rings", "bucket_rings")
                 if not r[key]["bitwise_equal"]]
         bad += [r["fresh_state"] for r in results
                 if not r["fresh_state"]["bitwise_equal"]]
+        bad += [c for r in results for c in r["back_to_back"]
+                if not c["bitwise_equal"]]
         emit(phase="ring_kernels", p=p,
-             fresh_state=[r["fresh_state"] for r in results])
+             fresh_state=[r["fresh_state"] for r in results],
+             back_to_back=r0["back_to_back"])
         emit(phase="ring_kernels", p=p, cases=len(r0["records"]),
              all_bitwise_equal=not bad,
              collectives_launches=r0["collectives_launches"],
@@ -1178,7 +1197,7 @@ def _ring_timer(torch, cuda_ring, box, check):
     """Wrap inner_ring_allreduce to add each call's device time (CUDA events
     on the rank's stream, from the moment the stream reaches the ring) to
     box[0], in ms.  While check["on"] holds, each ring's result is also held
-    against the plain schedule over every rank's input (gathered over the
+    against B1's plain version over every rank's input (gathered over the
     process group through the host), bit for bit; check counts the rings
     held, the unequal ones and the largest error."""
     import torch.distributed as dist
@@ -1198,7 +1217,7 @@ def _ring_timer(torch, cuda_ring, box, check):
         if check["on"]:
             xs = [torch.empty_like(x, device="cpu") for _ in range(p)]
             dist.all_gather(xs, x.cpu(), group=kwargs["comm"].group)
-            want = cuda_ring._ring_allreduce_plain(
+            want = cuda_ring._oneshot_allreduce_plain(
                 [t.to(x.device) for t in xs],
                 mean=kwargs.get("mean", False))[kwargs["comm"].rank]
             same = bool(torch.equal(out.view(torch.int32),
@@ -1814,7 +1833,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
     rec = {"name": name, "route": "cuda", "source": RING_SRC,
            "replaces": replaces, "replaces_function": function,
            "launches": sum(by_path.values()), "launches_by_path": by_path,
-           "bound_by": "bytes", "library": library, "design": RING_DESIGN}
+           "bound_by": "bytes", "library": library,
+           "design": RING_DESIGN[name]}
     if kind == "allreduce":
         step, buckets = rings[2]["resnet_rings"], rings[2]["bucket_rings"]
         err = max([err, step["max_abs_err"]]

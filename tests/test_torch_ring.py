@@ -10,9 +10,16 @@ package's ``pallas_ring``.
   and with one staging slot: the same chunks summed in the same order in
   the wire dtype leave no room for any difference, so the test asks for
   exact equality, not a tolerance.
+* The one-shot plain versions (``_oneshot_*_plain``: each element summed
+  over the ranks in its ring chunk's order, the oracle of the one-shot B1
+  and B2 kernels) equal the plain schedule and the JAX package's
+  interpret-mode kernels bit for bit, over p = 2, 3, 4, f32, bf16 and
+  int32, mean on and off, n = 5, 3,000 and a lane-aligned size, and the
+  64 KiB ``max_buffer_size`` knob (which moves the chunk boundaries).
 * The per-rank CPU form (send/recv of chunks over a gloo world, one pool of
   4 spawned ranks for the module) equals the plain schedule, also exactly.
-* On a GPU (``cuda`` marker) the kernels equal the plain schedule exactly.
+* On a GPU (``cuda`` marker) the kernels equal their plain versions
+  exactly, at p = 2 and p = 4.
 """
 
 from __future__ import annotations
@@ -144,15 +151,149 @@ def test_plain_schedule_equals_jax_interpret_bit_for_bit(
     pallas_ring.clear_cache()
 
 
+# ------------------------------------------------ the one-shot plain versions
+
+KNOBS["64k"] = {"max_buffer_size": 1 << 16, "min_buffer_size": 1 << 12}
+# 128 x 548: lane-aligned, and with the 64 KiB knob f32 chunks of 274, 183
+# and 137 rows (p = 2, 3, 4) grow to 276, 184 and 138.
+LANE_N = 70_144
+ONESHOT_SIZES = (5, 3000, LANE_N)
+
+
+def _oneshot(kind: str, xs, mean: bool = False):
+    if kind == "allreduce":
+        return cuda_ring._oneshot_allreduce_plain(xs, mean=mean)
+    return cuda_ring._oneshot_reduce_scatter_plain(xs)
+
+
+def _ring(kind: str, xs, mean: bool = False):
+    if kind == "allreduce":
+        return cuda_ring._ring_allreduce_plain(xs, mean=mean)
+    return cuda_ring._ring_reduce_scatter_plain(xs)
+
+
+def _size(kind: str, n: int, p: int) -> int:
+    """n, cut to a multiple of p for the reduce-scatter."""
+    return n - n % p if kind == "reduce_scatter" else n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("p", [2, 3, 4])
+@pytest.mark.parametrize("kind", ["allreduce", "reduce_scatter"])
+def test_oneshot_plain_equals_ring_plain_bit_for_bit(kind, p, dtype):
+    try:
+        for knobs in ("default", "64k"):
+            tconfig.reset(**KNOBS[knobs])
+            for n in ONESHOT_SIZES:
+                m = _size(kind, n, p)
+                xs = [_to_torch(v) for v in
+                      _values(kind, dtype, p, m, seed=n + p)]
+                for mean in ((False, True) if kind == "allreduce"
+                             else (False,)):
+                    got, want = _oneshot(kind, xs, mean), _ring(kind, xs, mean)
+                    for r in range(p):
+                        assert got[r].dtype == want[r].dtype
+                        np.testing.assert_array_equal(
+                            _bits(got[r]), _bits(want[r]),
+                            err_msg=f"{knobs} n={m} mean={mean} rank {r}")
+    finally:
+        tconfig.reset()
+
+
+# (kind, dtype, p, n, knobs, mean): every p, dtype, size, knob and mean at
+# least once against the JAX package's interpret-mode kernels.
+ONESHOT_JAX_CASES = [
+    ("allreduce", "float32", 2, 5, "default", False),
+    ("allreduce", "bfloat16", 3, 3000, "64k", True),
+    ("allreduce", "int32", 4, LANE_N, "64k", False),
+    ("allreduce", "float32", 3, LANE_N, "64k", True),
+    ("allreduce", "bfloat16", 4, 5, "default", False),
+    ("allreduce", "int32", 2, 3000, "default", True),
+    ("reduce_scatter", "float32", 4, 3000, "64k", False),
+    ("reduce_scatter", "bfloat16", 3, LANE_N - 1, "default", False),
+    ("reduce_scatter", "int32", 2, 4, "default", False),
+]
+
+
+@pytest.mark.parametrize("kind,dtype,p,n,knobs,mean", ONESHOT_JAX_CASES,
+                         ids=["-".join(map(str, c))
+                              for c in ONESHOT_JAX_CASES])
+def test_oneshot_plain_equals_jax_interpret_bit_for_bit(
+        both_configs, kind, dtype, p, n, knobs, mean):
+    import jax
+
+    from torchmpi_tpu.collectives import eager, pallas_ring
+    from torchmpi_tpu.runtime.communicator import Communicator
+
+    _set(both_configs, KNOBS[knobs])
+    pallas_ring.clear_cache()
+    assert pallas_ring.RING_KERNELS_AVAILABLE
+    vals = _values(kind, dtype, p, n, seed=50 + ONESHOT_JAX_CASES.index(
+        (kind, dtype, p, n, knobs, mean)))
+    comm = Communicator(jax.devices()[:p])
+    x = eager.shard(comm, vals)
+    if kind == "allreduce":
+        ref = pallas_ring.ring_allreduce(comm, x,
+                                         op="mean" if mean else "sum")
+    else:
+        ref = pallas_ring.ring_reduce_scatter(comm, x)
+    ref = np.asarray(jax.device_get(ref))
+    got = _oneshot(kind, [_to_torch(v) for v in vals], mean)
+    for r in range(p):
+        assert _bits(got[r]).dtype == _bits(ref[r]).dtype
+        np.testing.assert_array_equal(_bits(got[r]), _bits(ref[r]))
+    pallas_ring.clear_cache()
+
+
+def test_oneshot_chunk_map_uses_the_padded_rows():
+    """Element i lies in chunk i // (rows * 128) of the ring's padded
+    layout, not i // (n / p).  At p = 3 the ranks hold 1, 2^24, 1 in f32:
+    chunk 0 sums from rank 1 (2^24 + 1 rounds to 2^24, then + 1 again),
+    chunk 1 from rank 2 (1 + 1 + 2^24 = 2^24 + 2, exact), chunk 2 from rank
+    0 (as chunk 0).  n = 70,000: per-rank 23,334 elements, 183 rows of 128
+    by default, 184 under the 64 KiB knob (two sub-chunks of 92 rows)."""
+    big = float(1 << 24)
+    xs = [torch.full((70_000,), v) for v in (1.0, big, 1.0)]
+    try:
+        for knobs, rows in (("default", 183), ("64k", 184)):
+            tconfig.reset(**KNOBS[knobs])
+            assert cuda_ring._geometry(70_000, 3, 4)[0] == rows
+            c = rows * 128
+            want = torch.full((70_000,), big)
+            want[c:2 * c] = big + 2
+            out = cuda_ring._oneshot_allreduce_plain(xs)[0]
+            assert torch.equal(out, want), knobs
+            assert torch.equal(out, cuda_ring._ring_allreduce_plain(xs)[0])
+    finally:
+        tconfig.reset()
+
+
+def test_oneshot_plain_takes_offset_views():
+    """Inputs that start inside their storage (as a public caller's slices
+    may) give the same bits as fresh tensors."""
+    for kind, dtype, p, n in (("allreduce", "bfloat16", 3, 3000),
+                              ("reduce_scatter", "float32", 4, 3000)):
+        vals = _values(kind, dtype, p, n, seed=11)
+        fresh = [_to_torch(v) for v in vals]
+        views = [torch.cat([t[:3], t])[3:] for t in fresh]
+        assert all(v.storage_offset() == 3 for v in views)
+        for a, b, c in zip(_oneshot(kind, views), _oneshot(kind, fresh),
+                           _ring(kind, fresh)):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+            np.testing.assert_array_equal(_bits(a), _bits(c))
+
+
 def test_bf16_running_sum_rounds_after_every_add():
     """The wire-dtype rule and the chunk order, visibly.  Ranks hold 1, 256,
     1, 1 (bf16 spacing is 2 above 256); 256 elements at p = 4 make two
     chunks of 128 and two of padding.  Chunk 0 sums from rank 1: 256 + 1
     rounds to 256, and stays there; chunk 1 sums from rank 2: 1 + 1 + 1 +
-    256 = 259, which rounds to 260.  An f32 sum would give 259 everywhere."""
+    256 = 259, which rounds to 260.  An f32 sum would give 259 everywhere.
+    The ring's steps and the one-shot order agree."""
     xs = [torch.tensor([v] * 256, dtype=torch.bfloat16)
           for v in (1.0, 256.0, 1.0, 1.0)]
-    for out in cuda_ring._ring_allreduce_plain(xs):
+    for out in (cuda_ring._ring_allreduce_plain(xs)
+                + cuda_ring._oneshot_allreduce_plain(xs)):
         assert out.float().tolist() == [256.0] * 128 + [260.0] * 128
 
 
@@ -248,6 +389,86 @@ def test_gloo_form_equals_plain_bit_for_bit(pool, kind, dtype, p, n, knobs,
     assert all(x is None for x in res[p:])
 
 
+def _offset_job(kind, p, arrays, mean):
+    """Rank r's result through the per-rank CPU form for an input that
+    starts 3 elements into its storage."""
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch.runtime.communicator import Communicator
+
+    tconfig.reset()
+    comm = Communicator(range(p), my_rank=dist.get_rank())
+    comm.group  # noqa: B018 - new_group is collective over the world
+    me = dist.get_rank()
+    if me >= p:
+        return None
+    t = _to_torch(arrays[me])
+    x = torch.cat([t[:3], t])[3:]
+    assert x.storage_offset() == 3
+    if kind == "allreduce":
+        out = cuda_ring.ring_allreduce(comm, x, op="mean" if mean else "sum")
+    else:
+        out = cuda_ring.ring_reduce_scatter(comm, x)
+    return _bits(out)
+
+
+@pytest.mark.parametrize("kind,dtype,p,mean", [
+    ("allreduce", "bfloat16", 3, True), ("reduce_scatter", "float32", 4,
+                                         False)])
+def test_gloo_form_takes_an_offset_view(pool, kind, dtype, p, mean):
+    vals = _values(kind, dtype, p, 3000, seed=23 + p)
+    res = pool.run(_offset_job, kind, p, vals, mean)
+    want = _oneshot(kind, [_to_torch(v) for v in vals], mean)
+    for r in range(p):
+        np.testing.assert_array_equal(res[r], _bits(want[r]))
+
+
+def test_breakdown_splits_device_ops_by_call():
+    """``ring_bench.split_calls``: each device operation goes to the call
+    whose host range holds its start; busy time is the union of the
+    operations' intervals, the gaps the rest of their span."""
+    from torchmpi_tpu_torch.tools import ring_bench
+
+    calls = ring_bench.split_calls(
+        [(0.0, 10.0), (10.0, 30.0), (30.0, 40.0)],
+        [("stage", 1.0, 3.0), ("reduce", 7.0, 8.0), ("copy", 2.0, 5.0),
+         ("stage", 12.0, 20.0)])
+    assert calls[0] == {"ops": 3, "names": {"stage": 1, "copy": 1,
+                                            "reduce": 1},
+                        "busy_us": 5.0, "gap_us": 2.0, "lead_us": 1.0}
+    assert calls[1]["ops"] == 1 and calls[1]["busy_us"] == 8.0
+    assert calls[1]["gap_us"] == 0.0 and calls[1]["lead_us"] == 2.0
+    assert calls[2] == {"ops": 0, "names": {}, "busy_us": 0.0, "gap_us": 0.0,
+                        "lead_us": None}
+
+
+def test_breakdown_joins_the_ranks_traces():
+    """``ring_bench.across_ranks``: two ranks' traces of two one-shot calls
+    on one clock; per call the window over both ranks, the time some
+    rank's operation ran, the skew of their starts, the handoff from the
+    last STAGE to the first REDUCE and the tail to the last return."""
+    from torchmpi_tpu_torch.tools import ring_bench
+
+    r0 = ([(0.0, 100.0), (100.0, 200.0)],
+          [("stage_kernel<float>", 10.0, 12.0),
+           ("reduce_kernel<float>", 50.0, 52.0),
+           ("stage_kernel<float>", 110.0, 112.0),
+           ("reduce_kernel<float>", 160.0, 162.0)])
+    r1 = ([(5.0, 110.0), (105.0, 200.0)],
+          [("stage_kernel<float>", 20.0, 22.0),
+           ("reduce_kernel<float>", 30.0, 32.0),
+           ("stage_kernel<float>", 120.0, 121.0),
+           ("reduce_kernel<float>", 130.0, 131.0)])
+    first, second = ring_bench.across_ranks([r0, r1])
+    assert first == {"window_us": 110.0, "busy_any_us": 8.0,
+                     "idle_us": 102.0, "skew_us": 5.0, "handoff_us": 8.0,
+                     "tail_us": 58.0}
+    assert second["handoff_us"] == 9.0 and second["tail_us"] == 38.0
+    # The ring steps' kernels have no STAGE or REDUCE: no handoff.
+    steps = ([(0.0, 10.0)], [("step_kernel", 1.0, 2.0)])
+    assert "handoff_us" not in ring_bench.across_ranks([steps, steps])[0]
+
+
 # ------------------------------------------------------------------ the card
 
 @pytest.fixture(scope="module")
@@ -260,13 +481,48 @@ def card_bench():
     return ring_bench.run(2, quick=True)
 
 
+@pytest.fixture(scope="module")
+def card_bench_p4():
+    """Every rank's results of the quick ring bench at p = 4 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the ring kernels are CUDA only)")
+    from torchmpi_tpu_torch.tools import ring_bench
+
+    return ring_bench.run(4, quick=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["allreduce", "reduce_scatter", "allgather"])
 def test_kernel_equals_plain_on_the_card(card_bench, kind):
+    """B1 and B2 against the one-shot plain versions, B3 against the
+    ring's, at p = 2."""
     for res in card_bench:
         recs = [r for r in res["records"] if r["kind"] == kind]
         assert recs and all(r["bitwise_equal"] for r in recs), recs
         assert res["collectives_ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["allreduce", "reduce_scatter", "allgather"])
+def test_kernel_equals_plain_at_p4_on_the_card(card_bench_p4, kind):
+    for res in card_bench_p4:
+        recs = [r for r in res["records"] if r["kind"] == kind]
+        assert recs and all(r["bitwise_equal"] for r in recs), recs
+        assert res["collectives_ok"]
+        assert res["resnet_rings"]["bitwise_equal"]
+
+
+@pytest.mark.cuda
+def test_back_to_back_calls_reuse_both_slots_on_the_card(card_bench,
+                                                         card_bench_p4):
+    """Three allreduce calls on one id (slot 0, slot 1, slot 0 again; the
+    second input an offset view, the second call a mean), each equal to
+    its plain version on every rank, at p = 2 and p = 4."""
+    for res in card_bench + card_bench_p4:
+        calls = res["back_to_back"]
+        assert [c["call"] for c in calls] == [0, 1, 2]
+        assert calls[1]["offset_view"] and calls[1]["mean"]
+        assert all(c["bitwise_equal"] for c in calls), calls
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@ as hand-written CUDA kernels over staging memory shared between processes.
 
 Counterpart of ``torchmpi_tpu/collectives/pallas_ring.py``.  Each process
 is one rank and passes **its own tensor**; rank r's result is the JAX
-package's row r.  The schedule is the JAX kernels', step for step:
+package's row r.  The JAX kernels' schedule:
 
 * reduce-scatter: p-1 steps; at step s rank ``me`` sends chunk
   ``(me - s - 1) mod p`` of its running partial to its right neighbour and
@@ -13,20 +13,26 @@ package's row r.  The schedule is the JAX kernels', step for step:
   ``(me - s) mod p`` and stores the arriving ``(me - s - 1) mod p``;
 * allreduce: reduce-scatter then allgather, as one collective call.
 
-The running sum stays in the wire dtype (bf16 rounds after every add), and
-chunk c covers the same elements as in JAX (``_geometry``), so f32, bf16 and
-int32 results are bit-identical to the JAX package's.
+So chunk c of the sum is ``x[(c+1) % p]``, then ``x[(c+j) % p] + acc`` for
+j = 2..p, in the wire dtype (bf16 rounds after every add), with chunk c
+covering the same elements as in JAX (``_geometry``): f32, bf16 and int32
+results are bit-identical to the JAX package's.
 
-Three forms compute that schedule:
+The forms that compute it:
 
-* the kernels (``ops/csrc/ring.cu``), for CUDA tensors.  Staging slots and
-  flag words are ``cudaMalloc``'d by the source, kept per (communicator,
-  collective id), and mapped into the neighbours once through cudaIPC
-  handles swapped over the communicator's process group;
-* the per-rank CPU form, for CPU tensors: the same steps with
+* the kernels (``ops/csrc/ring.cu``), for CUDA tensors.  B1 and B2 are
+  one-shot: each rank stages its input into its own slot, waits once in
+  the stream until every peer has staged, and reduces every rank's slot in
+  the order above straight into its output.  B3 runs the ring's steps.
+  Staging and flag words are ``cudaMalloc``'d by the source, kept per
+  (communicator, collective id), and mapped into every peer once through
+  cudaIPC handles swapped over the communicator's process group;
+* the per-rank CPU form, for CPU tensors: the ring's steps with
   ``torch.distributed`` send/recv of chunks over a gloo world;
-* ``_ring_*_plain``: the whole ring over a list of p tensors in one
-  process, the oracle of the tests and of ``chip_smoke.py``.
+* ``_ring_*_plain``: the whole ring's steps over a list of p tensors in one
+  process, and ``_oneshot_*_plain``: the same sums in the one-shot
+  kernels' order, element by chunk; the oracles of the tests and of
+  ``chip_smoke.py``.
 
 A CUDA tensor goes to the kernels or raises; nothing falls back.
 """
@@ -54,7 +60,7 @@ CALLER_COLLECTIVE_ID_BASE = 0x60
 RING_TIMEOUT_S = 10.0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-_KINDS = {"allreduce": 0, "reduce_scatter": 1, "allgather": 2}
+_KINDS = {"allreduce": 0, "reduce_scatter": 1}
 
 # Kernel launches in this process, one per collective call (the plain and
 # CPU forms do not count); chip_smoke.py reads them.
@@ -139,9 +145,15 @@ def _pad_ag(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mean(out: torch.Tensor, p: int) -> torch.Tensor:
-    """The replica mean, divided in the wire dtype as JAX does (an integer
-    vector divides to f32, as ``int / int`` does there)."""
-    return out / torch.tensor(p, dtype=out.dtype, device=out.device)
+    """The replica mean as the JAX package computes it: its ``out / p``
+    divides by a constant, which XLA turns into a product with the f32
+    reciprocal of p (one ulp off an IEEE division in about a third of f32
+    elements at p = 3; exact at a power of two).  A bf16 vector rounds that
+    f32 product to bf16; an integer vector gives f32, as ``int / int``
+    does there."""
+    recip = torch.ones((), dtype=torch.float32) / p
+    prod = out.to(torch.float32) * recip.to(out.device)
+    return prod.to(out.dtype) if out.dtype == torch.bfloat16 else prod
 
 
 def _ring_allreduce_plain(xs: Sequence[torch.Tensor],
@@ -175,6 +187,41 @@ def _ring_allgather_plain(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         outs.append(buf)
     _ag_steps_plain(outs)
     return [o[:, :n].reshape(p * n) for o in outs]
+
+
+def _oneshot_sum(xs: Sequence[torch.Tensor], lo: int, hi: int,
+                 c: int) -> torch.Tensor:
+    """Elements [lo, hi) of chunk c, summed over the ranks from rank
+    (c+1) % p in the wire dtype, as the REDUCE kernel sums them."""
+    p = len(xs)
+    acc = xs[(c + 1) % p][lo:hi].clone()
+    for j in range(2, p + 1):
+        acc = xs[(c + j) % p][lo:hi] + acc
+    return acc
+
+
+def _oneshot_allreduce_plain(xs: Sequence[torch.Tensor],
+                             mean: bool = False) -> List[torch.Tensor]:
+    """Every rank's one-shot allreduce result (the same tensor for every
+    rank): element i lies in chunk i // (rows * 128) of the ring's padded
+    layout."""
+    p, n = len(xs), xs[0].numel()
+    flat = [x.reshape(-1) for x in xs]
+    rows, _, _ = _geometry(n, p, xs[0].element_size())
+    chunk = rows * _LANE
+    out = torch.cat([_oneshot_sum(flat, c * chunk, min((c + 1) * chunk, n), c)
+                     for c in range(p) if c * chunk < n] or [flat[0][:0]])
+    return [_mean(out, p) if mean else out] * p
+
+
+def _oneshot_reduce_scatter_plain(xs: Sequence[torch.Tensor]
+                                  ) -> List[torch.Tensor]:
+    """Every rank's one-shot reduce-scatter result: rank r sums chunk r,
+    elements [r n/p, (r+1) n/p)."""
+    p, n = len(xs), xs[0].numel()
+    flat = [x.reshape(-1) for x in xs]
+    m = n // p
+    return [_oneshot_sum(flat, r * m, (r + 1) * m, r) for r in range(p)]
 
 
 # ------------------------------------------------------ per-rank CPU form
@@ -222,17 +269,22 @@ def _library():
 
         lib = _build.load("ring")
         vp, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+        ll = ctypes.c_longlong
         sigs = {
             "tmpi_ring_alloc": [ctypes.c_size_t, ctypes.POINTER(vp)],
             "tmpi_ring_free": [vp],
+            "tmpi_ring_host_alloc": [ctypes.c_size_t, ctypes.POINTER(vp)],
+            "tmpi_ring_host_free": [vp],
             "tmpi_ring_ipc_get": [vp, ctypes.c_char_p],
             "tmpi_ring_ipc_open": [ctypes.c_char_p, ctypes.POINTER(vp)],
             "tmpi_ring_ipc_close": [vp],
             "tmpi_ring_ipc_handle_bytes": [],
             "tmpi_ring_flag_bytes": [],
             "tmpi_ring_read_flags": [vp, ctypes.POINTER(u64), i],
-            "tmpi_ring_run": [i, i, i, i, ctypes.c_longlong, i, vp, vp,
-                              vp, vp, vp, vp, vp, u64, vp],
+            "tmpi_ring_oneshot": [i, i, i, i, ll, ll, i, vp, vp, vp, vp, ll,
+                                  u64, vp, vp],
+            "tmpi_ring_allgather": [i, i, i, ll, i, vp, vp, vp, vp, vp, vp,
+                                    vp, u64, vp],
             "tmpi_ring_abort": [vp],
         }
         for name, args in sigs.items():
@@ -250,19 +302,23 @@ def _check_cuda(err: int, what: str) -> None:
 
 class _RingState:
     """Staging slots and flags of one (communicator, collective id) on this
-    rank, mapped into both neighbours; ``seq`` counts this rank's sends on
-    the ring over every call, so no flag is ever reset under a racing
-    peer."""
+    rank, mapped into every peer; ``seq`` counts this rank's sends on the
+    ring (B3) or its calls (one-shot) over every call, so no flag is ever
+    reset under a racing peer.  ``table`` lists every rank's block on the
+    device (this rank's own at its rank), and ``status`` is a mapped host
+    word that a one-shot REDUCE sets when it finds a rank's error word
+    set."""
 
     def __init__(self, comm: Communicator, cid: int, slot_bytes: int,
-                 nslots: int):
+                 nslots: int, device: torch.device):
         lib = _library()
         self.comm, self.cid = comm, cid
         self.slot_bytes, self.nslots = slot_bytes, nslots
         self.seq = 0
         self.broken = False
-        # One block: a page of flag words (error, data, credit and a block
-        # counter), then the slots.
+        self.status = 0
+        # One block: a page of flag words (error, data, credit, a block
+        # counter, ready), then the slots.
         self.flag_bytes = lib.tmpi_ring_flag_bytes()
         base = ctypes.c_void_p()
         _check_cuda(lib.tmpi_ring_alloc(self.flag_bytes + nslots * slot_bytes,
@@ -271,6 +327,10 @@ class _RingState:
         self.base = base.value
         self.peers: Dict[int, int] = {}
         try:
+            status = ctypes.c_void_p()
+            _check_cuda(lib.tmpi_ring_host_alloc(8, ctypes.byref(status)),
+                        "cudaHostAlloc of the status word")
+            self.status = status.value
             hb = lib.tmpi_ring_ipc_handle_bytes()
             handle = ctypes.create_string_buffer(hb)
             _check_cuda(lib.tmpi_ring_ipc_get(self.base, handle),
@@ -279,13 +339,16 @@ class _RingState:
 
             handles: List[Optional[bytes]] = [None] * comm.size
             dist.all_gather_object(handles, handle.raw, group=comm.group)
-            me, p = comm.rank, comm.size
-            for r in {(me - 1) % p, (me + 1) % p} - {me}:
+            for r in range(comm.size):
+                if r == comm.rank:
+                    continue
                 ptr = ctypes.c_void_p()
                 _check_cuda(lib.tmpi_ring_ipc_open(handles[r],
                                                    ctypes.byref(ptr)),
                             f"cudaIpcOpenMemHandle of rank {r}")
                 self.peers[r] = ptr.value
+            self.table = torch.tensor([self.flags(r) for r in range(comm.size)],
+                                      dtype=torch.int64, device=device)
         except BaseException:
             self.close()
             raise
@@ -297,56 +360,66 @@ class _RingState:
     def slots(self, r: Optional[int] = None) -> int:
         return self.flags(r) + self.flag_bytes
 
-    def flag_words(self) -> Tuple[int, int, int]:
-        """This rank's (error, data, credit) words: whether the host gave
-        up, the chunks delivered into its slots and its sends consumed."""
-        out = (ctypes.c_uint64 * 3)()
-        _check_cuda(_library().tmpi_ring_read_flags(self.base, out, 3),
+    def flag_words(self) -> Tuple[int, int, int, int]:
+        """This rank's (error, data, credit, ready) words: whether the host
+        gave up, the chunks delivered into its slots and its sends consumed
+        (B3), and the peers' stages delivered (one-shot)."""
+        out = (ctypes.c_uint64 * 5)()
+        _check_cuda(_library().tmpi_ring_read_flags(self.base, out, 5),
                     "reading the ring's flags")
-        return int(out[0]), int(out[1]), int(out[2])
+        return int(out[0]), int(out[1]), int(out[2]), int(out[4])
+
+    def peer_gave_up(self) -> bool:
+        """Whether a one-shot REDUCE of this state found a rank's error word
+        set (and so wrote nothing)."""
+        return ctypes.c_uint64.from_address(self.status).value != 0
 
     def unmap(self) -> None:
-        """Close the neighbours' mappings of this rank's view."""
+        """Close the peers' mappings of this rank's view."""
         lib = _library()
         for ptr in self.peers.values():
             lib.tmpi_ring_ipc_close(ptr)
         self.peers = {}
 
     def free(self) -> None:
+        lib = _library()
         if self.base:
-            _library().tmpi_ring_free(self.base)
+            lib.tmpi_ring_free(self.base)
             self.base = 0
+        if self.status:
+            lib.tmpi_ring_host_free(self.status)
+            self.status = 0
 
     def close(self) -> None:
         self.unmap()
         self.free()
 
 
-_states: Dict[Tuple[int, Tuple[int, ...], int], _RingState] = {}
+_states: Dict[Tuple[int, Tuple[int, ...], int, bool], _RingState] = {}
 
 
-def _state(comm: Communicator, cid: int, slot_bytes: int,
-           nslots: int) -> _RingState:
-    """The ring state of (comm, cid), made on first use and remade when a
-    call needs larger slots or another slot count.  Both are the same on
-    every rank for the same call, so every rank remakes it at the same
-    call; the stream is drained first, so no queued step still uses the
-    old memory."""
-    key = (id(comm), comm.ranks, cid)
+def _state(comm: Communicator, cid: int, slot_bytes: int, nslots: int,
+           oneshot: bool, device: torch.device) -> _RingState:
+    """The ring state of (comm, cid) for the one-shot kernels or the ring
+    steps, made on first use and remade when a call needs larger slots or
+    another slot count.  Both are the same on every rank for the same call,
+    so every rank remakes it at the same call; the stream is drained first,
+    so no queued kernel still uses the old memory."""
+    key = (id(comm), comm.ranks, cid, oneshot)
     st = _states.get(key)
     if st is not None and (st.slot_bytes < slot_bytes or st.nslots != nslots):
         _release([st], comm.group)
         st = None
     if st is None:
-        st = _states[key] = _RingState(comm, cid, slot_bytes, nslots)
+        st = _states[key] = _RingState(comm, cid, slot_bytes, nslots, device)
     return st
 
 
 def _release(states: List[_RingState], group=None) -> None:
     """Free ``states`` on every rank of ``group`` together: each rank drains
-    its stream, then all close their mappings of the neighbours' memory,
-    then all free their own, so no rank frees memory a peer still maps or
-    a queued step still uses."""
+    its stream, then all close their mappings of the peers' memory, then
+    all free their own, so no rank frees memory a peer still maps or a
+    queued kernel still uses."""
     import torch.distributed as dist
 
     torch.cuda.synchronize()
@@ -366,47 +439,101 @@ def release_all() -> None:
     _states.clear()
 
 
-def _run_kernel(kind: str, comm: Communicator, cid: int, src: torch.Tensor,
-                out: torch.Tensor, chunk: int) -> None:
-    """One collective call of ``kind`` on the current stream: ``src`` is
-    this rank's (p, chunk) block (allreduce, reduce-scatter) or its one
-    chunk (allgather); ``out`` is (p, chunk).  Waits for the call to end;
+def _usable(st: _RingState) -> None:
+    if st.broken:
+        raise RingError(f"ring state of collective id {st.cid:#x} was given "
+                        f"up on by an earlier call")
+
+
+def _run_oneshot(kind: str, comm: Communicator, cid: int, x: torch.Tensor,
+                 out: torch.Tensor, mean: bool) -> None:
+    """One one-shot call of ``kind`` ('allreduce' or 'reduce_scatter') on
+    the current stream: ``x`` is this rank's contiguous (n,) input, ``out``
+    its (n,) or (n/p,) result, divided by p when ``mean``.  Waits for the
+    call to end; past ``RING_TIMEOUT_S`` it aborts the call and raises
+    :class:`RingError`, as it does when a peer gave up on it."""
+    p, me, n = comm.size, comm.rank, x.numel()
+    slot_bytes = -(-max(n * x.element_size(), 1) // 256) * 256
+    st = _state(comm, cid, slot_bytes, 2, True, x.device)
+    _usable(st)
+    rows, _, _ = _geometry(n, p, x.element_size())
+    lib = _library()
+    k = st.seq
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        _check_cuda(lib.tmpi_ring_oneshot(
+            _KINDS[kind], _DTYPE_CODES[x.dtype], p, me, n, rows * _LANE,
+            int(mean), x.data_ptr(), out.data_ptr(), st.table.data_ptr(),
+            st.base, st.slot_bytes, k, st.status, stream.cuda_stream),
+            f"one-shot {kind} launch")
+        st.seq += 1
+        late = _await(st, stream)
+    where = f"{kind} on rank {me} of {p} (collective id {cid:#x})"
+    if late is None:
+        if not st.peer_gave_up():
+            return
+        st.broken = True
+        raise RingError(f"{where} raised: a peer had given up on call {k}")
+    words, drained = late
+    raise RingError(
+        f"{where} gave up at call {k}: {max(words[3] - (p - 1) * k, 0)} of "
+        f"{p - 1} peers had staged within {RING_TIMEOUT_S} s"
+        + _undrained(drained))
+
+
+def _run_allgather(comm: Communicator, cid: int, src: torch.Tensor,
+                   out: torch.Tensor, chunk: int) -> None:
+    """One ring allgather call on the current stream: ``src`` is this
+    rank's one chunk, ``out`` is (p, chunk).  Waits for the call to end;
     past ``RING_TIMEOUT_S`` it aborts the call and raises
     :class:`RingError`."""
     p, me = comm.size, comm.rank
     nslots = _nslots(p)
-    st = _state(comm, cid, chunk * src.element_size(), nslots)
-    if st.broken:
-        raise RingError(f"ring state of collective id {cid:#x} was given up "
-                        f"on by an earlier call")
-    steps = {"allreduce": 2 * (p - 1), "reduce_scatter": p - 1,
-             "allgather": p - 1}[kind]
+    st = _state(comm, cid, chunk * src.element_size(), nslots, False,
+                src.device)
+    _usable(st)
+    steps = p - 1
     lib = _library()
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device)
-        _check_cuda(lib.tmpi_ring_run(
-            _KINDS[kind], _DTYPE_CODES[src.dtype], p, me, chunk, nslots,
+        _check_cuda(lib.tmpi_ring_allgather(
+            src.element_size(), p, me, chunk, nslots,
             src.data_ptr(), out.data_ptr(), st.slots(),
             st.slots((me + 1) % p), st.flags(), st.flags((me + 1) % p),
             st.flags((me - 1) % p), st.seq, stream.cuda_stream),
-            f"ring {kind} launch")
+            "ring allgather launch")
         base, st.seq = st.seq, st.seq + steps
-        done = torch.cuda.Event()
-        done.record(stream)
-        if _wait(done, RING_TIMEOUT_S):
-            return
-        # A neighbour did not arrive: release this rank's queued waits so
-        # its stream drains, then raise.
-        received = st.flag_words()[1] - base
-        st.broken = True
-        _check_cuda(lib.tmpi_ring_abort(st.flags()), "aborting the ring")
-        drained = _wait(done, RING_TIMEOUT_S)
+        late = _await(st, stream)
+    if late is None:
+        return
+    words, drained = late
     raise RingError(
-        f"ring {kind} on rank {me} of {p} (collective id {cid:#x}) gave up "
-        f"at step {min(received, steps - 1)} of {steps}: a neighbour did "
-        f"not arrive within {RING_TIMEOUT_S} s"
-        + ("" if drained else "; the stream did not drain after the abort "
-           "either, so this process's CUDA stream is unusable"))
+        f"ring allgather on rank {me} of {p} (collective id {cid:#x}) gave "
+        f"up at step {min(words[1] - base, steps - 1)} of {steps}: a "
+        f"neighbour did not arrive within {RING_TIMEOUT_S} s"
+        + _undrained(drained))
+
+
+def _await(st: _RingState, stream) -> Optional[Tuple[Tuple[int, ...], bool]]:
+    """Wait for the call just enqueued on ``stream``: None once it is done.
+    Past ``RING_TIMEOUT_S`` a peer did not arrive: the state is given up,
+    this rank's queued waits are released (:func:`tmpi_ring_abort`) so its
+    stream drains, and the result is the flag words read before the abort
+    and whether the stream drained."""
+    done = torch.cuda.Event()
+    done.record(stream)
+    if _wait(done, RING_TIMEOUT_S):
+        return None
+    words = st.flag_words()
+    st.broken = True
+    _check_cuda(_library().tmpi_ring_abort(st.flags()), "aborting the ring")
+    return words, _wait(done, RING_TIMEOUT_S)
+
+
+def _undrained(drained: bool) -> str:
+    return "" if drained else ("; the stream did not drain after the abort "
+                               "either, so this process's CUDA stream is "
+                               "unusable")
 
 
 def _wait(event: torch.cuda.Event, seconds: float) -> bool:
@@ -456,9 +583,10 @@ def inner_ring_allreduce(x: torch.Tensor, p: int, mean: bool = False,
                          collective_id: Optional[int] = None,
                          comm: Optional[Communicator] = None) -> torch.Tensor:
     """Ring-allreduce this rank's flat vector ``x`` ``(n,)`` over the ``p``
-    ranks of ``comm`` (default: the current communicator): zero-padded to
-    ``p * rows * 128`` with ``rows`` from :func:`_geometry`, reduced in the
-    wire dtype, then divided by p when ``mean``.
+    ranks of ``comm`` (default: the current communicator): each element
+    summed in the order of its chunk of the ring's layout (zero-padded to
+    ``p * rows * 128`` with ``rows`` from :func:`_geometry`) in the wire
+    dtype, then divided by p when ``mean``.
 
     Rings that may be in flight together take distinct ``collective_id`` s
     (see :data:`CALLER_COLLECTIVE_ID_BASE`): each id has its own staging
@@ -470,18 +598,18 @@ def inner_ring_allreduce(x: torch.Tensor, p: int, mean: bool = False,
     if c.size != p:
         raise ValueError(f"p={p} but the communicator has {c.size} ranks")
     n = x.numel()
-    buf = _pad_ar(x, p)
     if x.device.type == "cpu":
+        buf = _pad_ar(x, p)
         _rs_steps_cpu(c, buf)
         _ag_steps_cpu(c, buf)
-        out = buf
-    else:
-        out = torch.empty_like(buf)
-        _run_kernel("allreduce", c, _RS_COLLECTIVE_ID if collective_id is None
-                    else collective_id, buf, out, buf.shape[1])
-        _count("allreduce")
-    out = out.reshape(-1)[:n]
-    return _mean(out, p) if mean else out
+        out = buf.reshape(-1)[:n]
+        return _mean(out, p) if mean else out
+    out = torch.empty(n, dtype=x.dtype, device=x.device)
+    folded = mean and x.dtype != torch.int32
+    _run_oneshot("allreduce", c, _RS_COLLECTIVE_ID if collective_id is None
+                 else collective_id, x.contiguous(), out, folded)
+    _count("allreduce")
+    return _mean(out, p) if mean and not folded else out
 
 
 def ring_allreduce(comm: Communicator, x: torch.Tensor,
@@ -508,16 +636,16 @@ def ring_reduce_scatter(comm: Communicator, x: torch.Tensor,
         raise ValueError(f"reduce_scatter data axis {n} not divisible by {p}")
     if p == 1:
         return x
-    buf = _pad_rs(x, p)
     me = comm.rank
     if x.device.type == "cpu":
+        buf = _pad_rs(x, p)
         _rs_steps_cpu(comm, buf)
         return buf[me, :n // p].clone()
-    out = torch.empty_like(buf)
-    _run_kernel("reduce_scatter", comm, _RS_COLLECTIVE_ID, buf, out,
-                buf.shape[1])
+    out = torch.empty(n // p, dtype=x.dtype, device=x.device)
+    _run_oneshot("reduce_scatter", comm, _RS_COLLECTIVE_ID, x.contiguous(),
+                 out, False)
     _count("reduce_scatter")
-    return out[me, :n // p]
+    return out
 
 
 def ring_allgather(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
@@ -535,7 +663,6 @@ def ring_allgather(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
         _ag_steps_cpu(comm, out)
     else:
         out = torch.empty((p, chunk.numel()), dtype=x.dtype, device=x.device)
-        _run_kernel("allgather", comm, _AG_COLLECTIVE_ID, chunk, out,
-                    chunk.numel())
+        _run_allgather(comm, _AG_COLLECTIVE_ID, chunk, out, chunk.numel())
         _count("allgather")
     return out[:, :n].reshape(p * n)

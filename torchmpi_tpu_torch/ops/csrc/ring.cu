@@ -1,73 +1,119 @@
 // Ring collectives for Hopper (sm_90a) between processes, behind a plain C
 // interface that torchmpi_tpu_torch/collectives/cuda_ring.py binds with
-// ctypes: the fused ring allreduce (B1), the ring reduce-scatter (B2) and the
-// ring allgather (B3).
+// ctypes: the allreduce (B1) and the reduce-scatter (B2), each one-shot, and
+// the ring allgather (B3).
 //
-// Replaces torchmpi_tpu/collectives/pallas_ring.py:_ar_kernel, _rs_kernel
-// and _ag_kernel.  Same schedule: reduce-scatter step s sends chunk
-// (me-s-1) mod p and adds the arriving chunk into (me-s-2) mod p; allgather
-// step s forwards (me-s) mod p and stores the arriving (me-s-1) mod p; the
-// allreduce runs both phases in one collective call.  The running sum stays in the
-// wire dtype (f32, bf16 rounded after every add, int32 wrapping), so with
-// the same chunks the results are bit-identical to the JAX package's.
-//
-// Design, chosen by a probe (tools/ring_probe.py with tools/csrc/
-// ring_probe.cu; PERF.md).  Every rank of the chip run binds the one card,
-// and without MPS the card time-slices the ranks' contexts instead of
-// running their kernels at once.  The probe
+// Every rank of the chip run binds the one card, and without MPS the card
+// time-slices the ranks' contexts instead of running their kernels at once.
+// A probe (tools/ring_probe.py with tools/csrc/ring_probe.cu; PERF.md)
 // ping-ponged one flag between two processes on one H100: a kernel spinning
 // on the flag took 4.49 ms a round trip, as did one launch per half trip
 // with the wait inside the kernel (a spinning kernel holds the card until
 // its time slice ends), while a wait in the stream (cuStreamWaitValue64)
-// took 0.287 ms.  So a ring step is not a spin inside one fused kernel but,
-// as in the reference's IPC ring (detail/collectives_cuda.cpp:202-388), a
-// launch per half step ordered across processes in the streams:
+// took 0.287 ms.  So no kernel here spins on a peer: the orders across
+// processes come from stream waits on monotone flag words, which a peer's
+// kernel raises with a release at system scope.
+//
+// ---- B1 and B2: one-shot -------------------------------------------------
+//
+// Replace torchmpi_tpu/collectives/pallas_ring.py:194 _ar_kernel (B1) and
+// pallas_ring.py:165 _rs_kernel (B2).  On one time-sliced card each
+// cross-process wait costs a switch of contexts, so the design needs as few
+// of them as it can: a rank's k-th call on a (communicator, collective id)
+// state is
+//   1. STAGE kernel: this rank's input x (n,) into its own staging slot
+//      k % 2, which every peer has mapped through cudaIpc; its last block
+//      adds 1 to every peer's READY word (red.release.sys.add after
+//      __threadfence_system);
+//   2. one cuStreamWaitValue64, until this rank's READY word is at least
+//      (p-1)(k+1): every peer has staged call k;
+//   3. REDUCE kernel: reads slot k % 2 of every rank through L2 (__ldcg)
+//      and writes the result straight into the output: (n,) for B1, this
+//      rank's (n/p,) part for B2, the mean folded in for f32 and bf16.
+// Two launches and one stream wait a call, against 4(p-1)+4 device
+// operations and up to 4(p-1) waits of the ring steps it replaces.
+//
+// The sum order is the ring's, so the bits are the ring's, the JAX
+// package's and the plain schedule's: element i of B1 lies in chunk
+// c = i / chunk of the ring's zero-padded layout (chunk = rows * 128, from
+// cuda_ring._geometry), and its sum is acc = x[(c+1)%p][i], then
+// acc = x[(c+j)%p][i] + acc for j = 2..p, in the wire dtype (bf16 rounded to
+// nearest even after every add, int32 wrapping).  B2's rank r sums its
+// chunk r, elements [r n/p, (r+1) n/p), in the same order.  Pad positions
+// are never returned, so nothing reads or writes them.  The mean is the
+// product with the f32 reciprocal of p, rounded to bf16 for bf16: the JAX
+// package divides by the constant p, which XLA folds into that product (an
+// IEEE division differs by one ulp in about a third of f32 elements at
+// p = 3).  int32 takes its mean on the host, to f32.
+//
+// Why two slots need no second wait.  At call k a rank overwrites its slot
+// k % 2, which its peers last read in their REDUCE of call k-2.  Its wait
+// at call k-1 passed READY >= (p-1)k.  No rank's count of stages runs more
+// than one ahead of another's (a rank starts stage t+1 only after its wait
+// saw (p-1)t adds, and with every count within one of the others that needs
+// every peer at t), so that wait saw every peer's STAGE of call k-1, and in
+// each peer's stream that STAGE comes after its REDUCE of call k-2.
+//
+// Bytes.  Per call a rank reads n b and writes n b (STAGE), then reads p
+// slots and writes its output (REDUCE): at p = 2, 5nb per rank for B1,
+// against 13nb/2 for the ring steps' copy-in, sends, adds and stores.  The
+// function itself must read every rank's input once and write every rank's
+// output once, 2pnb for B1 (ResNet-50's 102.2 MB of f32 gradients at p = 2:
+// 0.409 GB, 0.122 ms at 3.35 TB/s), p(n + n/p)b for B2: the bounds
+// chip_smoke.py states.  Nothing here crosses a link.  Staging is two slots
+// of n b each per (communicator, id): ResNet-50's 8 rotating engine ids
+// hold about 2 x 9.4 MB each, about 151 MB a rank, and a ring of 25.6M f32
+// elements 205 MB.
+//
+// Alignment.  16-byte vectors where the input (STAGE) or the output and the
+// rank's first element (REDUCE) allow them; a scalar path otherwise (an
+// offset view, B2's chunk r at an odd offset) and for the ragged tail.
+//
+// ---- B3: ring steps -------------------------------------------------------
+//
+// Replaces torchmpi_tpu/collectives/pallas_ring.py:241 _ag_kernel.  Same
+// schedule: allgather step s forwards (me-s) mod p and stores the arriving
+// (me-s-1) mod p.  As in the reference's IPC ring
+// (detail/collectives_cuda.cpp:202-388), a launch per half step ordered
+// across processes in the streams:
 //   1. wait in the stream until credit >= k + 1 - nslots (the right
 //      neighbour has consumed the slot about to be reused);
 //   2. SEND kernel: my chunk into the right neighbour's slot k % nslots
 //      (mapped through cudaIpc), then its last block raises the
 //      neighbour's data word to k + 1 (an atomic max with release);
 //   3. wait in the stream until my data word >= k + 1;
-//   4. ADD (reduce-scatter) or STORE (allgather) kernel: my slot into my
-//      chunk, then its last block raises the left neighbour's credit word
-//      to k + 1.
+//   4. STORE kernel: my slot into my chunk, then its last block raises the
+//      left neighbour's credit word to k + 1.
 // k counts a rank's sends on the ring over every call, so no word is ever
 // reset under a racing peer, and the words stand in for the TPU kernel's DMA
 // semaphores, capacity credits and barrier.  The orders across processes
 // come from the stream waits on those monotone words rather than from
 // interprocess events, which would need a host handshake per step to know
-// that the peer's record is the current one.
+// that the peer's record is the current one.  The JAX sub-chunk count q
+// (max_buffer_size pieces) only shapes the padding (rows is a multiple of
+// q); a step here is one grid.  Per step a rank moves 4 chunks; the
+// function must read every input once and write every output once.
+//
+// ---- shared by all three --------------------------------------------------
 //
 // Staging: each rank owns one cudaMalloc'd block per (communicator,
-// collective id), a page of flag words then nslots slots of one chunk each,
-// mapped into its neighbours once through cudaIpcOpenMemHandle (handles
-// swapped over the process group).  Slot reads go through L2 (__ldcg), never
-// a stale L1 line.  The JAX sub-chunk count q (max_buffer_size pieces) only
-// shapes the padding (rows is a multiple of q); a step here is one grid.
+// collective id), a page of flag words then the slots, mapped into every
+// peer once through cudaIpcOpenMemHandle (handles swapped over the process
+// group).  Slot reads go through L2 (__ldcg), never a stale L1 line.
 //
 // Bounded waits: a stream wait cannot time out by itself, so the host bounds
 // each call (cuda_ring.RING_TIMEOUT_S): past the deadline it sets this
-// rank's error word and raises the rank's own data and credit words past
-// any step (tmpi_ring_abort, from a stream of its own).  The queued waits
-// then pass, every queued kernel sees the error word and does nothing (so a
-// rank that gave up never signals a neighbour, which times out in turn), and
-// the host raises naming the rank, the collective id and the step.  A
-// neighbour that arrives after the abort signals with an atomic max, so it
-// cannot pull a raised word back under a wait still queued; the host bounds
-// the drain after the abort too.
-//
-// Bound on one card.  Every rank's traffic shares one HBM.  Per call a rank
-// copies its input into the working buffer (p chunks read and written),
-// then per reduce-scatter step reads a chunk and writes it to the peer's
-// slot, reads the slot and its partial and writes the partial (5 chunks),
-// and per allgather step moves 4 chunks.  For an allreduce of n elements of
-// b bytes over p ranks that is, all ranks together, 2pnb + 9(p-1)nb bytes
-// (ResNet-50's 102.2 MB of f32 gradients at p = 2: 1.33 GB, 0.40 ms at
-// 3.35 TB/s).  The function itself must read every rank's input once and
-// write every rank's output once: 2pnb (0.12 ms), the bound chip_smoke.py
-// states.  Neither is an NVLink bound: nothing here crosses a link.  What
-// costs most on one card is neither: each step waits for the card to switch
-// to the neighbour's context.
+// rank's error word and raises the rank's own data, credit and READY words
+// past any count (1 << 62, far from 2^64, so later adds cannot wrap it;
+// tmpi_ring_abort, from a stream of its own).  The queued waits then pass,
+// every queued kernel sees the error word and does nothing, and the host
+// raises naming the rank and the collective id.  A B3 neighbour that
+// arrives after the abort signals with an atomic max and a one-shot peer
+// with an add, so neither can pull a raised word back under a wait still
+// queued.  A one-shot peer that arrives late may find its own wait already
+// satisfied (the rank that gave up had staged), so REDUCE also reads every
+// peer's error word: if any is set it does nothing and sets the call's
+// status word in mapped host memory, and that host raises in turn.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,88 +139,203 @@ __device__ __forceinline__ void signal_max(uint64_t* p, uint64_t v) {
                : "memory");
 }
 
+// Add v to *p, releasing this thread's earlier writes to the system.
+__device__ __forceinline__ void signal_add(uint64_t* p, uint64_t v) {
+  asm volatile("red.release.sys.global.add.u64 [%0], %1;" :: "l"(p), "l"(v)
+               : "memory");
+}
 
-// ---- the ring ---------------------------------------------------------------
+
+// ---- flag words and launch shape --------------------------------------------
 
 constexpr int ERR_WORD = 0;        // 0, or set by the host when it gives up
-constexpr int DATA_WORD = 1;       // chunks delivered into my slots (by left)
-constexpr int CREDIT_WORD = 2;     // my sends consumed by right (by right)
+constexpr int DATA_WORD = 1;       // B3: chunks delivered into my slots
+constexpr int CREDIT_WORD = 2;     // B3: my sends consumed by right
 constexpr int COUNT_WORD = 3;      // blocks done with this rank's kernel
+constexpr int READY_WORD = 4;      // one-shot: peers' stages delivered
 constexpr int FLAG_BYTES = 256;    // the flag page in front of the slots
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 1056;   // 8 blocks on each of the 132 SMs
 constexpr int LANE = 128;
+constexpr int MAX_P = 4096;        // the REDUCE's table of slots in shared
 
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static __device__ __forceinline__ uint4 add(uint4 a, uint4 b) {
-    uint4 r;
-    r.x = __float_as_uint(__uint_as_float(a.x) + __uint_as_float(b.x));
-    r.y = __float_as_uint(__uint_as_float(a.y) + __uint_as_float(b.y));
-    r.z = __float_as_uint(__uint_as_float(a.z) + __uint_as_float(b.z));
-    r.w = __float_as_uint(__uint_as_float(a.w) + __uint_as_float(b.w));
-    return r;
-  }
-};
-template <> struct Vec<int> {
-  static __device__ __forceinline__ uint4 add(uint4 a, uint4 b) {
-    return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  // Each bf16 sum is formed in f32 and rounded to nearest even, as a bf16
-  // add does in PyTorch and in XLA.
-  static __device__ __forceinline__ unsigned int add2(unsigned int a,
-                                                      unsigned int b) {
-    __nv_bfloat162 x = *reinterpret_cast<__nv_bfloat162*>(&a);
-    __nv_bfloat162 y = *reinterpret_cast<__nv_bfloat162*>(&b);
-    float2 fx = __bfloat1622float2(x), fy = __bfloat1622float2(y);
-    __nv_bfloat162 r = __floats2bfloat162_rn(fx.x + fy.x, fx.y + fy.y);
-    return *reinterpret_cast<unsigned int*>(&r);
-  }
-  static __device__ __forceinline__ uint4 add(uint4 a, uint4 b) {
-    return make_uint4(add2(a.x, b.x), add2(a.y, b.y), add2(a.z, b.z),
-                      add2(a.w, b.w));
-  }
-};
+int grid_for(long long work) {
+  long long blocks = (work + THREADS - 1) / THREADS;
+  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
+  return blocks < 1 ? 1 : (int)blocks;
+}
 
-enum StepOp { SEND = 0, ADD = 1, STORE = 2 };
-
-// One half of a ring step over a whole chunk of nvec 16-byte vectors:
-//   SEND:  dst (the right neighbour's slot) = src (my chunk), through L2;
-//   ADD:   dst (my chunk) = dst + src (my slot), in the wire dtype;
-//   STORE: dst (my chunk) = src (my slot).
-// Then the last block to finish raises *signal to value (the neighbour's
-// data or credit word), with release semantics.  Nothing runs once the host has set the error word,
-// so a rank that gave up never signals a neighbour.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-step_kernel(int op, const uint4* src, uint4* dst, long long nvec,
-            uint64_t* my_flags, uint64_t* signal, uint64_t value) {
-  __shared__ int skip;
-  if (threadIdx.x == 0) skip = ld_acquire(my_flags + ERR_WORD) != 0;
-  __syncthreads();
-  if (skip) return;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       v < nvec; v += stride) {
-    if (op == SEND) {
-      __stcg(dst + v, src[v]);
-    } else {
-      const uint4 got = __ldcg(src + v);
-      dst[v] = op == ADD ? Vec<T>::add(dst[v], got) : got;
-    }
-  }
+// Whether this block is the last of its grid to finish (that one raises the
+// kernel's signal): every block's writes are released to the system before
+// it counts itself done, and the last resets the count for the next kernel.
+__device__ __forceinline__ bool last_block(uint64_t* my_flags) {
+  __shared__ bool last;
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence_system();
     unsigned int* count =
         reinterpret_cast<unsigned int*>(my_flags + COUNT_WORD);
-    if (atomicAdd(count, 1u) == gridDim.x - 1) {
+    last = atomicAdd(count, 1u) == gridDim.x - 1;
+    if (last) {
       *count = 0;                       // the next kernel starts after us
       __threadfence_system();
-      signal_max(signal, value);
     }
+  }
+  __syncthreads();
+  return last;
+}
+
+
+// ---- one element's bits in the wire dtype -------------------------------------
+
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  typedef unsigned int Bits;
+  static __device__ __forceinline__ Bits add(Bits a, Bits b) {
+    return __float_as_uint(__uint_as_float(a) + __uint_as_float(b));
+  }
+  static __device__ __forceinline__ Bits mean(Bits a, float recip) {
+    return __float_as_uint(__fmul_rn(__uint_as_float(a), recip));
+  }
+};
+template <> struct Elem<int> {
+  typedef unsigned int Bits;       // two's complement: the sum wraps
+  static __device__ __forceinline__ Bits add(Bits a, Bits b) { return a + b; }
+  static __device__ __forceinline__ Bits mean(Bits a, float) { return a; }
+};
+template <> struct Elem<__nv_bfloat16> {
+  typedef unsigned short Bits;
+  static __device__ __forceinline__ float f32(Bits a) {
+    return __uint_as_float((unsigned int)a << 16);
+  }
+  static __device__ __forceinline__ Bits bf16(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+  // Each bf16 sum is formed in f32 and rounded to nearest even, as a bf16
+  // add does in PyTorch and in XLA; the mean likewise, from the f32
+  // product.
+  static __device__ __forceinline__ Bits add(Bits a, Bits b) {
+    return bf16(f32(a) + f32(b));
+  }
+  static __device__ __forceinline__ Bits mean(Bits a, float recip) {
+    return bf16(__fmul_rn(f32(a), recip));
+  }
+};
+
+// The same over a 16-byte vector, lane by lane.
+template <typename T>
+__device__ __forceinline__ uint4 vadd(uint4 a, uint4 b) {
+  typedef typename Elem<T>::Bits Bits;
+  constexpr int L = 16 / sizeof(Bits);
+  Bits* x = reinterpret_cast<Bits*>(&a);
+  const Bits* y = reinterpret_cast<const Bits*>(&b);
+#pragma unroll
+  for (int l = 0; l < L; ++l) x[l] = Elem<T>::add(x[l], y[l]);
+  return a;
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 vmean(uint4 a, float recip) {
+  typedef typename Elem<T>::Bits Bits;
+  constexpr int L = 16 / sizeof(Bits);
+  Bits* x = reinterpret_cast<Bits*>(&a);
+#pragma unroll
+  for (int l = 0; l < L; ++l) x[l] = Elem<T>::mean(x[l], recip);
+  return a;
+}
+
+
+// ---- B1 and B2: one-shot ------------------------------------------------------
+
+// STAGE: my slot (at my_block + slot_off) = x, n elements; then the last
+// block adds 1 to every peer's READY word.  VEC: x is 16-byte aligned (the
+// slot always is); the ragged tail goes element by element.  Nothing runs
+// once the host has set the error word.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+stage_kernel(const T* x, long long n, char* my_block, long long slot_off,
+             const unsigned long long* bases, int p, int me) {
+  typedef typename Elem<T>::Bits Bits;
+  constexpr int L = 16 / sizeof(Bits);
+  uint64_t* my_flags = reinterpret_cast<uint64_t*>(my_block);
+  __shared__ int skip;
+  if (threadIdx.x == 0) skip = ld_acquire(my_flags + ERR_WORD) != 0;
+  __syncthreads();
+  if (skip) return;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const Bits* src = reinterpret_cast<const Bits*>(x);
+  Bits* dst = reinterpret_cast<Bits*>(my_block + slot_off);
+  const long long nvec = VEC ? n / L : 0;
+  for (long long v = tid; v < nvec; v += stride)
+    __stcg(reinterpret_cast<uint4*>(dst) + v,
+           reinterpret_cast<const uint4*>(src)[v]);
+  for (long long e = nvec * L + tid; e < n; e += stride)
+    __stcg(dst + e, src[e]);
+  if (last_block(my_flags) && threadIdx.x == 0) {
+    for (int j = 0; j < p; ++j)
+      if (j != me)
+        signal_add(reinterpret_cast<uint64_t*>(bases[j]) + READY_WORD, 1);
+  }
+}
+
+// REDUCE: out[e] for e < m is element i = off + e of the ranks' inputs,
+// summed in the ring's order from rank (c+1) % p, where c is i / chunk for
+// B1 (chunk > 0) and `fixed` for B2 (chunk == 0); times recip, the f32
+// reciprocal of p, when `mean`.
+// VEC: out is 16-byte aligned and off a multiple of the vector's lanes, so
+// no vector straddles two chunks (chunk is a multiple of 128).  If any
+// rank's error word is set, nothing is written and *status becomes 1.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+reduce_kernel(T* out, long long m, long long off, long long chunk, int fixed,
+              const unsigned long long* bases, long long slot_off, int p,
+              int mean, float recip, unsigned long long* status) {
+  typedef typename Elem<T>::Bits Bits;
+  constexpr int L = 16 / sizeof(Bits);
+  extern __shared__ unsigned long long slot[];   // every rank's slot k % 2
+  __shared__ int skip;
+  if (threadIdx.x == 0) skip = 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < p; j += blockDim.x) {
+    slot[j] = bases[j] + slot_off;
+    if (ld_acquire(reinterpret_cast<const uint64_t*>(bases[j]) + ERR_WORD))
+      atomicExch(&skip, 1);
+  }
+  __syncthreads();
+  if (skip) {
+    if (threadIdx.x == 0) {
+      *reinterpret_cast<volatile unsigned long long*>(status) = 1;
+      __threadfence_system();
+    }
+    return;
+  }
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long nvec = VEC ? m / L : 0;
+  for (long long v = tid; v < nvec; v += stride) {
+    const long long i = off + v * L;
+    const int c = chunk ? (int)(i / chunk) : fixed;
+    int r = c + 1 == p ? 0 : c + 1;
+    uint4 acc = __ldcg(reinterpret_cast<const uint4*>(slot[r]) + i / L);
+    for (int t = 2; t <= p; ++t) {
+      r = r + 1 == p ? 0 : r + 1;
+      acc = vadd<T>(__ldcg(reinterpret_cast<const uint4*>(slot[r]) + i / L),
+                    acc);
+    }
+    reinterpret_cast<uint4*>(out)[v] = mean ? vmean<T>(acc, recip) : acc;
+  }
+  for (long long e = nvec * L + tid; e < m; e += stride) {
+    const long long i = off + e;
+    const int c = chunk ? (int)(i / chunk) : fixed;
+    int r = c + 1 == p ? 0 : c + 1;
+    Bits acc = __ldcg(reinterpret_cast<const Bits*>(slot[r]) + i);
+    for (int t = 2; t <= p; ++t) {
+      r = r + 1 == p ? 0 : r + 1;
+      acc = Elem<T>::add(__ldcg(reinterpret_cast<const Bits*>(slot[r]) + i),
+                         acc);
+    }
+    reinterpret_cast<Bits*>(out)[e] = mean ? Elem<T>::mean(acc, recip) : acc;
   }
 }
 
@@ -205,44 +366,95 @@ int stream_value_fns(StreamValue64Fn* wait, StreamValue64Fn* write) {
   return 0;
 }
 
-template <typename T>
-int launch_step(int op, const void* src, void* dst, long long nvec,
-                uint64_t* my_flags, uint64_t* signal, uint64_t value,
-                cudaStream_t s) {
-  long long blocks = (nvec + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  step_kernel<T><<<(int)blocks, THREADS, 0, s>>>(
-      op, static_cast<const uint4*>(src), static_cast<uint4*>(dst), nvec,
-      my_flags, signal, value);
-  return (int)cudaGetLastError();
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename T>
-int run_ring(int kind, int p, int me, long long chunk, int nslots,
-             const char* src, char* out, char* my_slots, char* right_slots,
-             uint64_t* my_flags, uint64_t* right_flags, uint64_t* left_flags,
-             uint64_t seq_base, cudaStream_t s) {
+int run_oneshot(int kind, int p, int me, long long n, long long chunk,
+                int mean, const void* x, void* out,
+                const unsigned long long* bases, char* my_block,
+                long long slot_bytes, uint64_t k, unsigned long long* status,
+                cudaStream_t s) {
   StreamValue64Fn wait, write;
   int e = stream_value_fns(&wait, &write);
   if (e) return e;
-  const long long bytes = chunk * (long long)sizeof(T);
+  constexpr int L = 16 / (int)sizeof(T);
+  const long long slot_off = FLAG_BYTES + (long long)(k % 2) * slot_bytes;
+  const T* in = static_cast<const T*>(x);
+  if (aligned16(x))
+    stage_kernel<T, true><<<grid_for(n / L + n % L), THREADS, 0, s>>>(
+        in, n, my_block, slot_off, bases, p, me);
+  else
+    stage_kernel<T, false><<<grid_for(n), THREADS, 0, s>>>(
+        in, n, my_block, slot_off, bases, p, me);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  CUresult r = wait((CUstream)s,
+                    (CUdeviceptr)(reinterpret_cast<uint64_t*>(my_block) +
+                                  READY_WORD),
+                    (cuuint64_t)(p - 1) * (k + 1), CU_STREAM_WAIT_VALUE_GEQ);
+  if (r != CUDA_SUCCESS) return 10000 + (int)r;
+  // B1: all n elements; B2: this rank's chunk of n / p.
+  const long long m = kind == 0 ? n : n / p;
+  const long long off = kind == 0 ? 0 : me * m;
+  const long long ch = kind == 0 ? chunk : 0;
+  T* o = static_cast<T*>(out);
+  const size_t smem = (size_t)p * sizeof(unsigned long long);
+  const float recip = 1.0f / (float)p;   // rounded to f32, as XLA folds it
+  if (aligned16(out) && off % L == 0)
+    reduce_kernel<T, true><<<grid_for(m / L + m % L), THREADS, smem, s>>>(
+        o, m, off, ch, me, bases, slot_off, p, mean, recip, status);
+  else
+    reduce_kernel<T, false><<<grid_for(m), THREADS, smem, s>>>(
+        o, m, off, ch, me, bases, slot_off, p, mean, recip, status);
+  return (int)cudaGetLastError();
+}
+
+
+// ---- B3: ring steps -----------------------------------------------------------
+
+enum StepOp { SEND = 0, STORE = 1 };
+
+// One half of a ring step over a whole chunk of nvec 16-byte vectors:
+//   SEND:  dst (the right neighbour's slot) = src (my chunk), through L2;
+//   STORE: dst (my chunk) = src (my slot).
+// Then the last block to finish raises *signal to value (the neighbour's
+// data or credit word), with release semantics.  Nothing runs once the host
+// has set the error word, so a rank that gave up never signals a neighbour.
+__global__ void __launch_bounds__(THREADS)
+step_kernel(int op, const uint4* src, uint4* dst, long long nvec,
+            uint64_t* my_flags, uint64_t* signal, uint64_t value) {
+  __shared__ int skip;
+  if (threadIdx.x == 0) skip = ld_acquire(my_flags + ERR_WORD) != 0;
+  __syncthreads();
+  if (skip) return;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       v < nvec; v += stride) {
+    if (op == SEND)
+      __stcg(dst + v, src[v]);
+    else
+      dst[v] = __ldcg(src + v);
+  }
+  if (last_block(my_flags) && threadIdx.x == 0) signal_max(signal, value);
+}
+
+int run_allgather(int p, int me, long long bytes, int nslots,
+                  const char* src, char* out, char* my_slots,
+                  char* right_slots, uint64_t* my_flags, uint64_t* right_flags,
+                  uint64_t* left_flags, uint64_t seq_base, cudaStream_t s) {
+  StreamValue64Fn wait, write;
+  int e = stream_value_fns(&wait, &write);
+  if (e) return e;
   const long long nvec = bytes / 16;
-  // The working buffer: (p, chunk) for the allreduce and reduce-scatter, my
-  // own chunk in row me for the allgather.
-  cudaError_t ce = kind == 2
-      ? cudaMemcpyAsync(out + me * bytes, src, bytes,
-                        cudaMemcpyDeviceToDevice, s)
-      : cudaMemcpyAsync(out, src, p * bytes, cudaMemcpyDeviceToDevice, s);
+  // The working buffer (p, chunk): my own chunk in row me.
+  cudaError_t ce = cudaMemcpyAsync(out + me * bytes, src, bytes,
+                                   cudaMemcpyDeviceToDevice, s);
   if (ce != cudaSuccess) return (int)ce;
-  const int rs_steps = kind == 2 ? 0 : p - 1;
-  const int ag_steps = kind == 1 ? 0 : p - 1;
-  for (int t = 0; t < rs_steps + ag_steps; ++t) {
-    const bool reduce = t < rs_steps;
-    const int st = reduce ? t : t - rs_steps;
-    const int send = reduce ? (me - st - 1 + 2 * p) % p
-                            : (me - st + 2 * p) % p;
-    const int recv = reduce ? (me - st - 2 + 2 * p) % p
-                            : (me - st - 1 + 2 * p) % p;
+  for (int t = 0; t < p - 1; ++t) {
+    const int send = (me - t + 2 * p) % p;
+    const int recv = (me - t - 1 + 2 * p) % p;
     const uint64_t k = seq_base + t;
     const long long slot = (long long)(k % nslots) * bytes;
     CUresult r = CUDA_SUCCESS;
@@ -250,15 +462,20 @@ int run_ring(int kind, int p, int me, long long chunk, int nslots,
       r = wait((CUstream)s, (CUdeviceptr)(my_flags + CREDIT_WORD),
                k + 1 - nslots, CU_STREAM_WAIT_VALUE_GEQ);
     if (r != CUDA_SUCCESS) return 10000 + (int)r;
-    e = launch_step<T>(SEND, out + send * bytes, right_slots + slot, nvec,
-                       my_flags, right_flags + DATA_WORD, k + 1, s);
+    step_kernel<<<grid_for(nvec), THREADS, 0, s>>>(
+        SEND, reinterpret_cast<const uint4*>(out + send * bytes),
+        reinterpret_cast<uint4*>(right_slots + slot), nvec, my_flags,
+        right_flags + DATA_WORD, k + 1);
+    e = (int)cudaGetLastError();
     if (e) return e;
     r = wait((CUstream)s, (CUdeviceptr)(my_flags + DATA_WORD), k + 1,
              CU_STREAM_WAIT_VALUE_GEQ);  // left's chunk is in my slot
     if (r != CUDA_SUCCESS) return 10000 + (int)r;
-    e = launch_step<T>(reduce ? ADD : STORE, my_slots + slot,
-                       out + recv * bytes, nvec, my_flags,
-                       left_flags + CREDIT_WORD, k + 1, s);
+    step_kernel<<<grid_for(nvec), THREADS, 0, s>>>(
+        STORE, reinterpret_cast<const uint4*>(my_slots + slot),
+        reinterpret_cast<uint4*>(out + recv * bytes), nvec, my_flags,
+        left_flags + CREDIT_WORD, k + 1);
+    e = (int)cudaGetLastError();
     if (e) return e;
   }
   return 0;
@@ -269,10 +486,10 @@ int run_ring(int kind, int p, int me, long long chunk, int nslots,
 // ---- staging memory and its IPC handles ------------------------------------
 
 // The block is zeroed before this returns, on a stream of its own.  The
-// caller swaps its IPC handle right after, and a neighbour may send into it
+// caller swaps its IPC handle right after, and a peer may signal into it
 // at once; a memset queued on the default stream would wait for this
-// process's pending work (a backward pass) and could then wipe a chunk and
-// a data word that the neighbour had already delivered.
+// process's pending work (a backward pass) and could then wipe a chunk or
+// a flag word that the peer had already delivered.
 extern "C" int tmpi_ring_alloc(size_t bytes, void** out) {
   cudaError_t e = cudaMalloc(out, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -286,6 +503,16 @@ extern "C" int tmpi_ring_alloc(size_t bytes, void** out) {
 }
 
 extern "C" int tmpi_ring_free(void* p) { return (int)cudaFree(p); }
+
+// Zeroed host memory that kernels write and the host reads (a one-shot
+// call's status word): mapped, so its host address is also the device's.
+extern "C" int tmpi_ring_host_alloc(size_t bytes, void** out) {
+  cudaError_t e = cudaHostAlloc(out, bytes, cudaHostAllocMapped);
+  if (e == cudaSuccess) memset(*out, 0, bytes);
+  return (int)e;
+}
+
+extern "C" int tmpi_ring_host_free(void* p) { return (int)cudaFreeHost(p); }
 
 extern "C" int tmpi_ring_ipc_get(void* p, void* handle) {
   cudaIpcMemHandle_t h;
@@ -309,45 +536,63 @@ extern "C" int tmpi_ring_ipc_handle_bytes() {
 }
 
 
-// ---- ring entry points -----------------------------------------------------
+// ---- entry points -------------------------------------------------------------
 
-// One collective call, enqueued on `stream`: kind 0 allreduce (src (p,
-// chunk)), 1 reduce-scatter (src (p, chunk)), 2 allgather (src (chunk));
-// out (p, chunk).  dtype 0 f32, 1 bf16, 2 int32; chunk in elements, a
-// multiple of 128.  Returns a CUDA error code (10000 + a driver code for a
-// refused stream wait).
-extern "C" int tmpi_ring_run(int kind, int dtype, int p, int me,
-                             long long chunk, int nslots, const void* src,
-                             void* out, void* my_slots, void* right_slots,
-                             void* my_flags, void* right_flags,
-                             void* left_flags, uint64_t seq_base,
-                             void* stream) {
-  if (kind < 0 || kind > 2 || p < 2 || me < 0 || me >= p || nslots < 1 ||
-      chunk < LANE || chunk % LANE)
+// One one-shot call, enqueued on `stream`: kind 0 allreduce (out (n,)),
+// 1 reduce-scatter (out (n/p,), this rank's part); dtype 0 f32, 1 bf16,
+// 2 int32; chunk (kind 0) the ring's chunk in elements, a multiple of 128;
+// mean for f32 and bf16 only.  bases is a device table of every rank's
+// block (mine at me), my_block this rank's, each a flag page then two slots
+// of slot_bytes; k this rank's count of earlier calls on the state; status
+// a mapped host word.  Returns a CUDA error code (10000 + a CUresult for
+// a refused stream wait).
+extern "C" int tmpi_ring_oneshot(int kind, int dtype, int p, int me,
+                                 long long n, long long chunk, int mean,
+                                 const void* x, void* out, const void* bases,
+                                 void* my_block, long long slot_bytes,
+                                 uint64_t k, void* status, void* stream) {
+  const long long esize = dtype == 1 ? 2 : 4;
+  if (kind < 0 || kind > 1 || dtype < 0 || dtype > 2 || p < 2 || p > MAX_P ||
+      me < 0 || me >= p || n < 0 || slot_bytes % FLAG_BYTES ||
+      slot_bytes < n * esize || (kind == 0 && (chunk < LANE || chunk % LANE)) ||
+      (kind == 1 && n % p) || (mean && dtype == 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const char* in = static_cast<const char*>(src);
-  char* o = static_cast<char*>(out);
-  char* ms = static_cast<char*>(my_slots);
-  char* rs = static_cast<char*>(right_slots);
-  uint64_t* mf = static_cast<uint64_t*>(my_flags);
-  uint64_t* rf = static_cast<uint64_t*>(right_flags);
-  uint64_t* lf = static_cast<uint64_t*>(left_flags);
+  const unsigned long long* b = static_cast<const unsigned long long*>(bases);
+  char* blk = static_cast<char*>(my_block);
+  unsigned long long* st = static_cast<unsigned long long*>(status);
   if (dtype == 0)
-    return run_ring<float>(kind, p, me, chunk, nslots, in, o, ms, rs, mf, rf,
-                           lf, seq_base, s);
+    return run_oneshot<float>(kind, p, me, n, chunk, mean, x, out, b, blk,
+                              slot_bytes, k, st, s);
   if (dtype == 1)
-    return run_ring<__nv_bfloat16>(kind, p, me, chunk, nslots, in, o, ms, rs,
-                                   mf, rf, lf, seq_base, s);
-  if (dtype == 2)
-    return run_ring<int>(kind, p, me, chunk, nslots, in, o, ms, rs, mf, rf,
-                         lf, seq_base, s);
-  return (int)cudaErrorInvalidValue;
+    return run_oneshot<__nv_bfloat16>(kind, p, me, n, chunk, mean, x, out, b,
+                                      blk, slot_bytes, k, st, s);
+  return run_oneshot<int>(kind, p, me, n, chunk, mean, x, out, b, blk,
+                          slot_bytes, k, st, s);
 }
 
-// The host gave up on a call: set the error word (so no queued step kernel
-// runs or signals a neighbour) and release every stream wait of this rank
-// by raising its data and credit words past any step, from a stream of its
+// One ring allgather call, enqueued on `stream`: src (chunk), out (p,
+// chunk); chunk in elements, a multiple of 128; esize the bytes of one.
+extern "C" int tmpi_ring_allgather(int esize, int p, int me, long long chunk,
+                                   int nslots, const void* src, void* out,
+                                   void* my_slots, void* right_slots,
+                                   void* my_flags, void* right_flags,
+                                   void* left_flags, uint64_t seq_base,
+                                   void* stream) {
+  if ((esize != 2 && esize != 4) || p < 2 || me < 0 || me >= p ||
+      nslots < 1 || chunk < LANE || chunk % LANE)
+    return (int)cudaErrorInvalidValue;
+  return run_allgather(
+      p, me, chunk * esize, nslots, static_cast<const char*>(src),
+      static_cast<char*>(out), static_cast<char*>(my_slots),
+      static_cast<char*>(right_slots), static_cast<uint64_t*>(my_flags),
+      static_cast<uint64_t*>(right_flags), static_cast<uint64_t*>(left_flags),
+      seq_base, static_cast<cudaStream_t>(stream));
+}
+
+// The host gave up on a call: set the error word (so no queued kernel runs
+// or signals a peer) and release every stream wait of this rank by raising
+// its data, credit and READY words past any count, from a stream of its
 // own.  The ring state is unusable afterwards.
 extern "C" int tmpi_ring_abort(void* my_flags) {
   StreamValue64Fn wait, write;
@@ -359,10 +604,10 @@ extern "C" int tmpi_ring_abort(void* my_flags) {
   uint64_t* f = static_cast<uint64_t*>(my_flags);
   const cuuint64_t past = 1ull << 62;
   CUresult r = write((CUstream)s, (CUdeviceptr)(f + ERR_WORD), 1, 0);
-  if (r == CUDA_SUCCESS)
-    r = write((CUstream)s, (CUdeviceptr)(f + DATA_WORD), past, 0);
-  if (r == CUDA_SUCCESS)
-    r = write((CUstream)s, (CUdeviceptr)(f + CREDIT_WORD), past, 0);
+  const int raised[] = {DATA_WORD, CREDIT_WORD, READY_WORD};
+  for (int w : raised)
+    if (r == CUDA_SUCCESS)
+      r = write((CUstream)s, (CUdeviceptr)(f + w), past, 0);
   ce = cudaStreamSynchronize(s);
   cudaStreamDestroy(s);
   if (r != CUDA_SUCCESS) return 10000 + (int)r;

@@ -5,8 +5,9 @@
 Spawns p ranks on the visible GPU (every rank binds ``cuda:0`` when there is
 one card, with a gloo group).  For each case, every rank builds all ranks'
 inputs from the seed on the card, runs the kernel wrapper on its own input
-and checks its result against the plain schedule (``_ring_*_plain``) over
-all inputs, **bit for bit**.  Cases: allreduce in f32, bf16 and int32,
+and checks its result against the kernel's plain version over all inputs
+(``_oneshot_allreduce_plain``, ``_oneshot_reduce_scatter_plain``,
+``_ring_allgather_plain``), **bit for bit**.  Cases: allreduce in f32, bf16 and int32,
 reduce-scatter and allgather in f32 and bf16, each at n = 25,557,032
 (ResNet-50's parameter count), 3,000 (not lane-aligned) and 5 (8 for the
 reduce-scatter, which needs p | n); the small sizes once more with
@@ -16,9 +17,9 @@ Then the rings of one ResNet-50 training step as ``AllReduceSGDEngine``
 runs them (``engine.sgdengine.ring_plan`` over the full-width gradient
 leaves: 42 leaves of 65,536 to 2,359,296 elements one by one, then the
 309,288-element tail), f32, ``mean=True``, the engine's collective ids,
-each held against the plain schedule bit for bit.  Rank 0 times the 43
+each held against its plain version bit for bit.  Rank 0 times the 43
 rings as one step (CUDA events, median of 5 after a warm-up), the plain
-schedule over the same inputs and gloo's ``all_reduce`` of the same 43
+version over the same inputs and gloo's ``all_reduce`` of the same 43
 tensors, and one ring alone at the largest leaf and at the tail.  The same
 again for the buckets of one ``eager_async`` step (``nn.bucketing.
 plan_ready_order`` over the full-width parameters: 4 buckets of 2,057,536 to
@@ -34,14 +35,36 @@ it drives the public collectives once through the selector with
 ``use_pallas_collectives`` on, at n = 25,557,032 (the ``collectives`` path;
 the launch counts are taken around it), then the first call of a ring on a
 collective id of its own while rank 0's stream is still busy (its staging
-must be zeroed before a neighbour can send into it), bit for bit against
-the plain schedule, and last two forced stalls: rank 1
+must be zeroed before a peer can signal into it), bit for bit against
+the plain version, then three calls back to back on one collective id
+(both staging slots, then the first again; the second input an offset
+view, which takes the kernels' unaligned path), each bit for bit, and last
+two forced stalls: rank 1
 skips a ring, and rank 0 must raise ``RingError`` within the deadline; then
 rank 1 runs that ring late, after rank 0 gave up on it, and must raise in
-turn without lowering rank 0's released data word.
+turn without lowering rank 0's released READY word.
 
 Prints one JSON line per case and a summary; ``chip_smoke.py`` calls
 :func:`run` for p = 2 and p = 4.
+
+    python -m torchmpi_tpu_torch.tools.ring_bench --breakdown
+
+takes B1's cost apart instead, call by call: the 43 rings of a ResNet-50
+step at p = 2 (f32, mean, the engine's ids) and one ring of n = 25,557,032
+at p = 2 and p = 4 (f32, the default id), each after two warm-up rounds.
+For each call it reports the host µs in the wrapper without its wait for
+the call's event, the wrapper's end-to-end µs (both by the host clock over
+``BREAKDOWN_ROUNDS`` rounds, unprofiled), and from a ``torch.profiler``
+trace of ``PROFILED_ROUNDS`` more rounds on every rank (CPU and CUDA
+activity): rank 0's device operations by name, their busy µs, and the gaps
+between them (the stream waits on the peers and the card's switches to
+their contexts), with the lead from the call's start to its first device
+operation; then every rank's trace on one clock, for the window of each
+call across the ranks, the share of it in which no rank's operation ran,
+the skew between the ranks' starts and, for the one-shot kernels, the
+handoff from the last STAGE to the first REDUCE and the tail from the last
+REDUCE to the last rank's return.  Medians over the rounds; for the 43
+rings, their sums a step.
 """
 
 from __future__ import annotations
@@ -55,13 +78,19 @@ import time
 BIG_N = 25_557_032
 KINDS = ("allreduce", "reduce_scatter", "allgather")
 STALL_TIMEOUT_S = 1.0
-# What tmpi_ring_abort raises a rank's data and credit words to.
+# What tmpi_ring_abort raises a rank's data, credit and READY words to.
 ABORTED_WORD = 1 << 62
 # The fresh-state case: a collective id no other case uses, its size, and
 # the sleep queued on rank 0's stream first (about 0.2 s on an H100).
 FRESH_COLLECTIVE_ID = 0x7E
 FRESH_N = 300_000
 FRESH_SLEEP_CYCLES = 400_000_000
+# The back-to-back case: a collective id of its own and its size.
+BACK_TO_BACK_COLLECTIVE_ID = 0x7D
+BACK_TO_BACK_N = 1_000_003
+# The breakdown: unprofiled rounds (host clock) and profiled rounds.
+BREAKDOWN_ROUNDS = 5
+PROFILED_ROUNDS = 3
 
 
 def _cases(quick: bool):
@@ -134,8 +163,8 @@ def rank_main(quick: bool, seed: int) -> dict:
         kernels = {"allreduce": lambda x: cr.ring_allreduce(comm, x),
                    "reduce_scatter": lambda x: cr.ring_reduce_scatter(comm, x),
                    "allgather": lambda x: cr.ring_allgather(comm, x)}
-        plains = {"allreduce": cr._ring_allreduce_plain,
-                  "reduce_scatter": cr._ring_reduce_scatter_plain,
+        plains = {"allreduce": cr._oneshot_allreduce_plain,
+                  "reduce_scatter": cr._oneshot_reduce_scatter_plain,
                   "allgather": cr._ring_allgather_plain}
         records = []
         for i, case in enumerate(_cases(quick)):
@@ -186,6 +215,7 @@ def rank_main(quick: bool, seed: int) -> dict:
                 "resnet_rings": resnet_rings, "bucket_rings": bucket_rings,
                 "collectives_launches": counts, "collectives_ok": api_ok,
                 "fresh_state": fresh,
+                "back_to_back": _back_to_back(torch, cr, comm, seed),
                 **_stalls(torch, dist, cr, comm, x[:4096])}
     finally:
         lifecycle.stop()
@@ -254,7 +284,8 @@ def _held_rings(torch, dist, cr, comm, sizes, ids, quick: bool,
         got = cr.inner_ring_allreduce(xs[me], p, mean=True,
                                       collective_id=ids[i], comm=comm)
         torch.cuda.synchronize()
-        cmp = _compare(torch, got, cr._ring_allreduce_plain(xs, mean=True)[me])
+        cmp = _compare(torch, got,
+                       cr._oneshot_allreduce_plain(xs, mean=True)[me])
         err = max(err, cmp["max_abs_err"])
         if not cmp["bitwise_equal"]:
             bad.append(n)
@@ -274,7 +305,7 @@ def _held_rings(torch, dist, cr, comm, sizes, ids, quick: bool,
 
     def plain_step():
         for xs in inputs:
-            cr._ring_allreduce_plain(xs, mean=True)
+            cr._oneshot_allreduce_plain(xs, mean=True)
 
     copies = [x.clone() for x in mine]
 
@@ -314,16 +345,39 @@ def _fresh_state(torch, dist, cr, comm, seed: int) -> dict:
                                   comm=comm)
     torch.cuda.synchronize()
     return {"n": FRESH_N, **_compare(torch, got,
-                                     cr._ring_allreduce_plain(xs)[me])}
+                                     cr._oneshot_allreduce_plain(xs)[me])}
+
+
+def _back_to_back(torch, cr, comm, seed: int) -> list:
+    """Three allreduce calls on one collective id of their own, one after
+    the other: slots 0 and 1, then slot 0 again, which every peer must have
+    read by then.  The second input is an offset view (4 bytes into its
+    storage: the kernels' unaligned path) and the second call takes the
+    mean.  Each held against its plain version bit for bit."""
+    p, me = comm.size, comm.rank
+    out = []
+    for call in range(3):
+        xs = [torch.randn(BACK_TO_BACK_N + 1, generator=torch.Generator(
+            device="cuda").manual_seed(seed * 77 + call * p + r),
+            device="cuda")[call % 2:][:BACK_TO_BACK_N] for r in range(p)]
+        mean = call == 1
+        got = cr.inner_ring_allreduce(xs[me], p, mean=mean,
+                                      collective_id=BACK_TO_BACK_COLLECTIVE_ID,
+                                      comm=comm)
+        out.append({"call": call, "offset_view": xs[me].storage_offset() > 0,
+                    "mean": mean, **_compare(torch, got,
+                    cr._oneshot_allreduce_plain(xs, mean=mean)[me])})
+    return out
 
 
 def _stalls(torch, dist, cr, comm, x) -> dict:
     """Two forced stalls on a ring of its own.  First rank 1 skips a call
     that rank 0 makes: rank 0 must raise within the deadline.  Then rank 1
     makes that call late, after rank 0 gave up on it: rank 1 must raise in
-    turn, and its signals (at p = 2 its send raises rank 0's data word; at
-    p = 4 its add returns a credit to rank 0) must not lower the words rank
-    0's abort set past every step."""
+    turn (at p = 2 its wait passes, since rank 0 had staged, and its REDUCE
+    finds rank 0's error word; at p = 4 it waits in vain for ranks 2 and
+    3), and its STAGE's add must not lower the READY word rank 0's abort
+    set past every count."""
     p, me = comm.size, comm.rank
     cid = 0x7F
     cr.inner_ring_allreduce(x, p, collective_id=cid, comm=comm)
@@ -349,10 +403,10 @@ def _stalls(torch, dist, cr, comm, x) -> dict:
         late = attempt() if me == 1 else {}
         dist.barrier()
         if me == 0:
-            _, data, credit = cr._states[(id(comm), comm.ranks,
-                                          cid)].flag_words()
-            late = {"aborted_data_word": data, "aborted_credit_word": credit,
-                    "kept_past_every_step": min(data, credit) >= ABORTED_WORD}
+            ready = cr._states[(id(comm), comm.ranks, cid,
+                                True)].flag_words()[3]
+            late = {"aborted_ready_word": ready,
+                    "kept_past_every_step": ready >= ABORTED_WORD}
         lates = [None] * p
         dist.all_gather_object(lates, late)
     finally:
@@ -373,6 +427,242 @@ def stalls_ok(stall: dict, late: dict) -> bool:
                 and late.get("raised")
                 and late["seconds"] < 5 * STALL_TIMEOUT_S
                 and late.get("kept_past_every_step"))
+
+
+def _ops_by_call(ranges, device_ops) -> list:
+    """The device operations (name, start, end) whose start lies in each
+    call's host range (every call waits for its own end, so no call's
+    operations run into the next's), in order of start."""
+    ops = sorted(device_ops, key=lambda o: o[1])
+    return [[o for o in ops if start <= o[1] <= end] for start, end in ranges]
+
+
+def _union(ops) -> float:
+    """µs covered by the operations' intervals (sorted by start)."""
+    busy, reach = 0.0, None
+    for _, s, e in ops:
+        if reach is None or s >= reach:
+            busy += e - s
+            reach = e
+        elif e > reach:
+            busy += e - reach
+            reach = e
+    return busy
+
+
+def split_calls(ranges, device_ops) -> list:
+    """Each call's device operations from a trace: ``ranges`` are the calls'
+    host (start, end) µs, ``device_ops`` (name, start, end) µs on the same
+    clock.  Per call: the operations by name, their count, busy µs (the
+    union of their intervals), the gaps between them (first start to last
+    end, less the busy time) and the lead from the call's start to its
+    first operation."""
+    out = []
+    for (start, _), mine in zip(ranges, _ops_by_call(ranges, device_ops)):
+        names: dict = {}
+        for name, _, _ in mine:
+            names[name] = names.get(name, 0) + 1
+        busy = _union(mine)
+        span = (mine[-1][2] - mine[0][1]) if mine else 0.0
+        out.append({"ops": len(mine), "names": names, "busy_us": busy,
+                    "gap_us": span - busy,
+                    "lead_us": (mine[0][1] - start) if mine else None})
+    return out
+
+
+def across_ranks(traces) -> list:
+    """Each call seen from every rank at once: ``traces`` holds each rank's
+    (ranges, device_ops) on one clock.  Per call: the window from the first
+    rank's start to the last rank's end, the µs in it when some rank's
+    operation ran on the card (``busy_any_us``) and when none did
+    (``idle_us``: switches between the ranks' contexts, stream waits, and
+    hosts not yet at the call), the skew between the ranks' starts and, for
+    the one-shot kernels, the handoff from the last STAGE's end to the
+    first REDUCE's start and the tail from the last REDUCE's end to the
+    last rank's return."""
+    per_rank = [(ranges, _ops_by_call(ranges, ops)) for ranges, ops in traces]
+    out = []
+    for i in range(min(len(r) for r, _ in per_rank)):
+        starts = [r[i][0] for r, _ in per_rank]
+        ends = [r[i][1] for r, _ in per_rank]
+        ops = sorted((o for _, calls in per_rank for o in calls[i]),
+                     key=lambda o: o[1])
+        window = max(ends) - min(starts)
+        busy = _union(ops)
+        rec = {"window_us": window, "busy_any_us": busy,
+               "idle_us": window - busy, "skew_us": max(starts) - min(starts)}
+        stages = [o for o in ops if "stage_kernel" in o[0]]
+        reduces = [o for o in ops if "reduce_kernel" in o[0]]
+        if len(stages) == len(reduces) == len(per_rank):
+            rec["handoff_us"] = (min(o[1] for o in reduces)
+                                 - max(o[2] for o in stages))
+            rec["tail_us"] = max(ends) - max(o[2] for o in reduces)
+        out.append(rec)
+    return out
+
+
+def _median_call(calls: list, keys) -> dict:
+    return {k: statistics.median(c[k] for c in calls) for k in keys}
+
+
+def breakdown_main(seed: int) -> dict:
+    """One rank of the breakdown (spawned): at p = 2 the 43 rings of a
+    ResNet-50 step and one ring of n = BIG_N, at p = 4 the one ring."""
+    import torch
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch.collectives import cuda_ring as cr
+    from torchmpi_tpu_torch.runtime import lifecycle
+    from torchmpi_tpu_torch.runtime.communicator import stack
+
+    lifecycle.start()
+    try:
+        comm = stack.world()
+        p, me = comm.size, comm.rank
+        cases = {"one_ring": ([BIG_N], [None], False)}
+        if p == 2:
+            sizes = resnet50_ring_sizes()
+            cases = {"resnet50_step": (
+                sizes, [cr.CALLER_COLLECTIVE_ID_BASE + i % 8
+                        for i in range(len(sizes))], True), **cases}
+        return {"rank": me, "p": p,
+                "cases": {name: _breakdown_case(torch, dist, cr, comm, *case,
+                                                seed=seed + i)
+                          for i, (name, case) in enumerate(cases.items())}}
+    finally:
+        lifecycle.stop()
+
+
+def _breakdown_case(torch, dist, cr, comm, sizes, ids, mean, seed) -> dict:
+    """The per-call breakdown of one round of rings (see the module
+    docstring); every rank makes the same calls, rank 0 reports."""
+    p, me = comm.size, comm.rank
+    mine = [_inputs(torch, {"dtype": "float32", "n": n}, p, seed + i)[me]
+            for i, n in enumerate(sizes)]
+    waited = [0.0]
+    wait = cr._wait
+
+    def timed_wait(event, seconds):
+        t0 = time.perf_counter()
+        try:
+            return wait(event, seconds)
+        finally:
+            waited[0] += time.perf_counter() - t0
+
+    def call(i):
+        return cr.inner_ring_allreduce(mine[i], p, mean=mean,
+                                       collective_id=ids[i], comm=comm)
+
+    cr._wait = timed_wait
+    try:
+        for _ in range(2):
+            for i in range(len(sizes)):
+                call(i)
+        torch.cuda.synchronize()
+        dist.barrier(group=comm.group)
+        rounds = []
+        for _ in range(BREAKDOWN_ROUNDS):
+            calls = []
+            for i in range(len(sizes)):
+                waited[0] = 0.0
+                t0 = time.perf_counter()
+                call(i)
+                e2e = time.perf_counter() - t0
+                calls.append({"e2e_us": e2e * 1e6,
+                              "host_us": (e2e - waited[0]) * 1e6})
+            rounds.append(calls)
+        torch.cuda.synchronize()
+        traced, joint = _profiled_rounds(torch, dist, comm, call, len(sizes))
+        torch.cuda.synchronize()
+        dist.barrier(group=comm.group)
+    finally:
+        cr._wait = wait
+    if me != 0:
+        return {}
+    flat = [c for r in rounds for c in r]
+    per_call = _median_call(flat, ("e2e_us", "host_us"))
+    per_round = {k: statistics.median(sum(c[k] for c in r) for r in rounds)
+                 / 1e3 for k in ("e2e_us", "host_us")}
+    out = {"p": p, "rings": len(sizes), "elements": sum(sizes),
+           "per_call": per_call,
+           "per_round_ms": {"e2e": per_round["e2e_us"],
+                            "host": per_round["host_us"]}}
+    dev = [c for c in traced if c["ops"]]
+    out["trace_has_device_time"] = bool(dev)
+    if dev:
+        n = len(sizes)
+        out["per_call"].update(_median_call(
+            dev, ("ops", "busy_us", "gap_us", "lead_us")))
+        out["per_round_ms"].update({
+            k: statistics.median(
+                sum(c[key] for c in traced[r * n:(r + 1) * n])
+                for r in range(PROFILED_ROUNDS)) / 1e3
+            for k, key in (("device_busy", "busy_us"), ("gaps", "gap_us"))})
+        out["per_round_ms"]["device_ops"] = sum(
+            c["ops"] for c in traced[:n])
+        names: dict = {}
+        for c in traced[:n]:
+            for k, v in c["names"].items():
+                names[k] = names.get(k, 0) + v
+        out["device_ops_by_name_per_round"] = names
+        keys = [k for k in ("window_us", "busy_any_us", "idle_us", "skew_us",
+                            "handoff_us", "tail_us") if k in joint[0]]
+        out["across_ranks_per_call"] = _median_call(joint, keys)
+        out["across_ranks_per_round_ms"] = {
+            k[:-3]: statistics.median(
+                sum(c[k] for c in joint[r * n:(r + 1) * n])
+                for r in range(PROFILED_ROUNDS)) / 1e3 for k in keys}
+    return out
+
+
+def _profiled_rounds(torch, dist, comm, call, n: int) -> tuple:
+    """PROFILED_ROUNDS rounds of the n calls under ``torch.profiler`` on
+    every rank, each started before the ranks meet at a barrier (so no
+    peer's ring waits on a profiler's start).  Returns, on rank 0, its own
+    calls' device operations (:func:`split_calls`) and every call seen
+    across the ranks (:func:`across_ranks`), the ranks' traces put on one
+    clock by the wall time stamped at each call's start; on the other
+    ranks two empty lists."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    stamps = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dist.barrier(group=comm.group)
+        for _ in range(PROFILED_ROUNDS):
+            for i in range(n):
+                with record_function(f"ring_call_{i}"):
+                    stamps.append(time.time_ns() / 1e3)
+                    call(i)
+    ranges, device_ops = [], []
+    for ev in prof.events():
+        span = (ev.time_range.start, ev.time_range.end)
+        if ev.name.startswith("ring_call_"):
+            # The range on the host; its copy on the device's track is
+            # an annotation, not an operation.
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                ranges.append(span)
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
+            device_ops.append((ev.name, *span))
+    ranges.sort()
+    shift = statistics.median(w - r[0] for w, r in zip(stamps, ranges))
+    trace = ([(a + shift, b + shift) for a, b in ranges],
+             [(name, a + shift, b + shift) for name, a, b in device_ops])
+    traces = [None] * comm.size
+    dist.all_gather_object(traces, trace, group=comm.group)
+    if comm.rank != 0:
+        return [], []
+    return split_calls(ranges, device_ops), across_ranks(traces)
+
+
+def breakdown() -> list:
+    """The breakdown at p = 2 and p = 4: rank 0's records."""
+    from torchmpi_tpu_torch import _build
+    from torchmpi_tpu_torch.runtime import launch
+
+    _build.build("ring")
+    return [launch.spawn(p, breakdown_main, (0,), timeout_s=900)[0]
+            for p in (2, 4)]
 
 
 def bound_ms(kind: str, n: int, p: int, esize: int,
@@ -398,12 +688,19 @@ def main() -> int:
     ap.add_argument("--nproc", type=int, default=2)
     ap.add_argument("--quick", action="store_true",
                     help="skip the n = 25,557,032 cases")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="take B1's calls apart instead (p = 2 and 4)")
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("ring_bench: no CUDA device is visible", file=sys.stderr)
         return 2
+    if args.breakdown:
+        for res in breakdown():
+            for name, rec in res["cases"].items():
+                print(json.dumps({"breakdown": name, **rec}), flush=True)
+        return 0
     results = run(args.nproc, args.quick)
     ok = True
     for res in results:
@@ -422,6 +719,10 @@ def main() -> int:
     print(json.dumps({"fresh_state": [r["fresh_state"] for r in results]}),
           flush=True)
     ok = ok and all(r["fresh_state"]["bitwise_equal"] for r in results)
+    print(json.dumps({"back_to_back": [r["back_to_back"] for r in results]}),
+          flush=True)
+    ok = ok and all(c["bitwise_equal"] for r in results
+                    for c in r["back_to_back"])
     stall, late = results[0]["stall"], results[0]["late"]
     print(json.dumps({"collectives_launches": results[0]["collectives_launches"],
                       "stall": stall, "late": late}), flush=True)
