@@ -72,24 +72,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 7. ring_kernels: the ring allreduce (B1), reduce-scatter (B2) and
    allgather (B3) kernels with p = 2 and p = 4 ranks spawned on the one
-   card (``tools/ring_bench.py``): f32 and bf16 (and int32 for B1) at n =
-   25,557,032, 3,000 and 5, the small sizes again with 64 KiB sub-chunks and
-   one staging slot, B1 once more at the 43 ring sizes of a ResNet-50
-   compiled training step (f32, mean, the engine's collective ids) and at
-   the 4 bucket sizes of an eager_async step (f32, mean, in dispatch
-   order), each rank's result held against its plain version bit for
-   bit (B1 and B2 are one-shot: ``_oneshot_*_plain`` sums each element in
-   the ring's order; B3 runs the ring's steps, ``_ring_allgather_plain``),
-   each kernel's record naming its design; kernel, plain and library
-   (gloo on the same tensors) times at n = 25,557,032 in f32, for the 43
-   rings of a step and for the 4 buckets; the public collectives driven
-   once through the selector at n = 25,557,032 (the ``collectives`` path);
-   the first call of a ring on a new collective id while rank 0's stream
-   is busy, bit for bit (its staging must be zeroed before a peer
-   signals); three B1 calls back to back on one id (both staging slots,
-   then the first reused; one input an offset view), each bit for bit; two
-   forced stalls (a rank that never enters, and one that enters after its
-   neighbour gave up) that must raise within their deadline without
+   card (``tools/ring_bench.py``): f32 and bf16 (and int32 for B1 and B3)
+   at n = 25,557,032, 3,000 and 5, the small sizes again with 64 KiB
+   sub-chunks and one staging slot, B1 once more at the 43 ring sizes of a
+   ResNet-50 compiled training step (f32, mean, the engine's collective
+   ids) and at the 4 bucket sizes of an eager_async step (f32, mean, in
+   dispatch order), each rank's result held against its plain version bit
+   for bit (all three are one-shot: ``_oneshot_*_plain`` sums each
+   element in the ring's order, or for B3 lays every rank's vector out in
+   rank order), each kernel's record naming its design; kernel, plain and
+   library (gloo on the same tensors) times at n = 25,557,032 in f32 at
+   p = 2 and p = 4 with their bound, for the 43 rings of a step and for the
+   4 buckets; the public collectives driven once through the selector at
+   n = 25,557,032 (the ``collectives`` path); the first call of a ring on a
+   new collective id while rank 0's stream is busy, bit for bit (its
+   staging must be zeroed before a peer signals); three B1 and three B3
+   calls back to back on one id each (both staging slots, then the first
+   reused; one input an offset view), each bit for bit; for B1 and for B3
+   two forced stalls (a rank that never enters, and one that enters after
+   its neighbour gave up) that must raise within their deadline without
    lowering the aborted rank's READY word.
 8. train_resnet: ResNet-50 at full width (224x224x3, 1000 classes, f32, TF32
    off) trained data-parallel by AllReduceSGDEngine in ``compiled`` mode
@@ -234,17 +235,16 @@ RESNET_STEPS, RESNET_BATCH, RESNET_LR, RESNET_RINGS = 5, 32, 0.1, 43
 # Each ring kernel's design on one card (ops/csrc/ring.cu): the ranks'
 # contexts are time-sliced, so nothing spins on a peer (tools/ring_probe.py)
 # and the orders across processes are stream waits on monotone flag words.
-ONESHOT = ("one-shot: a STAGE kernel (this rank's input into its own cudaIpc "
-           "slot, then an add to every peer's READY word), one "
-           "cuStreamWaitValue64, a REDUCE kernel (every rank's slot, in the "
-           "ring's order, into the output)")
+STAGE_WAIT = ("one-shot: a STAGE kernel (this rank's input into its own "
+              "cudaIpc slot, then an add to every peer's READY word), one "
+              "cuStreamWaitValue64, ")
+ONESHOT = STAGE_WAIT + ("a REDUCE kernel (every rank's slot, in the ring's "
+                        "order, into the output)")
 RING_DESIGN = {
     "ring_allreduce": ONESHOT,
     "ring_reduce_scatter": ONESHOT,
-    "ring_allgather": ("ring steps: two kernels per step (send into the "
-                       "neighbour's cudaIpc slot; store), ordered across "
-                       "processes by cuStreamWaitValue64 on monotone "
-                       "data/credit words"),
+    "ring_allgather": STAGE_WAIT + ("a GATHER kernel (rank r's slot into row "
+                                    "r of the output, for every r)"),
 }
 KIND_KERNEL = {kind: name for name, (_, _, kind, _) in RING_KERNELS.items()}
 
@@ -1166,8 +1166,8 @@ def phase_ring_kernels():
                 if not r[key]["bitwise_equal"]]
         bad += [r["fresh_state"] for r in results
                 if not r["fresh_state"]["bitwise_equal"]]
-        bad += [c for r in results for c in r["back_to_back"]
-                if not c["bitwise_equal"]]
+        bad += [c for r in results for calls in r["back_to_back"].values()
+                for c in calls if not c["bitwise_equal"]]
         emit(phase="ring_kernels", p=p,
              fresh_state=[r["fresh_state"] for r in results],
              back_to_back=r0["back_to_back"])
@@ -1175,8 +1175,7 @@ def phase_ring_kernels():
              all_bitwise_equal=not bad,
              collectives_launches=r0["collectives_launches"],
              collectives_ok=all(r["collectives_ok"] for r in results),
-             stall=r0["stall"], late=r0["late"],
-             seconds=time.perf_counter() - t0)
+             stalls=r0["stalls"], seconds=time.perf_counter() - t0)
         if bad:
             raise AssertionError(f"ring kernels disagree with the plain "
                                  f"schedule at p={p}: {bad[:3]}")
@@ -1185,10 +1184,10 @@ def phase_ring_kernels():
         if r0["collectives_launches"] != dict.fromkeys(RING_KERNELS, 1):
             raise AssertionError(f"collectives path launched "
                                  f"{r0['collectives_launches']}")
-        if not ring_bench.stalls_ok(r0["stall"], r0["late"]):
+        if not ring_bench.stalls_ok(r0["stalls"]):
             raise AssertionError(f"a stalled ring did not raise in time or "
                                  f"lost its aborted flag words: "
-                                 f"{r0['stall']} {r0['late']}")
+                                 f"{r0['stalls']}")
         out[p] = r0
     return out
 
@@ -1814,7 +1813,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
     work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
     an eager_async step beside (times, bound and the largest error over
     them, the ring_kernels cases and step 1's rings of both train phases);
-    B2 and B3 at n = 25,557,032 in f32, the collectives path's size.
+    B2 and B3 at n = 25,557,032 in f32, the collectives path's size (and
+    at p = 4 beside).
     Launches of every path (train_resnet_async: its two eager_async
     runs; train_mnist: the example's three runs)."""
     replaces, function, kind, library = RING_KERNELS[name]
@@ -1855,9 +1855,12 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
                     "sizes": buckets["sizes"],
                     "largest_ring_ms": buckets["largest_ms"]},
                 "at_n_25557032": {k: big[k] for k in timing}}
+    big4 = next(r for r in rings[4]["records"]
+                if r["kind"] == kind and "kernel_ms" in r)
     return {**rec, "max_abs_err": err, "ms": big["kernel_ms"],
             **{k: big[k] for k in timing},
-            "shape": "n=25557032 f32, p=2 ranks on one card"}
+            "shape": "n=25557032 f32, p=2 ranks on one card",
+            "at_p4": {k: big4[k] for k in timing}}
 
 
 def conv_kernel_record(recs, launches):

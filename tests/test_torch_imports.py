@@ -176,7 +176,8 @@ def test_ring_never_takes_the_plain_or_cpu_form_off_the_cpu(monkeypatch):
     called = []
     for name in ("_rs_steps_cpu", "_ag_steps_cpu", "_ring_allreduce_plain",
                  "_ring_reduce_scatter_plain", "_ring_allgather_plain",
-                 "_oneshot_allreduce_plain", "_oneshot_reduce_scatter_plain"):
+                 "_oneshot_allreduce_plain", "_oneshot_reduce_scatter_plain",
+                 "_oneshot_allgather_plain"):
         monkeypatch.setattr(cuda_ring, name,
                             lambda *a, **k: called.append(1))
     comm = type("C", (), {"size": 2, "rank": 0})()

@@ -1,8 +1,8 @@
 """The port's ring collectives (``collectives/cuda_ring.py``) against the JAX
 package's ``pallas_ring``.
 
-* ``_geometry`` and ``_nslots`` equal JAX's over a grid of sizes, rank
-  counts, item sizes and buffer knobs.
+* ``_geometry`` equals JAX's over a grid of sizes, rank counts, item sizes
+  and buffer knobs.
 * The plain schedule (``_ring_*_plain``, all ranks in one process) equals
   ``pallas_ring.ring_allreduce`` / ``ring_reduce_scatter`` /
   ``ring_allgather`` run in interpret mode on p of the 8 virtual CPU devices
@@ -12,14 +12,15 @@ package's ``pallas_ring``.
   exact equality, not a tolerance.
 * The one-shot plain versions (``_oneshot_*_plain``: each element summed
   over the ranks in its ring chunk's order, the oracle of the one-shot B1
-  and B2 kernels) equal the plain schedule and the JAX package's
-  interpret-mode kernels bit for bit, over p = 2, 3, 4, f32, bf16 and
-  int32, mean on and off, n = 5, 3,000 and a lane-aligned size, and the
-  64 KiB ``max_buffer_size`` knob (which moves the chunk boundaries).
+  and B2 kernels; every rank's vector in rank order, the oracle of B3's)
+  equal the plain schedule and the JAX package's interpret-mode kernels
+  bit for bit, over p = 2, 3, 4, f32, bf16 and int32, mean on and off,
+  n = 5, 3,000 and a lane-aligned size, and the 64 KiB
+  ``max_buffer_size`` knob (which moves the chunk boundaries).
 * The per-rank CPU form (send/recv of chunks over a gloo world, one pool of
   4 spawned ranks for the module) equals the plain schedule, also exactly.
-* On a GPU (``cuda`` marker) the kernels equal their plain versions
-  exactly, at p = 2 and p = 4.
+* On a GPU (``cuda`` marker) the kernels equal their one-shot plain
+  versions exactly, at p = 2 and p = 4.
 """
 
 from __future__ import annotations
@@ -68,15 +69,6 @@ def test_geometry_matches_jax(both_configs, knobs, itemsize):
         for p in (1, 2, 3, 4, 8):
             assert (cuda_ring._geometry(n, p, itemsize)
                     == pallas_ring._geometry(n, p, itemsize)), (n, p)
-
-
-@pytest.mark.parametrize("knobs", list(KNOBS))
-def test_nslots_matches_jax(both_configs, knobs):
-    from torchmpi_tpu.collectives import pallas_ring
-
-    _set(both_configs, KNOBS[knobs])
-    for p in range(1, 9):
-        assert cuda_ring._nslots(p) == pallas_ring._nslots(p), p
 
 
 # ------------------------------------------------- values shared by both sides
@@ -163,12 +155,16 @@ ONESHOT_SIZES = (5, 3000, LANE_N)
 def _oneshot(kind: str, xs, mean: bool = False):
     if kind == "allreduce":
         return cuda_ring._oneshot_allreduce_plain(xs, mean=mean)
+    if kind == "allgather":
+        return cuda_ring._oneshot_allgather_plain(xs)
     return cuda_ring._oneshot_reduce_scatter_plain(xs)
 
 
 def _ring(kind: str, xs, mean: bool = False):
     if kind == "allreduce":
         return cuda_ring._ring_allreduce_plain(xs, mean=mean)
+    if kind == "allgather":
+        return cuda_ring._ring_allgather_plain(xs)
     return cuda_ring._ring_reduce_scatter_plain(xs)
 
 
@@ -179,7 +175,7 @@ def _size(kind: str, n: int, p: int) -> int:
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
 @pytest.mark.parametrize("p", [2, 3, 4])
-@pytest.mark.parametrize("kind", ["allreduce", "reduce_scatter"])
+@pytest.mark.parametrize("kind", ["allreduce", "reduce_scatter", "allgather"])
 def test_oneshot_plain_equals_ring_plain_bit_for_bit(kind, p, dtype):
     try:
         for knobs in ("default", "64k"):
@@ -212,6 +208,12 @@ ONESHOT_JAX_CASES = [
     ("reduce_scatter", "float32", 4, 3000, "64k", False),
     ("reduce_scatter", "bfloat16", 3, LANE_N - 1, "default", False),
     ("reduce_scatter", "int32", 2, 4, "default", False),
+    ("allgather", "float32", 2, 5, "default", False),
+    ("allgather", "bfloat16", 2, LANE_N, "64k", False),
+    ("allgather", "float32", 3, 3000, "64k", False),
+    ("allgather", "bfloat16", 3, 5, "default", False),
+    ("allgather", "float32", 4, LANE_N, "default", False),
+    ("allgather", "bfloat16", 4, 3000, "64k", False),
 ]
 
 
@@ -235,6 +237,8 @@ def test_oneshot_plain_equals_jax_interpret_bit_for_bit(
     if kind == "allreduce":
         ref = pallas_ring.ring_allreduce(comm, x,
                                          op="mean" if mean else "sum")
+    elif kind == "allgather":
+        ref = pallas_ring.ring_allgather(comm, x)
     else:
         ref = pallas_ring.ring_reduce_scatter(comm, x)
     ref = np.asarray(jax.device_get(ref))
@@ -281,6 +285,23 @@ def test_oneshot_plain_takes_offset_views():
                            _ring(kind, fresh)):
             np.testing.assert_array_equal(_bits(a), _bits(b))
             np.testing.assert_array_equal(_bits(a), _bits(c))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_oneshot_allgather_plain_takes_offset_views(dtype):
+    """B3's oracle on inputs that start inside their storage, at an n that
+    is no multiple of 16 bytes' lanes (so GATHER's rows past the first
+    start unaligned): every rank's vector in rank order, equal to the
+    ring's steps over fresh tensors."""
+    vals = _values("allgather", dtype, 3, 3001, seed=13)
+    fresh = [_to_torch(v) for v in vals]
+    views = [torch.cat([t[:1], t])[1:] for t in fresh]
+    assert all(v.storage_offset() == 1 for v in views)
+    got = cuda_ring._oneshot_allgather_plain(views)
+    for a, b in zip(got, _ring("allgather", fresh)):
+        assert a.shape == (3 * 3001,)
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    np.testing.assert_array_equal(_bits(got[0]), _bits(np.concatenate(vals)))
 
 
 def test_bf16_running_sum_rounds_after_every_add():
@@ -365,6 +386,7 @@ GLOO_CASES = [
     ("reduce_scatter", "float32", 2, 8, "one_slot", False),
     ("allgather", "float32", 4, 300, "one_slot", False),
     ("allgather", "bfloat16", 2, 5, "default", False),
+    ("allgather", "int32", 3, 3000, "default", False),
 ]
 
 
@@ -407,6 +429,8 @@ def _offset_job(kind, p, arrays, mean):
     assert x.storage_offset() == 3
     if kind == "allreduce":
         out = cuda_ring.ring_allreduce(comm, x, op="mean" if mean else "sum")
+    elif kind == "allgather":
+        out = cuda_ring.ring_allgather(comm, x)
     else:
         out = cuda_ring.ring_reduce_scatter(comm, x)
     return _bits(out)
@@ -414,7 +438,8 @@ def _offset_job(kind, p, arrays, mean):
 
 @pytest.mark.parametrize("kind,dtype,p,mean", [
     ("allreduce", "bfloat16", 3, True), ("reduce_scatter", "float32", 4,
-                                         False)])
+                                         False),
+    ("allgather", "int32", 3, False)])
 def test_gloo_form_takes_an_offset_view(pool, kind, dtype, p, mean):
     vals = _values(kind, dtype, p, 3000, seed=23 + p)
     res = pool.run(_offset_job, kind, p, vals, mean)
@@ -464,9 +489,26 @@ def test_breakdown_joins_the_ranks_traces():
                      "idle_us": 102.0, "skew_us": 5.0, "handoff_us": 8.0,
                      "tail_us": 58.0}
     assert second["handoff_us"] == 9.0 and second["tail_us"] == 38.0
-    # The ring steps' kernels have no STAGE or REDUCE: no handoff.
-    steps = ([(0.0, 10.0)], [("step_kernel", 1.0, 2.0)])
+    # A trace without a STAGE and a consumer a rank (an older tree's ring
+    # steps and copies): no handoff.
+    steps = ([(0.0, 10.0)], [("Memcpy DtoD", 1.0, 2.0)])
     assert "handoff_us" not in ring_bench.across_ranks([steps, steps])[0]
+
+
+def test_breakdown_hands_off_from_stage_to_gather():
+    """``ring_bench.across_ranks`` on B3's one-shot calls: the handoff runs
+    from the last STAGE to the first GATHER, the tail from the last GATHER
+    to the last rank's return."""
+    from torchmpi_tpu_torch.tools import ring_bench
+
+    r0 = ([(0.0, 100.0)], [("stage_kernel<float, true>", 10.0, 20.0),
+                           ("gather_kernel<unsigned int, true>", 60.0, 70.0)])
+    r1 = ([(2.0, 90.0)], [("stage_kernel<float, true>", 30.0, 40.0),
+                          ("gather_kernel<unsigned int, true>", 45.0, 55.0)])
+    (call,) = ring_bench.across_ranks([r0, r1])
+    assert call == {"window_us": 100.0, "busy_any_us": 40.0,
+                    "idle_us": 60.0, "skew_us": 2.0, "handoff_us": 5.0,
+                    "tail_us": 30.0}
 
 
 # ------------------------------------------------------------------ the card
@@ -494,8 +536,7 @@ def card_bench_p4():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["allreduce", "reduce_scatter", "allgather"])
 def test_kernel_equals_plain_on_the_card(card_bench, kind):
-    """B1 and B2 against the one-shot plain versions, B3 against the
-    ring's, at p = 2."""
+    """B1, B2 and B3 against their one-shot plain versions, at p = 2."""
     for res in card_bench:
         recs = [r for r in res["records"] if r["kind"] == kind]
         assert recs and all(r["bitwise_equal"] for r in recs), recs
@@ -513,34 +554,40 @@ def test_kernel_equals_plain_at_p4_on_the_card(card_bench_p4, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["allreduce", "allgather"])
 def test_back_to_back_calls_reuse_both_slots_on_the_card(card_bench,
-                                                         card_bench_p4):
-    """Three allreduce calls on one id (slot 0, slot 1, slot 0 again; the
-    second input an offset view, the second call a mean), each equal to
-    its plain version on every rank, at p = 2 and p = 4."""
+                                                         card_bench_p4, kind):
+    """Three calls on one id (slot 0, slot 1, slot 0 again; the second
+    input an offset view, for the allreduce the second call a mean), each
+    equal to its plain version on every rank, at p = 2 and p = 4."""
     for res in card_bench + card_bench_p4:
-        calls = res["back_to_back"]
+        calls = res["back_to_back"][kind]
         assert [c["call"] for c in calls] == [0, 1, 2]
-        assert calls[1]["offset_view"] and calls[1]["mean"]
+        assert calls[1]["offset_view"]
+        assert calls[1]["mean"] == (kind == "allreduce")
         assert all(c["bitwise_equal"] for c in calls), calls
 
 
 @pytest.mark.cuda
-def test_stalled_ring_raises_on_the_card(card_bench):
-    stall = card_bench[0]["stall"]
+@pytest.mark.parametrize("kind", ["allreduce", "allgather"])
+def test_stalled_ring_raises_on_the_card(card_bench, kind):
+    stall = card_bench[0]["stalls"][kind]["stall"]
     assert stall["raised"] and stall["seconds"] < 5 * stall["deadline_s"]
 
 
 @pytest.mark.cuda
-def test_late_neighbour_cannot_lower_an_aborted_word_on_the_card(card_bench):
+@pytest.mark.parametrize("kind", ["allreduce", "allgather"])
+def test_late_neighbour_cannot_lower_an_aborted_word_on_the_card(card_bench,
+                                                                 kind):
     """A rank that enters a ring after its neighbour gave up raises in turn,
-    and its send leaves the neighbour's aborted data word where the abort
-    put it, so no wait still queued behind the abort can hang."""
+    and its STAGE's add leaves the neighbour's aborted READY word where the
+    abort put it, so no wait still queued behind the abort can hang."""
     from torchmpi_tpu_torch.tools import ring_bench
 
-    late = card_bench[0]["late"]
+    stalls = card_bench[0]["stalls"]
+    late = stalls[kind]["late"]
     assert late["raised"] and late["kept_past_every_step"], late
-    assert ring_bench.stalls_ok(card_bench[0]["stall"], late)
+    assert ring_bench.stalls_ok({kind: stalls[kind]})
 
 
 @pytest.mark.cuda

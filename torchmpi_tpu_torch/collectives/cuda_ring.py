@@ -20,19 +20,21 @@ results are bit-identical to the JAX package's.
 
 The forms that compute it:
 
-* the kernels (``ops/csrc/ring.cu``), for CUDA tensors.  B1 and B2 are
-  one-shot: each rank stages its input into its own slot, waits once in
-  the stream until every peer has staged, and reduces every rank's slot in
-  the order above straight into its output.  B3 runs the ring's steps.
+* the kernels (``ops/csrc/ring.cu``), for CUDA tensors, all three
+  one-shot: each rank stages its input into its own slot (STAGE), waits
+  once in the stream until every peer has staged, then either reduces
+  every rank's slot in the order above straight into its output (REDUCE:
+  B1, B2) or copies every rank's slot into its row of the output (GATHER:
+  B3, any n, no padding).  Two launches and one stream wait a call.
   Staging and flag words are ``cudaMalloc``'d by the source, kept per
   (communicator, collective id), and mapped into every peer once through
   cudaIPC handles swapped over the communicator's process group;
 * the per-rank CPU form, for CPU tensors: the ring's steps with
   ``torch.distributed`` send/recv of chunks over a gloo world;
 * ``_ring_*_plain``: the whole ring's steps over a list of p tensors in one
-  process, and ``_oneshot_*_plain``: the same sums in the one-shot
-  kernels' order, element by chunk; the oracles of the tests and of
-  ``chip_smoke.py``.
+  process, and ``_oneshot_*_plain``: the same results in the one-shot
+  kernels' order (sums element by chunk; the gather as every rank's
+  vector in rank order); the oracles of the tests and of ``chip_smoke.py``.
 
 A CUDA tensor goes to the kernels or raises; nothing falls back.
 """
@@ -60,7 +62,7 @@ CALLER_COLLECTIVE_ID_BASE = 0x60
 RING_TIMEOUT_S = 10.0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-_KINDS = {"allreduce": 0, "reduce_scatter": 1}
+_KINDS = {"allreduce": 0, "reduce_scatter": 1, "allgather": 2}
 
 # Kernel launches in this process, one per collective call (the plain and
 # CPU forms do not count); chip_smoke.py reads them.
@@ -89,12 +91,6 @@ def _geometry(n: int, p: int, itemsize: int) -> Tuple[int, int, int]:
     subrows = math.ceil(rows / q)
     rows = subrows * q
     return rows, q, subrows
-
-
-def _nslots(p: int) -> int:
-    cap = int(config.get("max_num_buffers_per_collective_tpu"))
-    return max(1, min(int(config.get("num_buffers_per_collective")), cap,
-                      2 * (p - 1)))
 
 
 # ------------------------------------------------------------ plain forms
@@ -136,14 +132,6 @@ def _pad_rs(x: torch.Tensor, p: int) -> torch.Tensor:
     return chunks
 
 
-def _pad_ag(x: torch.Tensor) -> torch.Tensor:
-    """Flat (n,) lane-padded to one chunk."""
-    rows, _, _ = _geometry(x.numel(), 1, x.element_size())
-    chunk = torch.zeros(rows * _LANE, dtype=x.dtype, device=x.device)
-    chunk[:x.numel()] = x
-    return chunk
-
-
 def _mean(out: torch.Tensor, p: int) -> torch.Tensor:
     """The replica mean as the JAX package computes it: its ``out / p``
     divides by a constant, which XLA turns into a product with the f32
@@ -177,16 +165,17 @@ def _ring_reduce_scatter_plain(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]
 
 
 def _ring_allgather_plain(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Every rank's gather: all ranks' vectors in rank order, (p n,)."""
+    """Every rank's gather through the ring's steps: all ranks' vectors in
+    rank order, (p n,).  The JAX kernel's lane padding is left out: a copy
+    moves the same bits with or without it."""
     p, n = len(xs), xs[0].numel()
     outs = []
     for me, x in enumerate(xs):
-        buf = torch.zeros((p, _pad_ag(x.reshape(-1)).numel()), dtype=x.dtype,
-                          device=x.device)
-        buf[me] = _pad_ag(x.reshape(-1))
+        buf = torch.zeros((p, n), dtype=x.dtype, device=x.device)
+        buf[me] = x.reshape(-1)
         outs.append(buf)
     _ag_steps_plain(outs)
-    return [o[:, :n].reshape(p * n) for o in outs]
+    return [o.reshape(p * n) for o in outs]
 
 
 def _oneshot_sum(xs: Sequence[torch.Tensor], lo: int, hi: int,
@@ -222,6 +211,15 @@ def _oneshot_reduce_scatter_plain(xs: Sequence[torch.Tensor]
     flat = [x.reshape(-1) for x in xs]
     m = n // p
     return [_oneshot_sum(flat, r * m, (r + 1) * m, r) for r in range(p)]
+
+
+def _oneshot_allgather_plain(xs: Sequence[torch.Tensor]
+                             ) -> List[torch.Tensor]:
+    """Every rank's one-shot allgather result (the same tensor for every
+    rank): every rank's vector in rank order, (p n,), as GATHER writes row
+    r from rank r's slot."""
+    out = torch.cat([x.reshape(-1) for x in xs])
+    return [out] * len(xs)
 
 
 # ------------------------------------------------------ per-rank CPU form
@@ -283,8 +281,6 @@ def _library():
             "tmpi_ring_read_flags": [vp, ctypes.POINTER(u64), i],
             "tmpi_ring_oneshot": [i, i, i, i, ll, ll, i, vp, vp, vp, vp, ll,
                                   u64, vp, vp],
-            "tmpi_ring_allgather": [i, i, i, ll, i, vp, vp, vp, vp, vp, vp,
-                                    vp, u64, vp],
             "tmpi_ring_abort": [vp],
         }
         for name, args in sigs.items():
@@ -302,26 +298,25 @@ def _check_cuda(err: int, what: str) -> None:
 
 class _RingState:
     """Staging slots and flags of one (communicator, collective id) on this
-    rank, mapped into every peer; ``seq`` counts this rank's sends on the
-    ring (B3) or its calls (one-shot) over every call, so no flag is ever
-    reset under a racing peer.  ``table`` lists every rank's block on the
-    device (this rank's own at its rank), and ``status`` is a mapped host
-    word that a one-shot REDUCE sets when it finds a rank's error word
-    set."""
+    rank, mapped into every peer; ``seq`` counts this rank's calls on the
+    state, so no flag is ever reset under a racing peer.  ``table`` lists
+    every rank's block on the device (this rank's own at its rank), and
+    ``status`` is a mapped host word that a REDUCE or GATHER sets when it
+    finds a rank's error word set."""
 
     def __init__(self, comm: Communicator, cid: int, slot_bytes: int,
-                 nslots: int, device: torch.device):
+                 device: torch.device):
         lib = _library()
         self.comm, self.cid = comm, cid
-        self.slot_bytes, self.nslots = slot_bytes, nslots
+        self.slot_bytes = slot_bytes
         self.seq = 0
         self.broken = False
         self.status = 0
-        # One block: a page of flag words (error, data, credit, a block
-        # counter, ready), then the slots.
+        # One block: a page of flag words (error, ready, a block counter),
+        # then two slots.
         self.flag_bytes = lib.tmpi_ring_flag_bytes()
         base = ctypes.c_void_p()
-        _check_cuda(lib.tmpi_ring_alloc(self.flag_bytes + nslots * slot_bytes,
+        _check_cuda(lib.tmpi_ring_alloc(self.flag_bytes + 2 * slot_bytes,
                                         ctypes.byref(base)),
                     "staging cudaMalloc")
         self.base = base.value
@@ -357,21 +352,17 @@ class _RingState:
         """Device address of rank r's flags (this rank's by default)."""
         return self.base if r is None or r == self.comm.rank else self.peers[r]
 
-    def slots(self, r: Optional[int] = None) -> int:
-        return self.flags(r) + self.flag_bytes
-
-    def flag_words(self) -> Tuple[int, int, int, int]:
-        """This rank's (error, data, credit, ready) words: whether the host
-        gave up, the chunks delivered into its slots and its sends consumed
-        (B3), and the peers' stages delivered (one-shot)."""
-        out = (ctypes.c_uint64 * 5)()
-        _check_cuda(_library().tmpi_ring_read_flags(self.base, out, 5),
+    def flag_words(self) -> Tuple[int, int]:
+        """This rank's (error, ready) words: whether the host gave up, and
+        the peers' stages delivered."""
+        out = (ctypes.c_uint64 * 2)()
+        _check_cuda(_library().tmpi_ring_read_flags(self.base, out, 2),
                     "reading the ring's flags")
-        return int(out[0]), int(out[1]), int(out[2]), int(out[4])
+        return int(out[0]), int(out[1])
 
     def peer_gave_up(self) -> bool:
-        """Whether a one-shot REDUCE of this state found a rank's error word
-        set (and so wrote nothing)."""
+        """Whether a REDUCE or GATHER of this state found a rank's error
+        word set (and so wrote nothing)."""
         return ctypes.c_uint64.from_address(self.status).value != 0
 
     def unmap(self) -> None:
@@ -395,23 +386,22 @@ class _RingState:
         self.free()
 
 
-_states: Dict[Tuple[int, Tuple[int, ...], int, bool], _RingState] = {}
+_states: Dict[Tuple[int, Tuple[int, ...], int], _RingState] = {}
 
 
-def _state(comm: Communicator, cid: int, slot_bytes: int, nslots: int,
-           oneshot: bool, device: torch.device) -> _RingState:
-    """The ring state of (comm, cid) for the one-shot kernels or the ring
-    steps, made on first use and remade when a call needs larger slots or
-    another slot count.  Both are the same on every rank for the same call,
+def _state(comm: Communicator, cid: int, slot_bytes: int,
+           device: torch.device) -> _RingState:
+    """The ring state of (comm, cid), made on first use and remade when a
+    call needs larger slots.  A call's slot size is the same on every rank,
     so every rank remakes it at the same call; the stream is drained first,
     so no queued kernel still uses the old memory."""
-    key = (id(comm), comm.ranks, cid, oneshot)
+    key = (id(comm), comm.ranks, cid)
     st = _states.get(key)
-    if st is not None and (st.slot_bytes < slot_bytes or st.nslots != nslots):
+    if st is not None and st.slot_bytes < slot_bytes:
         _release([st], comm.group)
         st = None
     if st is None:
-        st = _states[key] = _RingState(comm, cid, slot_bytes, nslots, device)
+        st = _states[key] = _RingState(comm, cid, slot_bytes, device)
     return st
 
 
@@ -447,14 +437,15 @@ def _usable(st: _RingState) -> None:
 
 def _run_oneshot(kind: str, comm: Communicator, cid: int, x: torch.Tensor,
                  out: torch.Tensor, mean: bool) -> None:
-    """One one-shot call of ``kind`` ('allreduce' or 'reduce_scatter') on
-    the current stream: ``x`` is this rank's contiguous (n,) input, ``out``
-    its (n,) or (n/p,) result, divided by p when ``mean``.  Waits for the
-    call to end; past ``RING_TIMEOUT_S`` it aborts the call and raises
-    :class:`RingError`, as it does when a peer gave up on it."""
+    """One one-shot call of ``kind`` ('allreduce', 'reduce_scatter' or
+    'allgather') on the current stream: ``x`` is this rank's contiguous
+    (n,) input, ``out`` its (n,), (n/p,) or (p n,) result, divided by p
+    when ``mean``.  Waits for the call to end; past ``RING_TIMEOUT_S`` it
+    aborts the call and raises :class:`RingError`, as it does when a peer
+    gave up on it."""
     p, me, n = comm.size, comm.rank, x.numel()
     slot_bytes = -(-max(n * x.element_size(), 1) // 256) * 256
-    st = _state(comm, cid, slot_bytes, 2, True, x.device)
+    st = _state(comm, cid, slot_bytes, x.device)
     _usable(st)
     rows, _, _ = _geometry(n, p, x.element_size())
     lib = _library()
@@ -476,41 +467,8 @@ def _run_oneshot(kind: str, comm: Communicator, cid: int, x: torch.Tensor,
         raise RingError(f"{where} raised: a peer had given up on call {k}")
     words, drained = late
     raise RingError(
-        f"{where} gave up at call {k}: {max(words[3] - (p - 1) * k, 0)} of "
+        f"{where} gave up at call {k}: {max(words[1] - (p - 1) * k, 0)} of "
         f"{p - 1} peers had staged within {RING_TIMEOUT_S} s"
-        + _undrained(drained))
-
-
-def _run_allgather(comm: Communicator, cid: int, src: torch.Tensor,
-                   out: torch.Tensor, chunk: int) -> None:
-    """One ring allgather call on the current stream: ``src`` is this
-    rank's one chunk, ``out`` is (p, chunk).  Waits for the call to end;
-    past ``RING_TIMEOUT_S`` it aborts the call and raises
-    :class:`RingError`."""
-    p, me = comm.size, comm.rank
-    nslots = _nslots(p)
-    st = _state(comm, cid, chunk * src.element_size(), nslots, False,
-                src.device)
-    _usable(st)
-    steps = p - 1
-    lib = _library()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device)
-        _check_cuda(lib.tmpi_ring_allgather(
-            src.element_size(), p, me, chunk, nslots,
-            src.data_ptr(), out.data_ptr(), st.slots(),
-            st.slots((me + 1) % p), st.flags(), st.flags((me + 1) % p),
-            st.flags((me - 1) % p), st.seq, stream.cuda_stream),
-            "ring allgather launch")
-        base, st.seq = st.seq, st.seq + steps
-        late = _await(st, stream)
-    if late is None:
-        return
-    words, drained = late
-    raise RingError(
-        f"ring allgather on rank {me} of {p} (collective id {cid:#x}) gave "
-        f"up at step {min(words[1] - base, steps - 1)} of {steps}: a "
-        f"neighbour did not arrive within {RING_TIMEOUT_S} s"
         + _undrained(drained))
 
 
@@ -648,21 +606,22 @@ def ring_reduce_scatter(comm: Communicator, x: torch.Tensor,
     return out
 
 
-def ring_allgather(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
+def ring_allgather(comm: Communicator, x: torch.Tensor,
+                   collective_id: Optional[int] = None) -> torch.Tensor:
     """Ring allgather of this rank's (n,) vector: every rank's vector in
-    rank order, ``(p n,)``."""
+    rank order, ``(p n,)``, for any n.  A ring that may be in flight beside
+    the public one takes a ``collective_id`` of its own."""
     _check_tensor(x, "ring_allgather")
     p, n = comm.size, x.numel()
     if p == 1:
         return x
-    chunk = _pad_ag(x)
-    me = comm.rank
     if x.device.type == "cpu":
-        out = torch.zeros((p, chunk.numel()), dtype=x.dtype)
-        out[me] = chunk
+        out = torch.zeros((p, n), dtype=x.dtype)
+        out[comm.rank] = x
         _ag_steps_cpu(comm, out)
-    else:
-        out = torch.empty((p, chunk.numel()), dtype=x.dtype, device=x.device)
-        _run_allgather(comm, _AG_COLLECTIVE_ID, chunk, out, chunk.numel())
-        _count("allgather")
-    return out[:, :n].reshape(p * n)
+        return out.reshape(p * n)
+    out = torch.empty(p * n, dtype=x.dtype, device=x.device)
+    _run_oneshot("allgather", comm, _AG_COLLECTIVE_ID if collective_id is None
+                 else collective_id, x.contiguous(), out, False)
+    _count("allgather")
+    return out

@@ -1,7 +1,7 @@
 // Ring collectives for Hopper (sm_90a) between processes, behind a plain C
 // interface that torchmpi_tpu_torch/collectives/cuda_ring.py binds with
-// ctypes: the allreduce (B1) and the reduce-scatter (B2), each one-shot, and
-// the ring allgather (B3).
+// ctypes: the allreduce (B1), the reduce-scatter (B2) and the allgather
+// (B3), each one-shot.
 //
 // Every rank of the chip run binds the one card, and without MPS the card
 // time-slices the ranks' contexts instead of running their kernels at once.
@@ -14,24 +14,31 @@
 // processes come from stream waits on monotone flag words, which a peer's
 // kernel raises with a release at system scope.
 //
-// ---- B1 and B2: one-shot -------------------------------------------------
+// ---- one-shot: STAGE, one wait, REDUCE or GATHER ----------------------------
 //
-// Replace torchmpi_tpu/collectives/pallas_ring.py:194 _ar_kernel (B1) and
-// pallas_ring.py:165 _rs_kernel (B2).  On one time-sliced card each
-// cross-process wait costs a switch of contexts, so the design needs as few
-// of them as it can: a rank's k-th call on a (communicator, collective id)
-// state is
-//   1. STAGE kernel: this rank's input x (n,) into its own staging slot
-//      k % 2, which every peer has mapped through cudaIpc; its last block
-//      adds 1 to every peer's READY word (red.release.sys.add after
-//      __threadfence_system);
+// Replace torchmpi_tpu/collectives/pallas_ring.py:194 _ar_kernel (B1),
+// pallas_ring.py:165 _rs_kernel (B2) and pallas_ring.py:241 _ag_kernel (B3).
+// On one time-sliced card each cross-process wait costs a switch of
+// contexts, so the design needs as few of them as it can: a rank's k-th
+// call on a (communicator, collective id) state is
+//   1. STAGE kernel (shared by all three): this rank's input x (n,) into
+//      its own staging slot k % 2, which every peer has mapped through
+//      cudaIpc; its last block adds 1 to every peer's READY word
+//      (red.release.sys.add after __threadfence_system);
 //   2. one cuStreamWaitValue64, until this rank's READY word is at least
 //      (p-1)(k+1): every peer has staged call k;
-//   3. REDUCE kernel: reads slot k % 2 of every rank through L2 (__ldcg)
-//      and writes the result straight into the output: (n,) for B1, this
-//      rank's (n/p,) part for B2, the mean folded in for f32 and bf16.
+//   3. the consumer kernel, which reads slot k % 2 of every rank through L2
+//      (__ldcg) and writes the result straight into the output:
+//      REDUCE (B1, B2): (n,) for B1, this rank's (n/p,) part for B2, the
+//      mean folded in for f32 and bf16;
+//      GATHER (B3): row r of the output (p n,) from rank r's slot, for every
+//      r.  This rank's own row comes from its own slot too, not from x:
+//      the same bytes either way, and every row then takes one path.
 // Two launches and one stream wait a call, against 4(p-1)+4 device
-// operations and up to 4(p-1) waits of the ring steps it replaces.
+// operations and up to 4(p-1) waits of the ring steps B1 and B2 replaced,
+// and for B3 a copy-in, 2(p-1) step kernels, up to 2(p-1) waits, and on
+// the host the pad's fill and copy and, unless n is a multiple of 128, a
+// slice copy of the whole output.
 //
 // The sum order is the ring's, so the bits are the ring's, the JAX
 // package's and the plain schedule's: element i of B1 lies in chunk
@@ -44,76 +51,64 @@
 // product with the f32 reciprocal of p, rounded to bf16 for bf16: the JAX
 // package divides by the constant p, which XLA folds into that product (an
 // IEEE division differs by one ulp in about a third of f32 elements at
-// p = 3).  int32 takes its mean on the host, to f32.
+// p = 3).  int32 takes its mean on the host, to f32.  B3 copies bits: the
+// JAX kernel pads each rank's block to (rows, 128) and slices the padding
+// off again, so its result is every rank's x in rank order, which GATHER
+// writes without any padding, for any n.
 //
 // Why two slots need no second wait.  At call k a rank overwrites its slot
-// k % 2, which its peers last read in their REDUCE of call k-2.  Its wait
-// at call k-1 passed READY >= (p-1)k.  No rank's count of stages runs more
-// than one ahead of another's (a rank starts stage t+1 only after its wait
-// saw (p-1)t adds, and with every count within one of the others that needs
-// every peer at t), so that wait saw every peer's STAGE of call k-1, and in
-// each peer's stream that STAGE comes after its REDUCE of call k-2.
+// k % 2, which its peers last read in their REDUCE or GATHER of call k-2.
+// Its wait at call k-1 passed READY >= (p-1)k.  No rank's count of stages
+// runs more than one ahead of another's (a rank starts stage t+1 only after
+// its wait saw (p-1)t adds, and with every count within one of the others
+// that needs every peer at t), so that wait saw every peer's STAGE of call
+// k-1, and in each peer's stream that STAGE comes after its REDUCE or
+// GATHER of call k-2.  The kind of the consumer does not enter: any mix of
+// B1, B2 and B3 calls on one state keeps the argument.
 //
 // Bytes.  Per call a rank reads n b and writes n b (STAGE), then reads p
-// slots and writes its output (REDUCE): at p = 2, 5nb per rank for B1,
-// against 13nb/2 for the ring steps' copy-in, sends, adds and stores.  The
-// function itself must read every rank's input once and write every rank's
-// output once, 2pnb for B1 (ResNet-50's 102.2 MB of f32 gradients at p = 2:
-// 0.409 GB, 0.122 ms at 3.35 TB/s), p(n + n/p)b for B2: the bounds
-// chip_smoke.py states.  Nothing here crosses a link.  Staging is two slots
-// of n b each per (communicator, id): ResNet-50's 8 rotating engine ids
-// hold about 2 x 9.4 MB each, about 151 MB a rank, and a ring of 25.6M f32
-// elements 205 MB.
+// slots and writes its output: at p = 2, 5nb per rank for B1, against
+// 13nb/2 for the ring steps' copy-in, sends, adds and stores; (2p+2)nb for
+// B3 (6nb at p = 2), against the ring steps' (4p-2)nb, the pad's 3nb and
+// the slice's 2pnb (13nb at p = 2).  The function itself must read every
+// rank's input once and write every rank's output once: 2pnb for B1
+// (ResNet-50's 102.2 MB of f32 gradients at p = 2: 0.409 GB, 0.122 ms at
+// 3.35 TB/s), p(n + n/p)b for B2, p(n + pn)b for B3 (0.183 ms at 25.6M f32
+// and p = 2): the bounds chip_smoke.py states.  Each is below the card's
+// operations-per-byte line by far (B3 does no arithmetic at all), so fewer
+// bytes and fewer waits are the only gains.  Nothing here crosses a link.
+// Staging is two slots of n b each per (communicator, id): ResNet-50's 8
+// rotating engine ids hold about 2 x 9.4 MB each, about 151 MB a rank, and
+// a ring of 25.6M f32 elements 205 MB.
 //
-// Alignment.  16-byte vectors where the input (STAGE) or the output and the
-// rank's first element (REDUCE) allow them; a scalar path otherwise (an
-// offset view, B2's chunk r at an odd offset) and for the ragged tail.
-//
-// ---- B3: ring steps -------------------------------------------------------
-//
-// Replaces torchmpi_tpu/collectives/pallas_ring.py:241 _ag_kernel.  Same
-// schedule: allgather step s forwards (me-s) mod p and stores the arriving
-// (me-s-1) mod p.  As in the reference's IPC ring
-// (detail/collectives_cuda.cpp:202-388), a launch per half step ordered
-// across processes in the streams:
-//   1. wait in the stream until credit >= k + 1 - nslots (the right
-//      neighbour has consumed the slot about to be reused);
-//   2. SEND kernel: my chunk into the right neighbour's slot k % nslots
-//      (mapped through cudaIpc), then its last block raises the
-//      neighbour's data word to k + 1 (an atomic max with release);
-//   3. wait in the stream until my data word >= k + 1;
-//   4. STORE kernel: my slot into my chunk, then its last block raises the
-//      left neighbour's credit word to k + 1.
-// k counts a rank's sends on the ring over every call, so no word is ever
-// reset under a racing peer, and the words stand in for the TPU kernel's DMA
-// semaphores, capacity credits and barrier.  The orders across processes
-// come from the stream waits on those monotone words rather than from
-// interprocess events, which would need a host handshake per step to know
-// that the peer's record is the current one.  The JAX sub-chunk count q
-// (max_buffer_size pieces) only shapes the padding (rows is a multiple of
-// q); a step here is one grid.  Per step a rank moves 4 chunks; the
-// function must read every input once and write every output once.
+// Alignment.  16-byte vectors where the input (STAGE), the output and the
+// rank's first element (REDUCE), or the output and the row's start (GATHER:
+// row r starts r n elements in) allow them; a scalar path otherwise (an
+// offset view, B2's chunk r at an odd offset, B3's rows when n is not a
+// multiple of the vector's lanes, n = 5) and for the ragged tail.  Slots
+// are always 16-byte aligned.
 //
 // ---- shared by all three --------------------------------------------------
 //
 // Staging: each rank owns one cudaMalloc'd block per (communicator,
-// collective id), a page of flag words then the slots, mapped into every
-// peer once through cudaIpcOpenMemHandle (handles swapped over the process
-// group).  Slot reads go through L2 (__ldcg), never a stale L1 line.
+// collective id), a page of flag words then the two slots, mapped into
+// every peer once through cudaIpcOpenMemHandle (handles swapped over the
+// process group).  Slot reads go through L2 (__ldcg), never a stale L1
+// line.
 //
 // Bounded waits: a stream wait cannot time out by itself, so the host bounds
 // each call (cuda_ring.RING_TIMEOUT_S): past the deadline it sets this
-// rank's error word and raises the rank's own data, credit and READY words
-// past any count (1 << 62, far from 2^64, so later adds cannot wrap it;
-// tmpi_ring_abort, from a stream of its own).  The queued waits then pass,
-// every queued kernel sees the error word and does nothing, and the host
-// raises naming the rank and the collective id.  A B3 neighbour that
-// arrives after the abort signals with an atomic max and a one-shot peer
-// with an add, so neither can pull a raised word back under a wait still
-// queued.  A one-shot peer that arrives late may find its own wait already
-// satisfied (the rank that gave up had staged), so REDUCE also reads every
-// peer's error word: if any is set it does nothing and sets the call's
-// status word in mapped host memory, and that host raises in turn.
+// rank's error word and raises the rank's own READY word past any count
+// (1 << 62, far from 2^64, so later adds cannot wrap it; tmpi_ring_abort,
+// from a stream of its own).  The queued wait then passes, every queued
+// kernel sees the error word and does nothing, and the host raises naming
+// the rank and the collective id.  A peer that arrives after the abort
+// signals with an add, so it cannot pull the raised word back under a wait
+// still queued.  A peer that arrives late may find its own wait already
+// satisfied (the rank that gave up had staged), so REDUCE and GATHER also
+// read every peer's error word: if any is set they write nothing and set
+// the call's status word in mapped host memory, and that host raises in
+// turn.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -130,16 +125,10 @@ __device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
   return v;
 }
 
-// Raise *p to at least v, releasing this thread's earlier writes to the
-// system.  A max, not a store: a neighbour that signals late, after this
-// rank's host gave up and raised its words past any step, cannot lower them
-// again under a stream wait still queued.
-__device__ __forceinline__ void signal_max(uint64_t* p, uint64_t v) {
-  asm volatile("red.release.sys.global.max.u64 [%0], %1;" :: "l"(p), "l"(v)
-               : "memory");
-}
-
-// Add v to *p, releasing this thread's earlier writes to the system.
+// Add v to *p, releasing this thread's earlier writes to the system.  An
+// add, not a store: a peer that signals late, after this rank's host gave
+// up and raised its READY word past any count, cannot lower it again under
+// a stream wait still queued.
 __device__ __forceinline__ void signal_add(uint64_t* p, uint64_t v) {
   asm volatile("red.release.sys.global.add.u64 [%0], %1;" :: "l"(p), "l"(v)
                : "memory");
@@ -149,15 +138,14 @@ __device__ __forceinline__ void signal_add(uint64_t* p, uint64_t v) {
 // ---- flag words and launch shape --------------------------------------------
 
 constexpr int ERR_WORD = 0;        // 0, or set by the host when it gives up
-constexpr int DATA_WORD = 1;       // B3: chunks delivered into my slots
-constexpr int CREDIT_WORD = 2;     // B3: my sends consumed by right
-constexpr int COUNT_WORD = 3;      // blocks done with this rank's kernel
-constexpr int READY_WORD = 4;      // one-shot: peers' stages delivered
+constexpr int READY_WORD = 1;      // peers' stages delivered
+constexpr int COUNT_WORD = 2;      // blocks done with this rank's STAGE
 constexpr int FLAG_BYTES = 256;    // the flag page in front of the slots
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 1056;   // 8 blocks on each of the 132 SMs
 constexpr int LANE = 128;
-constexpr int MAX_P = 4096;        // the REDUCE's table of slots in shared
+constexpr int MAX_P = 4096;        // REDUCE's table of slots in shared;
+                                   // GATHER's grid rows
 
 int grid_for(long long work) {
   long long blocks = (work + THREADS - 1) / THREADS;
@@ -183,6 +171,25 @@ __device__ __forceinline__ bool last_block(uint64_t* my_flags) {
   }
   __syncthreads();
   return last;
+}
+
+// Whether any rank's error word is set, the same answer in every thread of
+// the block; if so, *status (mapped host memory) becomes 1 and the caller
+// writes nothing.
+__device__ __forceinline__ bool any_error(const unsigned long long* bases,
+                                          int p, unsigned long long* status) {
+  __shared__ int skip;
+  if (threadIdx.x == 0) skip = 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < p; j += blockDim.x)
+    if (ld_acquire(reinterpret_cast<const uint64_t*>(bases[j]) + ERR_WORD))
+      atomicExch(&skip, 1);
+  __syncthreads();
+  if (skip && threadIdx.x == 0) {
+    *reinterpret_cast<volatile unsigned long long*>(status) = 1;
+    __threadfence_system();
+  }
+  return skip;
 }
 
 
@@ -245,7 +252,7 @@ __device__ __forceinline__ uint4 vmean(uint4 a, float recip) {
 }
 
 
-// ---- B1 and B2: one-shot ------------------------------------------------------
+// ---- one-shot ---------------------------------------------------------------
 
 // STAGE: my slot (at my_block + slot_off) = x, n elements; then the last
 // block adds 1 to every peer's READY word.  VEC: x is 16-byte aligned (the
@@ -294,22 +301,9 @@ reduce_kernel(T* out, long long m, long long off, long long chunk, int fixed,
   typedef typename Elem<T>::Bits Bits;
   constexpr int L = 16 / sizeof(Bits);
   extern __shared__ unsigned long long slot[];   // every rank's slot k % 2
-  __shared__ int skip;
-  if (threadIdx.x == 0) skip = 0;
-  __syncthreads();
-  for (int j = threadIdx.x; j < p; j += blockDim.x) {
+  for (int j = threadIdx.x; j < p; j += blockDim.x)
     slot[j] = bases[j] + slot_off;
-    if (ld_acquire(reinterpret_cast<const uint64_t*>(bases[j]) + ERR_WORD))
-      atomicExch(&skip, 1);
-  }
-  __syncthreads();
-  if (skip) {
-    if (threadIdx.x == 0) {
-      *reinterpret_cast<volatile unsigned long long*>(status) = 1;
-      __threadfence_system();
-    }
-    return;
-  }
+  if (any_error(bases, p, status)) return;      // syncs the block first
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long nvec = VEC ? m / L : 0;
@@ -337,6 +331,30 @@ reduce_kernel(T* out, long long m, long long off, long long chunk, int fixed,
     }
     reinterpret_cast<Bits*>(out)[e] = mean ? Elem<T>::mean(acc, recip) : acc;
   }
+}
+
+// GATHER: row r = blockIdx.y of out, n elements from r n on, is rank r's
+// slot.  VEC: out is 16-byte aligned, so a row whose start r n is a
+// multiple of the vector's lanes copies 16-byte vectors; the other rows and
+// the ragged tail go element by element.  If any rank's error word is set,
+// nothing is written and *status becomes 1.
+template <typename Bits, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+gather_kernel(Bits* out, long long n, const unsigned long long* bases,
+              long long slot_off, int p, unsigned long long* status) {
+  constexpr int L = 16 / sizeof(Bits);
+  if (any_error(bases, p, status)) return;
+  const long long r = blockIdx.y;
+  const Bits* src = reinterpret_cast<const Bits*>(bases[r] + slot_off);
+  Bits* dst = out + r * n;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long nvec = VEC && (r * n) % L == 0 ? n / L : 0;
+  for (long long v = tid; v < nvec; v += stride)
+    reinterpret_cast<uint4*>(dst)[v] =
+        __ldcg(reinterpret_cast<const uint4*>(src) + v);
+  for (long long e = nvec * L + tid; e < n; e += stride)
+    dst[e] = __ldcg(src + e);
 }
 
 typedef CUresult (*StreamValue64Fn)(CUstream, CUdeviceptr, cuuint64_t,
@@ -395,6 +413,20 @@ int run_oneshot(int kind, int p, int me, long long n, long long chunk,
                                   READY_WORD),
                     (cuuint64_t)(p - 1) * (k + 1), CU_STREAM_WAIT_VALUE_GEQ);
   if (r != CUDA_SUCCESS) return 10000 + (int)r;
+  if (kind == 2) {
+    // One grid row per rank, the card's blocks shared out among them.
+    typedef typename Elem<T>::Bits Bits;
+    Bits* o = static_cast<Bits*>(out);
+    const int per_rank = grid_for((long long)p * (n / L + n % L)) / p;
+    const dim3 grid(per_rank < 1 ? 1 : per_rank, p);
+    if (aligned16(out))
+      gather_kernel<Bits, true><<<grid, THREADS, 0, s>>>(o, n, bases,
+                                                         slot_off, p, status);
+    else
+      gather_kernel<Bits, false><<<grid, THREADS, 0, s>>>(o, n, bases,
+                                                          slot_off, p, status);
+    return (int)cudaGetLastError();
+  }
   // B1: all n elements; B2: this rank's chunk of n / p.
   const long long m = kind == 0 ? n : n / p;
   const long long off = kind == 0 ? 0 : me * m;
@@ -409,76 +441,6 @@ int run_oneshot(int kind, int p, int me, long long n, long long chunk,
     reduce_kernel<T, false><<<grid_for(m), THREADS, smem, s>>>(
         o, m, off, ch, me, bases, slot_off, p, mean, recip, status);
   return (int)cudaGetLastError();
-}
-
-
-// ---- B3: ring steps -----------------------------------------------------------
-
-enum StepOp { SEND = 0, STORE = 1 };
-
-// One half of a ring step over a whole chunk of nvec 16-byte vectors:
-//   SEND:  dst (the right neighbour's slot) = src (my chunk), through L2;
-//   STORE: dst (my chunk) = src (my slot).
-// Then the last block to finish raises *signal to value (the neighbour's
-// data or credit word), with release semantics.  Nothing runs once the host
-// has set the error word, so a rank that gave up never signals a neighbour.
-__global__ void __launch_bounds__(THREADS)
-step_kernel(int op, const uint4* src, uint4* dst, long long nvec,
-            uint64_t* my_flags, uint64_t* signal, uint64_t value) {
-  __shared__ int skip;
-  if (threadIdx.x == 0) skip = ld_acquire(my_flags + ERR_WORD) != 0;
-  __syncthreads();
-  if (skip) return;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       v < nvec; v += stride) {
-    if (op == SEND)
-      __stcg(dst + v, src[v]);
-    else
-      dst[v] = __ldcg(src + v);
-  }
-  if (last_block(my_flags) && threadIdx.x == 0) signal_max(signal, value);
-}
-
-int run_allgather(int p, int me, long long bytes, int nslots,
-                  const char* src, char* out, char* my_slots,
-                  char* right_slots, uint64_t* my_flags, uint64_t* right_flags,
-                  uint64_t* left_flags, uint64_t seq_base, cudaStream_t s) {
-  StreamValue64Fn wait, write;
-  int e = stream_value_fns(&wait, &write);
-  if (e) return e;
-  const long long nvec = bytes / 16;
-  // The working buffer (p, chunk): my own chunk in row me.
-  cudaError_t ce = cudaMemcpyAsync(out + me * bytes, src, bytes,
-                                   cudaMemcpyDeviceToDevice, s);
-  if (ce != cudaSuccess) return (int)ce;
-  for (int t = 0; t < p - 1; ++t) {
-    const int send = (me - t + 2 * p) % p;
-    const int recv = (me - t - 1 + 2 * p) % p;
-    const uint64_t k = seq_base + t;
-    const long long slot = (long long)(k % nslots) * bytes;
-    CUresult r = CUDA_SUCCESS;
-    if (k >= (uint64_t)nslots)       // right has consumed the slot I reuse
-      r = wait((CUstream)s, (CUdeviceptr)(my_flags + CREDIT_WORD),
-               k + 1 - nslots, CU_STREAM_WAIT_VALUE_GEQ);
-    if (r != CUDA_SUCCESS) return 10000 + (int)r;
-    step_kernel<<<grid_for(nvec), THREADS, 0, s>>>(
-        SEND, reinterpret_cast<const uint4*>(out + send * bytes),
-        reinterpret_cast<uint4*>(right_slots + slot), nvec, my_flags,
-        right_flags + DATA_WORD, k + 1);
-    e = (int)cudaGetLastError();
-    if (e) return e;
-    r = wait((CUstream)s, (CUdeviceptr)(my_flags + DATA_WORD), k + 1,
-             CU_STREAM_WAIT_VALUE_GEQ);  // left's chunk is in my slot
-    if (r != CUDA_SUCCESS) return 10000 + (int)r;
-    step_kernel<<<grid_for(nvec), THREADS, 0, s>>>(
-        STORE, reinterpret_cast<const uint4*>(my_slots + slot),
-        reinterpret_cast<uint4*>(out + recv * bytes), nvec, my_flags,
-        left_flags + CREDIT_WORD, k + 1);
-    e = (int)cudaGetLastError();
-    if (e) return e;
-  }
-  return 0;
 }
 
 }  // namespace
@@ -539,12 +501,15 @@ extern "C" int tmpi_ring_ipc_handle_bytes() {
 // ---- entry points -------------------------------------------------------------
 
 // One one-shot call, enqueued on `stream`: kind 0 allreduce (out (n,)),
-// 1 reduce-scatter (out (n/p,), this rank's part); dtype 0 f32, 1 bf16,
-// 2 int32; chunk (kind 0) the ring's chunk in elements, a multiple of 128;
-// mean for f32 and bf16 only.  bases is a device table of every rank's
+// 1 reduce-scatter (out (n/p,), this rank's part), 2 allgather (out (p n,),
+// every rank's x in rank order); dtype 0 f32, 1 bf16, 2 int32; chunk
+// (kind 0) the ring's chunk in elements, a multiple of 128; mean for kinds
+// 0 and 1 in f32 and bf16 only.  bases is a device table of every rank's
 // block (mine at me), my_block this rank's, each a flag page then two slots
 // of slot_bytes; k this rank's count of earlier calls on the state; status
-// a mapped host word.  Returns a CUDA error code (10000 + a CUresult for
+// a mapped host word.  The allgather shares this entry with B1 and B2: its
+// STAGE, wait and checks are theirs, and only the kernel after the wait
+// differs.  Returns a CUDA error code (10000 + a CUresult for
 // a refused stream wait).
 extern "C" int tmpi_ring_oneshot(int kind, int dtype, int p, int me,
                                  long long n, long long chunk, int mean,
@@ -552,10 +517,10 @@ extern "C" int tmpi_ring_oneshot(int kind, int dtype, int p, int me,
                                  void* my_block, long long slot_bytes,
                                  uint64_t k, void* status, void* stream) {
   const long long esize = dtype == 1 ? 2 : 4;
-  if (kind < 0 || kind > 1 || dtype < 0 || dtype > 2 || p < 2 || p > MAX_P ||
+  if (kind < 0 || kind > 2 || dtype < 0 || dtype > 2 || p < 2 || p > MAX_P ||
       me < 0 || me >= p || n < 0 || slot_bytes % FLAG_BYTES ||
       slot_bytes < n * esize || (kind == 0 && (chunk < LANE || chunk % LANE)) ||
-      (kind == 1 && n % p) || (mean && dtype == 2))
+      (kind == 1 && n % p) || (mean && (dtype == 2 || kind == 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned long long* b = static_cast<const unsigned long long*>(bases);
@@ -571,29 +536,10 @@ extern "C" int tmpi_ring_oneshot(int kind, int dtype, int p, int me,
                           slot_bytes, k, st, s);
 }
 
-// One ring allgather call, enqueued on `stream`: src (chunk), out (p,
-// chunk); chunk in elements, a multiple of 128; esize the bytes of one.
-extern "C" int tmpi_ring_allgather(int esize, int p, int me, long long chunk,
-                                   int nslots, const void* src, void* out,
-                                   void* my_slots, void* right_slots,
-                                   void* my_flags, void* right_flags,
-                                   void* left_flags, uint64_t seq_base,
-                                   void* stream) {
-  if ((esize != 2 && esize != 4) || p < 2 || me < 0 || me >= p ||
-      nslots < 1 || chunk < LANE || chunk % LANE)
-    return (int)cudaErrorInvalidValue;
-  return run_allgather(
-      p, me, chunk * esize, nslots, static_cast<const char*>(src),
-      static_cast<char*>(out), static_cast<char*>(my_slots),
-      static_cast<char*>(right_slots), static_cast<uint64_t*>(my_flags),
-      static_cast<uint64_t*>(right_flags), static_cast<uint64_t*>(left_flags),
-      seq_base, static_cast<cudaStream_t>(stream));
-}
-
 // The host gave up on a call: set the error word (so no queued kernel runs
-// or signals a peer) and release every stream wait of this rank by raising
-// its data, credit and READY words past any count, from a stream of its
-// own.  The ring state is unusable afterwards.
+// or signals a peer) and release this rank's stream wait by raising its
+// READY word past any count, from a stream of its own.  The ring state is
+// unusable afterwards.
 extern "C" int tmpi_ring_abort(void* my_flags) {
   StreamValue64Fn wait, write;
   int e = stream_value_fns(&wait, &write);
@@ -604,10 +550,8 @@ extern "C" int tmpi_ring_abort(void* my_flags) {
   uint64_t* f = static_cast<uint64_t*>(my_flags);
   const cuuint64_t past = 1ull << 62;
   CUresult r = write((CUstream)s, (CUdeviceptr)(f + ERR_WORD), 1, 0);
-  const int raised[] = {DATA_WORD, CREDIT_WORD, READY_WORD};
-  for (int w : raised)
-    if (r == CUDA_SUCCESS)
-      r = write((CUstream)s, (CUdeviceptr)(f + w), past, 0);
+  if (r == CUDA_SUCCESS)
+    r = write((CUstream)s, (CUdeviceptr)(f + READY_WORD), past, 0);
   ce = cudaStreamSynchronize(s);
   cudaStreamDestroy(s);
   if (r != CUDA_SUCCESS) return 10000 + (int)r;

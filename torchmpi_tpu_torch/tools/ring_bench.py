@@ -7,11 +7,11 @@ one card, with a gloo group).  For each case, every rank builds all ranks'
 inputs from the seed on the card, runs the kernel wrapper on its own input
 and checks its result against the kernel's plain version over all inputs
 (``_oneshot_allreduce_plain``, ``_oneshot_reduce_scatter_plain``,
-``_ring_allgather_plain``), **bit for bit**.  Cases: allreduce in f32, bf16 and int32,
-reduce-scatter and allgather in f32 and bf16, each at n = 25,557,032
-(ResNet-50's parameter count), 3,000 (not lane-aligned) and 5 (8 for the
-reduce-scatter, which needs p | n); the small sizes once more with
-``max_buffer_size`` cut to 64 KiB (sub-chunks) and one staging slot.
+``_oneshot_allgather_plain``), **bit for bit**.  Cases: allreduce and
+allgather in f32, bf16 and int32, reduce-scatter in f32 and bf16, each at
+n = 25,557,032 (ResNet-50's parameter count), 3,000 (not lane-aligned) and
+5 (8 for the reduce-scatter, which needs p | n); the small sizes once more
+with ``max_buffer_size`` cut to 64 KiB (sub-chunks) and one staging slot.
 
 Then the rings of one ResNet-50 training step as ``AllReduceSGDEngine``
 runs them (``engine.sgdengine.ring_plan`` over the full-width gradient
@@ -36,22 +36,24 @@ it drives the public collectives once through the selector with
 the launch counts are taken around it), then the first call of a ring on a
 collective id of its own while rank 0's stream is still busy (its staging
 must be zeroed before a peer can signal into it), bit for bit against
-the plain version, then three calls back to back on one collective id
-(both staging slots, then the first again; the second input an offset
-view, which takes the kernels' unaligned path), each bit for bit, and last
-two forced stalls: rank 1
-skips a ring, and rank 0 must raise ``RingError`` within the deadline; then
-rank 1 runs that ring late, after rank 0 gave up on it, and must raise in
-turn without lowering rank 0's released READY word.
+the plain version, then for the allreduce and for the allgather three
+calls back to back on one collective id (both staging slots, then the
+first again; the second input an offset view, which takes the kernels'
+unaligned path), each bit for bit, and last, for each of the two, two
+forced stalls: rank 1 skips a ring, and rank 0 must raise ``RingError``
+within the deadline; then rank 1 runs that ring late, after rank 0 gave
+up on it, and must raise in turn without lowering rank 0's released
+READY word.
 
 Prints one JSON line per case and a summary; ``chip_smoke.py`` calls
 :func:`run` for p = 2 and p = 4.
 
     python -m torchmpi_tpu_torch.tools.ring_bench --breakdown
 
-takes B1's cost apart instead, call by call: the 43 rings of a ResNet-50
-step at p = 2 (f32, mean, the engine's ids) and one ring of n = 25,557,032
-at p = 2 and p = 4 (f32, the default id), each after two warm-up rounds.
+takes B1's and B3's cost apart instead, call by call: the 43 rings of a
+ResNet-50 step at p = 2 (f32, mean, the engine's ids), one B1 ring and
+one B3 allgather of n = 25,557,032 at p = 2 and p = 4 (f32, the default
+ids), each after two warm-up rounds.
 For each call it reports the host µs in the wrapper without its wait for
 the call's event, the wrapper's end-to-end µs (both by the host clock over
 ``BREAKDOWN_ROUNDS`` rounds, unprofiled), and from a ``torch.profiler``
@@ -62,9 +64,10 @@ their contexts), with the lead from the call's start to its first device
 operation; then every rank's trace on one clock, for the window of each
 call across the ranks, the share of it in which no rank's operation ran,
 the skew between the ranks' starts and, for the one-shot kernels, the
-handoff from the last STAGE to the first REDUCE and the tail from the last
-REDUCE to the last rank's return.  Medians over the rounds; for the 43
-rings, their sums a step.
+handoff from the last STAGE to the first REDUCE or GATHER and the tail
+from the last of those to the last rank's return.  Medians over the
+rounds; for the 43 rings, their sums a step.  It drives only the public
+wrappers, so it runs on an older tree too (copied in under another name).
 """
 
 from __future__ import annotations
@@ -78,16 +81,19 @@ import time
 BIG_N = 25_557_032
 KINDS = ("allreduce", "reduce_scatter", "allgather")
 STALL_TIMEOUT_S = 1.0
-# What tmpi_ring_abort raises a rank's data, credit and READY words to.
+# What tmpi_ring_abort raises a rank's READY word to.
 ABORTED_WORD = 1 << 62
 # The fresh-state case: a collective id no other case uses, its size, and
 # the sleep queued on rank 0's stream first (about 0.2 s on an H100).
 FRESH_COLLECTIVE_ID = 0x7E
 FRESH_N = 300_000
 FRESH_SLEEP_CYCLES = 400_000_000
-# The back-to-back case: a collective id of its own and its size.
-BACK_TO_BACK_COLLECTIVE_ID = 0x7D
+# The back-to-back cases: a collective id of its own for each kind, and
+# their size.
+BACK_TO_BACK_COLLECTIVE_IDS = {"allreduce": 0x7D, "allgather": 0x7C}
 BACK_TO_BACK_N = 1_000_003
+# The stalls: a collective id of its own for each kind.
+STALL_COLLECTIVE_IDS = {"allreduce": 0x7F, "allgather": 0x7B}
 # The breakdown: unprofiled rounds (host clock) and profiled rounds.
 BREAKDOWN_ROUNDS = 5
 PROFILED_ROUNDS = 3
@@ -96,7 +102,8 @@ PROFILED_ROUNDS = 3
 def _cases(quick: bool):
     out = []
     for kind in KINDS:
-        dtypes = ("float32", "bfloat16") + (("int32",) if kind == "allreduce"
+        dtypes = ("float32", "bfloat16") + (("int32",)
+                                            if kind != "reduce_scatter"
                                             else ())
         small = 8 if kind == "reduce_scatter" else 5
         for dt in dtypes:
@@ -165,7 +172,7 @@ def rank_main(quick: bool, seed: int) -> dict:
                    "allgather": lambda x: cr.ring_allgather(comm, x)}
         plains = {"allreduce": cr._oneshot_allreduce_plain,
                   "reduce_scatter": cr._oneshot_reduce_scatter_plain,
-                  "allgather": cr._ring_allgather_plain}
+                  "allgather": cr._oneshot_allgather_plain}
         records = []
         for i, case in enumerate(_cases(quick)):
             config.reset(**case["knobs"])
@@ -215,8 +222,10 @@ def rank_main(quick: bool, seed: int) -> dict:
                 "resnet_rings": resnet_rings, "bucket_rings": bucket_rings,
                 "collectives_launches": counts, "collectives_ok": api_ok,
                 "fresh_state": fresh,
-                "back_to_back": _back_to_back(torch, cr, comm, seed),
-                **_stalls(torch, dist, cr, comm, x[:4096])}
+                "back_to_back": {k: _back_to_back(torch, cr, comm, k, seed)
+                                 for k in BACK_TO_BACK_COLLECTIVE_IDS},
+                "stalls": {k: _stalls(torch, dist, cr, comm, k, x[:4096])
+                           for k in STALL_COLLECTIVE_IDS}}
     finally:
         lifecycle.stop()
 
@@ -348,39 +357,49 @@ def _fresh_state(torch, dist, cr, comm, seed: int) -> dict:
                                      cr._oneshot_allreduce_plain(xs)[me])}
 
 
-def _back_to_back(torch, cr, comm, seed: int) -> list:
-    """Three allreduce calls on one collective id of their own, one after
-    the other: slots 0 and 1, then slot 0 again, which every peer must have
+def _ring_call(cr, comm, kind: str, x, cid: int, mean: bool = False):
+    """One ``kind`` call ('allreduce' or 'allgather') of this rank's ``x``
+    on collective id ``cid``."""
+    if kind == "allreduce":
+        return cr.inner_ring_allreduce(x, comm.size, mean=mean,
+                                       collective_id=cid, comm=comm)
+    return cr.ring_allgather(comm, x, collective_id=cid)
+
+
+def _back_to_back(torch, cr, comm, kind: str, seed: int) -> list:
+    """Three ``kind`` calls on one collective id of their own, one after the
+    other: slots 0 and 1, then slot 0 again, which every peer must have
     read by then.  The second input is an offset view (4 bytes into its
-    storage: the kernels' unaligned path) and the second call takes the
-    mean.  Each held against its plain version bit for bit."""
+    storage: the kernels' unaligned path) and, for the allreduce, the
+    second call takes the mean.  Each held against its plain version bit
+    for bit."""
     p, me = comm.size, comm.rank
     out = []
     for call in range(3):
         xs = [torch.randn(BACK_TO_BACK_N + 1, generator=torch.Generator(
             device="cuda").manual_seed(seed * 77 + call * p + r),
             device="cuda")[call % 2:][:BACK_TO_BACK_N] for r in range(p)]
-        mean = call == 1
-        got = cr.inner_ring_allreduce(xs[me], p, mean=mean,
-                                      collective_id=BACK_TO_BACK_COLLECTIVE_ID,
-                                      comm=comm)
+        mean = kind == "allreduce" and call == 1
+        got = _ring_call(cr, comm, kind, xs[me],
+                         BACK_TO_BACK_COLLECTIVE_IDS[kind], mean)
+        want = (cr._oneshot_allreduce_plain(xs, mean=mean) if kind ==
+                "allreduce" else cr._oneshot_allgather_plain(xs))[me]
         out.append({"call": call, "offset_view": xs[me].storage_offset() > 0,
-                    "mean": mean, **_compare(torch, got,
-                    cr._oneshot_allreduce_plain(xs, mean=mean)[me])})
+                    "mean": mean, **_compare(torch, got, want)})
     return out
 
 
-def _stalls(torch, dist, cr, comm, x) -> dict:
-    """Two forced stalls on a ring of its own.  First rank 1 skips a call
-    that rank 0 makes: rank 0 must raise within the deadline.  Then rank 1
-    makes that call late, after rank 0 gave up on it: rank 1 must raise in
-    turn (at p = 2 its wait passes, since rank 0 had staged, and its REDUCE
-    finds rank 0's error word; at p = 4 it waits in vain for ranks 2 and
-    3), and its STAGE's add must not lower the READY word rank 0's abort
-    set past every count."""
+def _stalls(torch, dist, cr, comm, kind: str, x) -> dict:
+    """Two forced stalls of ``kind`` calls on a ring of its own.  First
+    rank 1 skips a call that rank 0 makes: rank 0 must raise within the
+    deadline.  Then rank 1 makes that call late, after rank 0 gave up on
+    it: rank 1 must raise in turn (at p = 2 its wait passes, since rank 0
+    had staged, and its REDUCE or GATHER finds rank 0's error word; at
+    p = 4 it waits in vain for ranks 2 and 3), and its STAGE's add must not
+    lower the READY word rank 0's abort set past every count."""
     p, me = comm.size, comm.rank
-    cid = 0x7F
-    cr.inner_ring_allreduce(x, p, collective_id=cid, comm=comm)
+    cid = STALL_COLLECTIVE_IDS[kind]
+    _ring_call(cr, comm, kind, x, cid)
     torch.cuda.synchronize()
     dist.barrier()
     old_timeout = cr.RING_TIMEOUT_S
@@ -389,7 +408,7 @@ def _stalls(torch, dist, cr, comm, x) -> dict:
     def attempt():
         t0 = time.monotonic()
         try:
-            cr.inner_ring_allreduce(x, p, collective_id=cid, comm=comm)
+            _ring_call(cr, comm, kind, x, cid)
             rec = {"raised": False}
         except cr.RingError as e:
             rec = {"raised": True, "message": str(e)}
@@ -403,8 +422,7 @@ def _stalls(torch, dist, cr, comm, x) -> dict:
         late = attempt() if me == 1 else {}
         dist.barrier()
         if me == 0:
-            ready = cr._states[(id(comm), comm.ranks, cid,
-                                True)].flag_words()[3]
+            ready = cr._states[(id(comm), comm.ranks, cid)].flag_words()[1]
             late = {"aborted_ready_word": ready,
                     "kept_past_every_step": ready >= ABORTED_WORD}
         lates = [None] * p
@@ -420,13 +438,17 @@ def _counts(cr) -> dict:
             "ring_allgather": cr.ring_allgather_launches}
 
 
-def stalls_ok(stall: dict, late: dict) -> bool:
-    """Both stalled rings raised within five deadlines, and the late send
+def stalls_ok(stalls: dict) -> bool:
+    """For every kind in ``stalls`` ({kind: {"stall": ..., "late": ...}}),
+    both stalled rings raised within five deadlines, and the late STAGE
     left the aborted word where the abort put it."""
-    return bool(stall.get("raised") and stall["seconds"] < 5 * STALL_TIMEOUT_S
-                and late.get("raised")
-                and late["seconds"] < 5 * STALL_TIMEOUT_S
-                and late.get("kept_past_every_step"))
+    return bool(stalls) and all(
+        s["stall"].get("raised")
+        and s["stall"]["seconds"] < 5 * STALL_TIMEOUT_S
+        and s["late"].get("raised")
+        and s["late"]["seconds"] < 5 * STALL_TIMEOUT_S
+        and s["late"].get("kept_past_every_step")
+        for s in stalls.values())
 
 
 def _ops_by_call(ranges, device_ops) -> list:
@@ -478,8 +500,8 @@ def across_ranks(traces) -> list:
     (``idle_us``: switches between the ranks' contexts, stream waits, and
     hosts not yet at the call), the skew between the ranks' starts and, for
     the one-shot kernels, the handoff from the last STAGE's end to the
-    first REDUCE's start and the tail from the last REDUCE's end to the
-    last rank's return."""
+    first REDUCE's or GATHER's start and the tail from the last one's end
+    to the last rank's return."""
     per_rank = [(ranges, _ops_by_call(ranges, ops)) for ranges, ops in traces]
     out = []
     for i in range(min(len(r) for r, _ in per_rank)):
@@ -492,11 +514,12 @@ def across_ranks(traces) -> list:
         rec = {"window_us": window, "busy_any_us": busy,
                "idle_us": window - busy, "skew_us": max(starts) - min(starts)}
         stages = [o for o in ops if "stage_kernel" in o[0]]
-        reduces = [o for o in ops if "reduce_kernel" in o[0]]
-        if len(stages) == len(reduces) == len(per_rank):
-            rec["handoff_us"] = (min(o[1] for o in reduces)
+        after = [o for o in ops
+                 if "reduce_kernel" in o[0] or "gather_kernel" in o[0]]
+        if len(stages) == len(after) == len(per_rank):
+            rec["handoff_us"] = (min(o[1] for o in after)
                                  - max(o[2] for o in stages))
-            rec["tail_us"] = max(ends) - max(o[2] for o in reduces)
+            rec["tail_us"] = max(ends) - max(o[2] for o in after)
         out.append(rec)
     return out
 
@@ -507,7 +530,8 @@ def _median_call(calls: list, keys) -> dict:
 
 def breakdown_main(seed: int) -> dict:
     """One rank of the breakdown (spawned): at p = 2 the 43 rings of a
-    ResNet-50 step and one ring of n = BIG_N, at p = 4 the one ring."""
+    ResNet-50 step, and at p = 2 and 4 one B1 ring and one B3 allgather of
+    n = BIG_N."""
     import torch
     import torch.distributed as dist
 
@@ -519,12 +543,14 @@ def breakdown_main(seed: int) -> dict:
     try:
         comm = stack.world()
         p, me = comm.size, comm.rank
-        cases = {"one_ring": ([BIG_N], [None], False)}
+        cases = {"one_ring": ("allreduce", [BIG_N], [None], False),
+                 "allgather": ("allgather", [BIG_N], [None], False)}
         if p == 2:
             sizes = resnet50_ring_sizes()
             cases = {"resnet50_step": (
-                sizes, [cr.CALLER_COLLECTIVE_ID_BASE + i % 8
-                        for i in range(len(sizes))], True), **cases}
+                "allreduce", sizes, [cr.CALLER_COLLECTIVE_ID_BASE + i % 8
+                                     for i in range(len(sizes))], True),
+                **cases}
         return {"rank": me, "p": p,
                 "cases": {name: _breakdown_case(torch, dist, cr, comm, *case,
                                                 seed=seed + i)
@@ -533,9 +559,12 @@ def breakdown_main(seed: int) -> dict:
         lifecycle.stop()
 
 
-def _breakdown_case(torch, dist, cr, comm, sizes, ids, mean, seed) -> dict:
-    """The per-call breakdown of one round of rings (see the module
-    docstring); every rank makes the same calls, rank 0 reports."""
+def _breakdown_case(torch, dist, cr, comm, kind, sizes, ids, mean,
+                    seed) -> dict:
+    """The per-call breakdown of one round of ``kind`` calls (see the module
+    docstring); every rank makes the same calls, rank 0 reports.  The
+    allgather goes through ``ring_allgather``'s own id, as on an older
+    tree."""
     p, me = comm.size, comm.rank
     mine = [_inputs(torch, {"dtype": "float32", "n": n}, p, seed + i)[me]
             for i, n in enumerate(sizes)]
@@ -550,6 +579,8 @@ def _breakdown_case(torch, dist, cr, comm, sizes, ids, mean, seed) -> dict:
             waited[0] += time.perf_counter() - t0
 
     def call(i):
+        if kind == "allgather":
+            return cr.ring_allgather(comm, mine[i])
         return cr.inner_ring_allreduce(mine[i], p, mean=mean,
                                        collective_id=ids[i], comm=comm)
 
@@ -583,7 +614,7 @@ def _breakdown_case(torch, dist, cr, comm, sizes, ids, mean, seed) -> dict:
     per_call = _median_call(flat, ("e2e_us", "host_us"))
     per_round = {k: statistics.median(sum(c[k] for c in r) for r in rounds)
                  / 1e3 for k in ("e2e_us", "host_us")}
-    out = {"p": p, "rings": len(sizes), "elements": sum(sizes),
+    out = {"kind": kind, "p": p, "rings": len(sizes), "elements": sum(sizes),
            "per_call": per_call,
            "per_round_ms": {"e2e": per_round["e2e_us"],
                             "host": per_round["host_us"]}}
@@ -689,7 +720,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="skip the n = 25,557,032 cases")
     ap.add_argument("--breakdown", action="store_true",
-                    help="take B1's calls apart instead (p = 2 and 4)")
+                    help="take B1's and B3's calls apart instead (p = 2 "
+                         "and 4)")
     args = ap.parse_args()
     import torch
 
@@ -722,11 +754,11 @@ def main() -> int:
     print(json.dumps({"back_to_back": [r["back_to_back"] for r in results]}),
           flush=True)
     ok = ok and all(c["bitwise_equal"] for r in results
-                    for c in r["back_to_back"])
-    stall, late = results[0]["stall"], results[0]["late"]
+                    for calls in r["back_to_back"].values() for c in calls)
+    stalls = results[0]["stalls"]
     print(json.dumps({"collectives_launches": results[0]["collectives_launches"],
-                      "stall": stall, "late": late}), flush=True)
-    ok = ok and stalls_ok(stall, late)
+                      "stalls": stalls}), flush=True)
+    ok = ok and stalls_ok(stalls)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
 
