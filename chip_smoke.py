@@ -148,9 +148,44 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    losses and step-80 parameters (bit for bit, or within the printed
    tolerance).  Step ms (median), the rings' ms a step (CUDA events),
    images/s per card and the device stage's wait are printed per mode.
+   The example follows ``use_pallas_collectives``; this phase sets it on
+   outside ``eager_sync`` before each run.
+12. train_mnist_options: config 1 (the MLP at full width, f32, 2 ranks on
+   the one card, global batch 128) under the engine's options, five
+   compiled runs of OPT_STEPS steps from one start on the same batches:
+   (i) Adam with the rings, (ii) the same with ``accum_steps=4``, (iii)
+   Adam in GSPMD mode (rings off), (iv) Adam with ``zero1``, (v) SGD in
+   GSPMD mode.  The ranks' parameters must be bitwise equal after each
+   run, (ii) equal (i) and (iv) equal (iii) within JAX's test tolerances,
+   each rank's sharded moments hold half of theirs, and B1 launch 3 times
+   a step in (i) and (ii) and never in (iii)-(v); step ms per run.
+13. train_resnet_gspmd: phase 8's ResNet-50 (224x224, 1000 classes, f32,
+   TF32 off, 32 images per rank, 2 ranks on the one card) for
+   GSPMD_STEPS compiled steps with the knob off: batch norm's statistics
+   averaged over the ranks, the gradients with one gloo allreduce;
+   then one ``update_stats`` fold with ``comm``.  Losses finite, the
+   ranks' parameters and running statistics bitwise equal, no ring
+   launched; step ms and, by CUDA events, the ms a step in batch norm's
+   means and in the gradient allreduce.
+14. tester: ``utils/tester.sweep`` at p = 2 on the one card for
+   allreduce, reduce-scatter and allgather, 2^8..2^23 f32 elements with
+   jitter, through the ring kernels (B1, B2, B3) and through gloo, the
+   first size of each checked; a line a size with us, bus GB/s by the
+   volume models and the bytes bound.
+15. profiler: a ``StepWindowProfiler`` window of two steps of run (i) of
+   phase 12 on rank 0, read back by ``print_breakdown`` (device time by
+   category and the top kernels).  Phases 12-15 share one spawned pair of
+   ranks.
+16. train_adam: phase 6's Llama-3-8B width in bf16 under
+   ``make_train_step(optimizer=optim.adam(1e-4))`` for ADAM_STEPS steps,
+   at as many layers as leave ADAM_HEADROOM_GB of the card free by the
+   estimate of ``adam_layers`` (the cut is printed): the loss must fall,
+   the moments stay bf16, and each step launch B4, B5 and B6 as phase 6
+   does; step ms and peak memory.
 
-Then a line with the card's name and power limit, a ``kernels`` JSON line,
-and last ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of
+Then a ``timing`` line with each phase's seconds (the build included, the
+imports before it not), a line with the card's name and power limit, a
+``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of
 phases 4-6 to no fewer than 8 layers (never the width), and train_f32 to
 no more than that; a cut is printed.
 Exits non-zero and prints no result when no GPU is visible.  Every process
@@ -1623,6 +1658,10 @@ def mnist_rank_main(ckpt_dir: str) -> dict:
         for k in RING_KERNELS:
             setattr(cuda_ring, f"{k}_launches", 0)
         for mode in MNIST_MODES:
+            # The example follows the knob (the JAX example's default is
+            # off): the rings on outside eager_sync, as this phase drives
+            # them.
+            config.set("use_pallas_collectives", mode != "eager_sync")
             args = mnist_allreduce.parse_args(
                 ["--mode", mode, "--data", "synthetic", "--epochs",
                  str(MNIST_EPOCHS), "--batch", str(MNIST_BATCH), "--lr",
@@ -1807,8 +1846,593 @@ def phase_train_mnist():
     return rec
 
 
+# The train_adam phase: Llama-3-8B width in bf16 under Adam (optax's
+# defaults), lr 1e-4.  Its depth is the most layers whose estimated peak
+# leaves ADAM_HEADROOM_GB of the card free: 8 bytes a parameter (the bf16
+# parameters, gradients and both moments; the norms' f32 vectors are few)
+# beside ADAM_EXTRA_GB_PER_LAYER for the "dots" activations at L = 2048
+# and the transients (the stacking of a leaf's per-layer gradients, the
+# optimizer's in-place slices of 256 MB).  Measured on an H100 80GB HBM3:
+# a peak of 65.25 GB at 31 layers, 62.5 GB of it the 8 bytes a parameter,
+# so 2.75 GB beyond them, 0.09 GB a layer: 0.15 leaves room to spare.
+ADAM_LR, ADAM_STEPS = 1e-4, 4
+ADAM_HEADROOM_GB = 10.0
+ADAM_EXTRA_GB_PER_LAYER = 0.15
+
+
+def adam_layers(cfg, total_bytes: int) -> tuple:
+    """The train_adam depth for a card of ``total_bytes``, and the
+    estimated peak in GB at that depth."""
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    hd = cfg.head_dim
+    per_layer = (d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+                 + 3 * d * ff + 2 * d)
+    fixed = 2 * v * d + d
+
+    def est(n):
+        return 8 * (per_layer * n + fixed) / 1e9 + ADAM_EXTRA_GB_PER_LAYER * n
+
+    n = cfg.n_layers
+    while n > 1 and est(n) > total_bytes / 1e9 - ADAM_HEADROOM_GB:
+        n -= 1
+    return n, est(n)
+
+
+def phase_train_adam(torch, llama, fa, split, train_mod, max_layers: int):
+    """Adam steps at Llama-3-8B width in bf16 through the three flash
+    kernels: make_train_step(optimizer=optim.adam(...)), its moments in
+    bf16 beside the parameters, updated in place."""
+    from torchmpi_tpu_torch import optim
+    from torchmpi_tpu_torch.utils.tree import leaves as tree_leaves
+
+    cfg = llama.llama3_8b()
+    total = torch.cuda.get_device_properties(0).total_memory
+    layers, est_gb = adam_layers(cfg, total)
+    fit = layers
+    layers = min(layers, max_layers)
+    emit(phase="cut" if layers != cfg.n_layers else "depth",
+         path="train_adam", n_layers=layers, of=cfg.n_layers,
+         estimated_peak_gb=est_gb, card_gb=total / 1e9,
+         why=(f"--layers {max_layers}" if layers < fit else
+              "bf16 parameters, gradients, two Adam moments and the "
+              "activations of the layers leave "
+              f"{ADAM_HEADROOM_GB} GB of the card free by the estimate "
+              "(adam_layers)"))
+    if layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    L, chunk = 2048, 512
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    params = llama.init(g, cfg, dtype=torch.bfloat16)
+    opt = optim.adam(ADAM_LR)
+    opt_state = opt.init(params)
+    data, _ = train_mod.synthetic_tokens(cfg, n_seq=1, seq_len=L)
+    batch = torch.from_numpy(data).to("cuda", torch.long)
+    tokens, targets = batch[:, :-1], batch[:, 1:]
+    step = llama.make_train_step(cfg, attn="flash", remat=TRAIN_REMAT,
+                                 loss_chunk=chunk, optimizer=opt)
+    expected = {"flash_attention_fwd": FWD_PER_LAYER[TRAIN_REMAT] * layers,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers, "bf16_split": 0}
+
+    def counts():
+        return {**read_counts(fa), "bf16_split": split.bf16_split_launches}
+
+    losses, step_ms, per_step = [], [], []
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    split.bf16_split_launches = 0
+    for _ in range(ADAM_STEPS):
+        before = counts()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens, targets)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        after = counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    total_counts = counts()
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    # optax keeps the moments in the parameters' dtypes: bf16 beside the
+    # bf16 weights, f32 beside the f32 norms.
+    moments_ok = all(
+        m.dtype == p.dtype for tree in (opt_state[0].mu, opt_state[0].nu)
+        for m, p in zip(tree_leaves(tree), tree_leaves(params)))
+    rec = {"phase": "train_adam", "n_layers": layers, "d_model": cfg.d_model,
+           "batch": 1, "seq": L, "dtype": "bfloat16", "attn": "flash",
+           "remat": TRAIN_REMAT, "loss_chunk": chunk,
+           "optimizer": f"adam(lr={ADAM_LR}, b1=0.9, b2=0.999, eps=1e-8)",
+           "losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+           "tokens_per_s": L / (steady / 1e3),
+           "count": int(opt_state[0].count),
+           "moments_in_param_dtypes": moments_ok,
+           "launches": {k: v for k, v in total_counts.items()
+                        if k in COUNTERS},
+           "launches_per_step": per_step,
+           "expected_launches_per_step": expected,
+           "estimated_peak_gb": est_gb,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(rec), flush=True)
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite Adam training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"Adam loss did not fall: {losses}")
+    if any(s != expected for s in per_step):
+        raise AssertionError(f"train_adam launches per step {per_step}, "
+                             f"expected {expected}")
+    if rec["count"] != ADAM_STEPS or not moments_ok:
+        raise AssertionError(f"Adam state wrong: count {rec['count']}, "
+                             f"moments in the parameters' dtypes "
+                             f"{moments_ok}")
+    return rec
+
+
+# The options phases, one spawned pair of ranks on the one card:
+# train_mnist_options (config 1 under five compiled runs of the engine's
+# options, from one start, on the same batches), train_resnet_gspmd
+# (ResNet-50 in GSPMD mode with cross-rank batch norm) and the tester's
+# sweep.  Tolerances of the equalities are JAX's own tests'
+# (tests/test_nn_engine.py: accumulation 2e-4 / 2e-5, zero1 2e-5 / 2e-6).
+OPT_STEPS, OPT_LR, OPT_SGD_LR = 10, 1e-3, 0.1
+OPT_RUNS = (("adam_rings", True, dict(accum_steps=1)),
+            ("adam_rings_accum4", True, dict(accum_steps=4)),
+            ("adam_gspmd", False, dict()),
+            ("adam_zero1", False, dict(zero1=True)),
+            ("sgd_gspmd", False, dict()))
+OPT_RINGS = {"adam_rings": 3, "adam_rings_accum4": 3, "adam_gspmd": 0,
+             "adam_zero1": 0, "sgd_gspmd": 0}
+ACCUM_RTOL, ACCUM_ATOL = 2e-4, 2e-5
+ZERO1_RTOL, ZERO1_ATOL = 2e-5, 2e-6
+PROFILE_WINDOW = (4, 6)                 # steps [4, 6) of run (i)
+GSPMD_STEPS = 3
+TESTER_MIN_POW, TESTER_MAX_POW = 8, 23
+TESTER_WARMUP, TESTER_ITERS = 1, 3
+
+
+def _digest(tensors) -> str:
+    """One hash of the tensors' bytes: equal on two ranks only if every
+    tensor is equal bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ring_counts():
+    from torchmpi_tpu_torch.collectives import cuda_ring
+
+    return {k: getattr(cuda_ring, f"{k}_launches") for k in RING_KERNELS}
+
+
+def _reset_ring_counts():
+    from torchmpi_tpu_torch.collectives import cuda_ring
+
+    for k in RING_KERNELS:
+        setattr(cuda_ring, f"{k}_launches", 0)
+
+
+def _all_equal(dist, value) -> bool:
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, value)
+    return len(set(seen)) == 1
+
+
+def options_rank_main(trace_dir: str) -> dict:
+    """One rank of the options phases (spawned)."""
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch import optim
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine
+    from torchmpi_tpu_torch.models import mlp
+    from torchmpi_tpu_torch.runtime import config, lifecycle
+    from torchmpi_tpu_torch.runtime.communicator import stack
+    from torchmpi_tpu_torch.utils import profiler, tester
+    from torchmpi_tpu_torch.utils import tree
+    from torchmpi_tpu_torch.utils.data import ShardedIterator, load_mnist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = lifecycle.start()
+    try:
+        p, rank = lifecycle.size(), lifecycle.rank()
+        out = {"rank": rank, "p": p, "seconds": {}}
+        t_sub = time.perf_counter()
+
+        # ---- train_mnist_options: five compiled runs from one start.
+        ds, _ = load_mnist("train", prefer="synthetic")
+        batches = list(itertools.islice(
+            ShardedIterator(ds, global_batch=MNIST_BATCH, num_shards=p,
+                            shuffle=False), OPT_STEPS))
+        start = mlp.init(0, device=device)
+        if rank == 0:
+            # The profiler's first start loads CUPTI: done here, outside
+            # the runs, so the window's own start is quick.
+            with profiler.trace(os.path.join(trace_dir, "warm")):
+                torch.ones(1, device=device).add_(1)
+        dist.barrier()
+        runs, finals = {}, {}
+        for name, rings, kw in OPT_RUNS:
+            config.set("use_pallas_collectives", rings)
+            box = {"step_ms": [], "launches": [], "losses": []}
+
+            def on_sample(state, box=box):
+                torch.cuda.synchronize()
+                box["t0"], box["c0"] = time.perf_counter(), _ring_counts()
+
+            def on_update(state, box=box):
+                torch.cuda.synchronize()
+                box["step_ms"].append((time.perf_counter() - box["t0"]) * 1e3)
+                c = _ring_counts()
+                box["launches"].append({k: c[k] - box["c0"][k] for k in c})
+                box["losses"].append(float(state["loss"]))
+
+            hooks = {"on_sample": on_sample, "on_update": on_update}
+            prof = None
+            if name == "adam_rings":
+                prof = profiler.StepWindowProfiler(
+                    logdir=trace_dir, start_step=PROFILE_WINDOW[0],
+                    end_step=PROFILE_WINDOW[1], enabled=rank == 0)
+
+                def fence(state):
+                    # Rank 0 starts and stops the profiler at the window's
+                    # edges, which can take longer than a peer waits in a
+                    # ring (RING_TIMEOUT_S): every rank meets there first.
+                    if state["t"] in PROFILE_WINDOW:
+                        dist.barrier()
+
+                hooks = profiler.compose_hooks(
+                    hooks, profiler.profiler_hooks(prof),
+                    {"on_update": fence})
+            opt = (optim.sgd(OPT_SGD_LR) if name == "sgd_gspmd"
+                   else optim.adam(OPT_LR))
+            eng = AllReduceSGDEngine(mlp.loss_fn, lr=OPT_SGD_LR,
+                                     optimizer=opt, mode="compiled",
+                                     hooks=hooks, **kw)
+            _reset_ring_counts()
+            st = eng.train({k: v.clone() for k, v in start.items()},
+                           batches)
+            launches = _ring_counts()
+            leaves = tree.leaves(st["params"])
+            state_leaves = tree.leaves(st["opt_state"])
+            full = tree.leaves(eng.full_opt_state(st["opt_state"],
+                                                  st["params"]))
+            finals[name] = [t.detach().cpu() for t in leaves]
+            sharded = [t for t, f in zip(state_leaves, full)
+                       if t.shape != f.shape]
+            runs[name] = {
+                **{k: box[k] for k in ("step_ms", "launches", "losses")},
+                "rings_on": rings, "launches_total": launches,
+                "replicas_equal": _all_equal(dist, _digest(leaves)),
+                "state_elements": sum(t.numel() for t in state_leaves),
+                "full_state_elements": sum(t.numel() for t in full),
+                "sharded_elements": sum(t.numel() for t in sharded),
+                "sharded_full_elements": sum(
+                    f.numel() for t, f in zip(state_leaves, full)
+                    if t.shape != f.shape),
+                "trace": prof.trace_path if prof is not None else None}
+        config.set("use_pallas_collectives", False)
+
+        def max_violation(a, b, rtol, atol):
+            return max(float(((x - y).abs() - (atol + rtol * y.abs()))
+                             .max()) for x, y in zip(finals[a], finals[b]))
+
+        out["mnist_options"] = {
+            "runs": runs,
+            "accum4_vs_adam_rings": max_violation(
+                "adam_rings_accum4", "adam_rings", ACCUM_RTOL, ACCUM_ATOL),
+            "zero1_vs_adam_gspmd": max_violation(
+                "adam_zero1", "adam_gspmd", ZERO1_RTOL, ZERO1_ATOL),
+            "max_abs_diff": {
+                "accum4_vs_adam_rings": max(
+                    float((x - y).abs().max()) for x, y in
+                    zip(finals["adam_rings_accum4"], finals["adam_rings"])),
+                "zero1_vs_adam_gspmd": max(
+                    float((x - y).abs().max()) for x, y in
+                    zip(finals["adam_zero1"], finals["adam_gspmd"]))}}
+
+        out["seconds"]["train_mnist_options"] = time.perf_counter() - t_sub
+
+        # ---- train_resnet_gspmd: ResNet-50 with cross-rank batch norm.
+        t_sub = time.perf_counter()
+        out["resnet_gspmd"] = resnet_gspmd_run(torch, dist, device, p, rank)
+        out["seconds"]["train_resnet_gspmd"] = time.perf_counter() - t_sub
+
+        # ---- tester: the sweep through the rings and through gloo.
+        t_sub = time.perf_counter()
+        comm = stack.current()
+        sweeps = {}
+        for impl in ("ring", "eager"):
+            _reset_ring_counts()
+            res = tester.sweep(comm, collectives=("allreduce",
+                                                  "reduce_scatter",
+                                                  "allgather"),
+                               min_pow=TESTER_MIN_POW,
+                               max_pow=TESTER_MAX_POW,
+                               warmup=TESTER_WARMUP, iters=TESTER_ITERS,
+                               report=None, impl=impl)
+            sweeps[impl] = {"results": [vars(r) for r in res],
+                            "launches": _ring_counts()}
+        out["tester"] = sweeps
+        out["seconds"]["tester"] = time.perf_counter() - t_sub
+        return out
+    finally:
+        lifecycle.stop()
+
+
+def resnet_gspmd_run(torch, dist, device, p, rank) -> dict:
+    """ResNet-50 compiled steps in GSPMD mode, the BN means and the
+    gradient allreduces timed with CUDA events, then one update_stats fold
+    over the global batch."""
+    from torchmpi_tpu_torch.collectives import eager
+    from torchmpi_tpu_torch.collectives import gspmd
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine
+    from torchmpi_tpu_torch.models import resnet
+    from torchmpi_tpu_torch.runtime.communicator import stack
+    from torchmpi_tpu_torch.utils import tree
+    from torchmpi_tpu_torch.utils.data import synthetic_mnist
+
+    cfg = resnet.config(depth=50, n_classes=1000, width_multiplier=1.0)
+    params, bn_state = resnet.init(7, cfg, device=device)
+    ds = synthetic_mnist(n=p * RESNET_BATCH, n_classes=1000, seed=1,
+                         image_shape=(224, 224, 3))
+    one = (ds.x.reshape(p, RESNET_BATCH, 224, 224, 3),
+           ds.y.reshape(p, RESNET_BATCH))
+    # Every allreduce of a step, timed on the stream and filed by kind: the
+    # loss (one element), the gradients (inside sync_grads) and the rest,
+    # batch norm's means (forward and backward).
+    kind, events = {"now": "bn"}, []
+    allreduce, sync_grads = eager.allreduce, gspmd.sync_grads
+
+    def timed_allreduce(comm, x, *args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        y = allreduce(comm, x, *args, **kwargs)
+        b.record()
+        events.append(("loss" if x.numel() == 1 else kind["now"], a, b))
+        return y
+
+    def timed_sync(grads, comm):
+        kind["now"] = "grads"
+        try:
+            return sync_grads(grads, comm)
+        finally:
+            kind["now"] = "bn"
+
+    losses, step_ms, per_step, launches = [], [], [], []
+
+    def on_sample(state):
+        torch.cuda.synchronize()
+        events.clear()
+        per_step.append({})
+        state["_t0"], state["_c0"] = time.perf_counter(), _ring_counts()
+
+    def on_update(state):
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - state["_t0"]) * 1e3)
+        losses.append(float(state["loss"]))
+        c = _ring_counts()
+        launches.append({k: c[k] - state["_c0"][k] for k in c})
+        for what, a, b in events:
+            per_step[-1][what] = per_step[-1].get(what, 0.0) + \
+                a.elapsed_time(b)
+        per_step[-1]["calls"] = len(events)
+
+    eager.allreduce, gspmd.sync_grads = timed_allreduce, timed_sync
+    try:
+        eng = AllReduceSGDEngine(resnet.make_loss_fn(cfg), lr=RESNET_LR,
+                                 mode="compiled",
+                                 hooks={"on_sample": on_sample,
+                                        "on_update": on_update})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_ring_counts()
+        st = eng.train(params, [one] * GSPMD_STEPS, epochs=1)
+    finally:
+        eager.allreduce, gspmd.sync_grads = allreduce, sync_grads
+    total = _ring_counts()
+    x = torch.as_tensor(one[0][rank]).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = resnet.make_update_stats_fn(cfg, comm=stack.current())(
+        st["params"], bn_state, x)
+    torch.cuda.synchronize()
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    own = resnet.make_update_stats_fn(cfg)(st["params"], bn_state, x)
+    return {"losses": losses, "step_ms": step_ms, "collective_ms": per_step,
+            "launches_per_step": launches, "launches": total,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "replicas_equal": _all_equal(dist, _digest(
+                tree.leaves(st["params"]))),
+            "stats_equal": _all_equal(dist, _digest(tree.leaves(stats))),
+            "own_stats_equal": _all_equal(dist, _digest(tree.leaves(own))),
+            "stats_fold_ms": fold_ms}
+
+
+def phase_options():
+    """train_mnist_options, train_resnet_gspmd, tester and profiler: one
+    spawned pair of ranks on the one card; each phase's record and
+    checks."""
+    import tempfile
+
+    from torchmpi_tpu_torch.runtime import launch
+    from torchmpi_tpu_torch.tools import ring_bench
+    from torchmpi_tpu_torch.utils import profiler
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".trace_") as d:
+        res = launch.spawn(2, options_rank_main, (d,), timeout_s=900)
+        r0 = res[0]
+        trace = r0["mnist_options"]["runs"]["adam_rings"]["trace"]
+        breakdown = profiler.op_breakdown(trace, top=12)
+        lines = profiler.print_breakdown(trace, top=12)
+    seconds = time.perf_counter() - t0
+    emit(phase="options_timing", seconds=seconds,
+         rank0_seconds=r0["seconds"])
+
+    # train_mnist_options.
+    mo = r0["mnist_options"]
+    summary = {}
+    for name, run in mo["runs"].items():
+        steady = sorted(run["step_ms"][1:])
+        summary[name] = {
+            "median_step_ms": steady[len(steady) // 2],
+            "step_ms": run["step_ms"], "losses": run["losses"],
+            "rings_on": run["rings_on"],
+            "launches_per_step": run["launches"][1],
+            "launches_total": run["launches_total"],
+            "replicas_equal": [r["mnist_options"]["runs"][name]
+                               ["replicas_equal"] for r in res],
+            "state_elements": [r["mnist_options"]["runs"][name]
+                               ["state_elements"] for r in res],
+            "full_state_elements": run["full_state_elements"],
+            "sharded_elements": [r["mnist_options"]["runs"][name]
+                                 ["sharded_elements"] for r in res],
+            "sharded_full_elements": run["sharded_full_elements"]}
+    rec = {"phase": "train_mnist_options", "model": "mlp 784-1024-1024-10",
+           "dtype": "float32", "ranks": 2, "global_batch": MNIST_BATCH,
+           "steps": OPT_STEPS, "adam_lr": OPT_LR, "sgd_lr": OPT_SGD_LR,
+           "runs": summary,
+           "accum4_vs_adam_rings": {"rtol": ACCUM_RTOL, "atol": ACCUM_ATOL,
+                                    "worst_excess": [
+                                        r["mnist_options"]
+                                        ["accum4_vs_adam_rings"]
+                                        for r in res]},
+           "zero1_vs_adam_gspmd": {"rtol": ZERO1_RTOL, "atol": ZERO1_ATOL,
+                                   "worst_excess": [
+                                       r["mnist_options"]
+                                       ["zero1_vs_adam_gspmd"]
+                                       for r in res]},
+           "max_abs_diff": mo["max_abs_diff"]}
+    print(json.dumps(rec), flush=True)
+    for name, s in summary.items():
+        want = {"ring_allreduce": OPT_RINGS[name], "ring_reduce_scatter": 0,
+                "ring_allgather": 0}
+        for r in res:
+            run = r["mnist_options"]["runs"][name]
+            if any(x != want for x in run["launches"]):
+                raise AssertionError(f"{name}: ring launches "
+                                     f"{run['launches'][:3]}..., expected "
+                                     f"{want} a step")
+            if not all(math.isfinite(x) for x in run["losses"]):
+                raise AssertionError(f"{name}: non-finite loss")
+        if not all(s["replicas_equal"]):
+            raise AssertionError(f"{name}: the ranks' parameters differ")
+    for r in res:
+        if r["mnist_options"]["accum4_vs_adam_rings"] > 0:
+            raise AssertionError("accum_steps=4 differs from one step a "
+                                 "batch beyond the tolerance")
+        if r["mnist_options"]["zero1_vs_adam_gspmd"] > 0:
+            raise AssertionError("zero1 differs from replicated Adam beyond "
+                                 "the tolerance")
+    z = summary["adam_zero1"]
+    if not (z["sharded_full_elements"] > 0 and all(
+            2 * e == z["sharded_full_elements"]
+            for e in z["sharded_elements"])):
+        raise AssertionError(f"zero1's sharded moments are not 1/p of "
+                             f"theirs: {z}")
+
+    # train_resnet_gspmd.
+    rg = r0["resnet_gspmd"]
+    steady = sorted(rg["step_ms"][1:])
+    steady_ms = steady[len(steady) // 2]
+    per = rg["collective_ms"][1:]
+    mid = sorted(per, key=lambda c: sum(v for k, v in c.items()
+                                        if k != "calls"))[len(per) // 2]
+    grec = {"phase": "train_resnet_gspmd", "model": "resnet50",
+            "width": 1.0, "image": 224, "classes": 1000,
+            "dtype": "float32", "ranks": 2, "batch_per_rank": RESNET_BATCH,
+            "lr": RESNET_LR, "steps": GSPMD_STEPS,
+            "losses": [r["resnet_gspmd"]["losses"] for r in res],
+            "step_ms": rg["step_ms"], "steady_step_ms": steady_ms,
+            "images_per_s_per_card": 2 * RESNET_BATCH / (steady_ms / 1e3),
+            "collective_ms_per_step": rg["collective_ms"],
+            "median_step_collectives_ms": mid,
+            "launches": rg["launches"],
+            "launches_per_step": rg["launches_per_step"],
+            "peak_memory_gb_per_rank": [r["resnet_gspmd"]["peak_gb"]
+                                        for r in res],
+            "replicas_equal": rg["replicas_equal"],
+            "running_stats_equal": rg["stats_equal"],
+            "running_stats_equal_without_comm": rg["own_stats_equal"],
+            "stats_fold_ms": rg["stats_fold_ms"]}
+    print(json.dumps(grec), flush=True)
+    for r in res:
+        g = r["resnet_gspmd"]
+        if not all(math.isfinite(x) for x in g["losses"]):
+            raise AssertionError(f"GSPMD ResNet-50 loss {g['losses']}")
+        if any(c["ring_allreduce"] or c["ring_reduce_scatter"]
+               or c["ring_allgather"] for c in g["launches_per_step"]):
+            raise AssertionError("the GSPMD path launched a ring kernel")
+    if not (rg["replicas_equal"] and rg["stats_equal"]):
+        raise AssertionError("the GSPMD ResNet-50's ranks differ: params "
+                             f"{rg['replicas_equal']}, running statistics "
+                             f"{rg['stats_equal']}")
+
+    # tester.
+    trec = {"phase": "tester", "ranks": 2, "dtype": "float32",
+            "sizes": f"2^{TESTER_MIN_POW}..2^{TESTER_MAX_POW} with jitter",
+            "warmup": TESTER_WARMUP, "iters": TESTER_ITERS, "fence": "sync"}
+    for impl, sw in r0["tester"].items():
+        for r in sw["results"]:
+            n = r["elements"]
+            bound = ring_bench.bound_ms(r["collective"], n, 2, 4)
+            print(f"tester {impl:>5} {r['collective']:>14} n={n:>8} "
+                  f"t={r['mean_seconds'] * 1e6:10.1f} us "
+                  f"bus={r['bus_gbs']:8.3f} GB/s "
+                  f"bound={bound * 1e3:9.1f} us"
+                  f"{' checked' if r['checked'] else ''}", flush=True)
+        trec[impl] = {"launches": sw["launches"],
+                      "checked": sum(r["checked"] for r in sw["results"]),
+                      "us": {r["collective"]: [x["mean_seconds"] * 1e6
+                                               for x in sw["results"]
+                                               if x["collective"]
+                                               == r["collective"]]
+                             for r in sw["results"]}}
+    print(json.dumps(trec), flush=True)
+    n_sizes = TESTER_MAX_POW - TESTER_MIN_POW + 1
+    for impl, sw in r0["tester"].items():
+        if sum(r["checked"] for r in sw["results"]) != 3:
+            raise AssertionError(f"tester {impl}: not one check per "
+                                 f"collective")
+        if len(sw["results"]) != 3 * n_sizes:
+            raise AssertionError(f"tester {impl}: {len(sw['results'])} "
+                                 f"configs")
+    ring_l = r0["tester"]["ring"]["launches"]
+    per_coll = n_sizes * (TESTER_WARMUP + TESTER_ITERS) + 1
+    if ring_l != {k: per_coll for k in RING_KERNELS}:
+        raise AssertionError(f"tester ring launches {ring_l}, expected "
+                             f"{per_coll} each")
+    if any(r0["tester"]["eager"]["launches"].values()):
+        raise AssertionError("the eager sweep launched a ring kernel")
+
+    prec = {"phase": "profiler", "window": list(PROFILE_WINDOW),
+            "run": "train_mnist_options adam_rings, rank 0",
+            "steps": breakdown["steps"],
+            "device_ms_per_step": breakdown["total_ms_per_step"],
+            "categories": breakdown["categories"][:8],
+            "top_ops": breakdown["top_ops"][:8], "lines": len(lines)}
+    print(json.dumps(prec), flush=True)
+    if breakdown["steps"] != PROFILE_WINDOW[1] - PROFILE_WINDOW[0] or not (
+            breakdown["total_ms_per_step"] > 0):
+        raise AssertionError(f"profiler breakdown wrong: {prec}")
+    return {"mnist_options": rec, "resnet_gspmd": grec, "tester": trec,
+            "profiler": prec, "seconds": seconds}
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
-                       async_launches, async_rec, mnist_rec):
+                       async_launches, async_rec, mnist_rec, options):
     """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
     work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
     an eager_async step beside (times, bound and the largest error over
@@ -1816,7 +2440,9 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
     B2 and B3 at n = 25,557,032 in f32, the collectives path's size (and
     at p = 4 beside).
     Launches of every path (train_resnet_async: its two eager_async
-    runs; train_mnist: the example's three runs)."""
+    runs; train_mnist: the example's three runs; train_mnist_options: its
+    five runs, the profiler's window inside the first; tester: the ring
+    sweep)."""
     replaces, function, kind, library = RING_KERNELS[name]
     big = next(r for r in rings[2]["records"]
                if r["kind"] == kind and "kernel_ms" in r)
@@ -1826,7 +2452,11 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
                    n for label, n in async_launches.items()
                    if label.startswith("eager_async"))
                if name == "ring_allreduce" else 0,
-               "train_mnist": mnist_rec["launches"][name]}
+               "train_mnist": mnist_rec["launches"][name],
+               "train_mnist_options": sum(
+                   r["launches_total"][name]
+                   for r in options["mnist_options"]["runs"].values()),
+               "tester": options["tester"]["ring"]["launches"][name]}
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     err = max(r["max_abs_err"] for p in (2, 4)
               for r in rings[p]["records"] if r["kind"] == kind)
@@ -1978,29 +2608,41 @@ def main() -> int:
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     libs = _build.build_all()
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p, HERE) for p in libs])
+    took = {"build": time.perf_counter() - t0}
 
-    kernel_recs = phase_kernel(torch, fa, split)
-    bwd_recs = phase_kernel_bwd(torch, fa, split)
-    conv_recs, conv_launches = phase_conv_kernel(torch, conv, split)
-    rings = phase_ring_kernels()
-    resnet_rec = phase_train_resnet(torch, rings)
-    async_rec, async_launches = phase_train_resnet_async()
-    mnist_rec = phase_train_mnist()
+    def timed(name, fn, *fn_args, **fn_kw):
+        t = time.perf_counter()
+        try:
+            return fn(*fn_args, **fn_kw)
+        finally:
+            took[name] = time.perf_counter() - t
+
+    kernel_recs = timed("kernel", phase_kernel, torch, fa, split)
+    bwd_recs = timed("kernel_bwd", phase_kernel_bwd, torch, fa, split)
+    conv_recs, conv_launches = timed("conv_kernel", phase_conv_kernel, torch,
+                                     conv, split)
+    rings = timed("ring_kernels", phase_ring_kernels)
+    resnet_rec = timed("train_resnet", phase_train_resnet, torch, rings)
+    async_rec, async_launches = timed("train_resnet_async",
+                                      phase_train_resnet_async)
+    mnist_rec = timed("train_mnist", phase_train_mnist)
+    options = timed("options", phase_options)
     if args.layers != 32:
         emit(phase="cut", n_layers=args.layers, of=32)
-    gen, cfg = phase_generate(torch, llama, fa, args.layers)
+    gen, cfg = timed("generate", phase_generate, torch, llama, fa,
+                     args.layers)
     # The kernel's share of the prefill: its time at this very shape,
     # times its launches, over the measured prefill.
     attn_ms = kernel_recs["main_bf16"]["kernel_ms"] * gen["flash_fwd_launches"]
     emit(phase="prefill_breakdown", prefill_ms=gen["prefill_ms"],
          flash_kernel_ms=attn_ms, flash_kernel_share=attn_ms / gen["prefill_ms"])
     torch.cuda.empty_cache()
-    serve_counts, prefill_rec = phase_serve(torch, llama, fa, split,
-                                            engine_mod, serving, cfg)
+    serve_counts, prefill_rec = timed("serve", phase_serve, torch, llama,
+                                      fa, split, engine_mod, serving, cfg)
     launches = {"generate": gen["launches"], "serve": serve_counts,
                 "serve_f32_prefill": prefill_rec["launches"]}
     # B4's share of the f32 prefill: its f32 time at this very shape, times
@@ -2011,7 +2653,8 @@ def main() -> int:
          prefill_ms=prefill_rec["prefill_ms_flash"], flash_kernel_ms=attn_ms,
          flash_kernel_share=attn_ms / prefill_rec["prefill_ms_flash"])
     torch.cuda.empty_cache()
-    train = phase_train(torch, llama, fa, split, train_mod, args.layers)
+    train = timed("train", phase_train, torch, llama, fa, split, train_mod,
+                  args.layers)
     launches["train"] = train["launches"]
     # The three kernels' share of a steady step: their times at this very
     # shape (kernel phase), times their launches in one step, over the step.
@@ -2031,8 +2674,8 @@ def main() -> int:
     emit(phase="cut", path="train_f32", n_layers=f32_layers, of=32,
          why="f32 parameters, gradients and activations of 32 layers would "
              "not fit the card's 80 GB")
-    train_f32 = phase_train(torch, llama, fa, split, train_mod, f32_layers,
-                            dtype="float32")
+    train_f32 = timed("train_f32", phase_train, torch, llama, fa, split,
+                      train_mod, f32_layers, dtype="float32")
     launches["train_f32"] = train_f32["launches"]
     # The same for the f32 step: B4's f32 time (its split included) times
     # its launches, and one whole f32 backward (one split, dq, dk/dv) per
@@ -2050,6 +2693,12 @@ def main() -> int:
                        for k, v in in_step.items()},
          kernels_share=sum(in_step.values()) / train_f32["steady_step_ms"])
 
+    torch.cuda.empty_cache()
+    adam = timed("train_adam", phase_train_adam, torch, llama, fa, split,
+                 train_mod, args.layers)
+    launches["train_adam"] = adam["launches"]
+    emit(phase="timing", seconds=took, total_s=time.perf_counter() - start)
+
     print(smi, flush=True)
     emit(kernels=[
         kernel_record("flash_attention_fwd", kernel_recs, None,
@@ -2060,7 +2709,7 @@ def main() -> int:
                       ("dk_max_abs_err", "dv_max_abs_err"), launches),
         *(ring_kernel_record(name, rings, resnet_rec["launches"],
                              resnet_rec, async_launches, async_rec,
-                             mnist_rec)
+                             mnist_rec, options)
           for name in RING_KERNELS),
         conv_kernel_record(conv_recs, conv_launches),
     ])

@@ -237,13 +237,17 @@ def test_same_batches_as_jax(reference):
 
 
 def test_compiled_without_rings_raises_for_batch_norm():
+    """Compiled mode with the knob off was refused until cross-rank batch
+    norm was ported; it is now GSPMD over the global batch and no longer
+    raises (``tests/test_torch_engine_options.py`` holds it against the
+    JAX GSPMD step)."""
     from torchmpi_tpu_torch.engine import AllReduceSGDEngine
 
     tconfig.reset(use_pallas_collectives=False)
     try:
         eng = AllReduceSGDEngine(lambda p, b: None, mode="compiled")
-        with pytest.raises(NotImplementedError, match="cross-rank statistics"):
-            eng.train({"w": torch.zeros(2)}, [])
+        eng._check_mode()
+        assert not eng._rings()
     finally:
         tconfig.reset()
 
@@ -251,10 +255,18 @@ def test_compiled_without_rings_raises_for_batch_norm():
 @pytest.mark.parametrize("kwargs", [{"optimizer": object()}, {"zero1": True},
                                     {"accum_steps": 2}])
 def test_later_slice_options_raise(kwargs):
+    """The options that raised ``NotImplementedError`` until the engine's
+    options were ported now construct as in JAX; zero1 without an
+    optimizer raises JAX's ``ValueError``."""
     from torchmpi_tpu_torch.engine import AllReduceSGDEngine
 
-    with pytest.raises(NotImplementedError, match="later slice"):
-        AllReduceSGDEngine(lambda p, b: None, **kwargs)
+    if "zero1" in kwargs:
+        with pytest.raises(ValueError, match="optax optimizer"):
+            AllReduceSGDEngine(lambda p, b: None, **kwargs)
+        return
+    eng = AllReduceSGDEngine(lambda p, b: None, **kwargs)
+    for key, value in kwargs.items():
+        assert getattr(eng, key) is value
 
 
 def test_sync_frequency_skip_passes_local_grads():

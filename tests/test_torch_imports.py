@@ -46,6 +46,29 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+MODEL_FILES = sorted((ROOT / "torchmpi_tpu_torch" / "models").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", MODEL_FILES,
+                         ids=[p.name for p in MODEL_FILES])
+def test_models_do_not_import_the_engine(path):
+    """The models sit below the engine: what the engine's GSPMD mode shares
+    with batch norm lives in ``collectives/gspmd.py``."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(["torchmpi_tpu_torch"] * (node.level == 2)
+                            + [node.module] * bool(node.module))
+            names = [base] + [f"{base}.{a.name}" for a in node.names]
+        else:
+            continue
+        bad += [n for n in names
+                if n.startswith("torchmpi_tpu_torch.engine")]
+    assert not bad, f"models/{path.name} imports {bad}"
+
+
 def test_port_runs_without_jax_loaded():
     code = (
         "import sys\n"

@@ -16,8 +16,10 @@ top-level ``import torchmpi_tpu_torch as mpi`` surface, on 2 gloo ranks
 * A run resumed from the checkpoint of step 3 equals the continuous run
   bit for bit, mid-epoch; so does the example resumed at an epoch boundary.
 * The example end to end with ``--device cpu --data synthetic --limit 2048
-  --epochs 2`` in every mode: the lines of the JAX example, the loss
-  falling, ``data=synthetic`` and, in the eager modes, the replica check.
+  --epochs 2`` in every mode (the ring knob on outside ``eager_sync``), and
+  compiled with the knob off, the JAX example's default (GSPMD, no ring):
+  the lines of the JAX example, the loss falling, ``data=synthetic`` and,
+  in the eager modes, the replica check.
 * The surface: every ported name, the collectives over the current
   communicator, and ``NotImplementedError`` naming item 4 for the rest.
 """
@@ -241,14 +243,31 @@ def test_resume_after_step_3_equals_the_continuous_run(pool, init, tmp_path):
         assert r["equal"]
 
 
-def _example_job(argv):
-    """The example's run() in this rank, its standard output captured."""
+def _example_job(argv, rings):
+    """The example's run() in this rank with ``use_pallas_collectives`` set
+    to ``rings`` (the example follows the knob, as the JAX one does), its
+    standard output captured and its ring calls counted."""
+    from torchmpi_tpu_torch.collectives import cuda_ring
     from torchmpi_tpu_torch.examples import mnist_allreduce
 
+    mpi.config.reset(use_pallas_collectives=rings)
+    calls = [0]
+    ring = cuda_ring.inner_ring_allreduce
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return ring(*args, **kwargs)
+
+    cuda_ring.inner_ring_allreduce = counted
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        out = mnist_allreduce.run(mnist_allreduce.parse_args(argv))
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mnist_allreduce.run(mnist_allreduce.parse_args(argv))
+    finally:
+        cuda_ring.inner_ring_allreduce = ring
+        mpi.config.reset()
     out["stdout"] = buf.getvalue()
+    out["rings"] = calls[0]
     out["params"] = {k: v.numpy() for k, v in out["params"].items()}
     return out
 
@@ -271,10 +290,17 @@ def _check_lines(text, mode, epochs=2):
         mode != "compiled"), text
 
 
-@pytest.mark.parametrize("mode", ["compiled", "eager_sync", "eager_async"])
-def test_example_runs_in_every_mode(pool, mode):
-    res = pool.run(_example_job, _example_argv(mode))
+@pytest.mark.parametrize("mode,rings", [
+    ("compiled", True), ("eager_sync", False), ("eager_async", True),
+    ("compiled", False)],
+    ids=["compiled", "eager_sync", "eager_async", "compiled-gspmd"])
+def test_example_runs_in_every_mode(pool, mode, rings):
+    """Each mode with the knob as the example set it before it followed the
+    knob, and compiled with the knob off (the JAX example's default: GSPMD,
+    no ring)."""
+    res = pool.run(_example_job, _example_argv(mode), rings)
     _check_lines(res[0]["stdout"], mode)
+    assert (res[0]["rings"] > 0) == rings
     assert res[0]["accuracy"] > 0.95 and res[0]["steps"] == 32
     for k in res[0]["params"]:
         np.testing.assert_array_equal(res[0]["params"][k],
@@ -291,10 +317,10 @@ def test_example_runs_in_every_mode(pool, mode):
 
 def test_example_resumes_from_its_checkpoint(pool, tmp_path):
     argv = _example_argv("compiled", 2)
-    whole = pool.run(_example_job, argv)
+    whole = pool.run(_example_job, argv, True)
     ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "5"]
-    pool.run(_example_job, _example_argv("compiled", 1, *ck))
-    resumed = pool.run(_example_job, _example_argv("compiled", 2, *ck))
+    pool.run(_example_job, _example_argv("compiled", 1, *ck), True)
+    resumed = pool.run(_example_job, _example_argv("compiled", 2, *ck), True)
     assert "resumed from step 16" in resumed[0]["stdout"]
     assert resumed[0]["steps"] == 32
     assert resumed[0]["losses"] == whole[0]["losses"][16:]

@@ -1,5 +1,8 @@
 """Collectives of the port: ``eager`` (over ``torch.distributed``), the ring
-kernels (``cuda_ring``) and the ``selector`` between them.
+kernels (``cuda_ring``), the ``selector`` between them, and ``gspmd``, the
+global batch of the engine's GSPMD mode (the gradients' mean over the ranks
+and the batch-norm statistics' ``global_batch`` context, which
+``models/resnet.py`` reads).
 
 The functions here are the user-facing tensor collectives of the JAX
 package's ``collectives/__init__.py`` (``mpi.allreduce`` etc.): each takes
@@ -17,7 +20,7 @@ import torch
 
 from ..runtime import communicator as _comm_mod
 from ..runtime.handles import SynchronizationHandle
-from . import cuda_ring, eager, selector  # noqa: F401
+from . import cuda_ring, eager, gspmd, selector  # noqa: F401
 
 _LATER = eager._LATER
 
@@ -100,5 +103,5 @@ __all__ = [
     "allreduce", "broadcast", "reduce", "allgather", "allgatherv",
     "reduce_scatter", "sendreceive", "alltoall", "async_",
     "allreduce_scalar", "broadcast_scalar", "reduce_scalar",
-    "sendreceive_scalar", "cuda_ring", "eager", "selector",
+    "sendreceive_scalar", "cuda_ring", "eager", "gspmd", "selector",
 ]

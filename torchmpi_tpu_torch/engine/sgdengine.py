@@ -3,8 +3,9 @@
 Counterpart of ``torchmpi_tpu/engine/sgdengine.py``.  Each process holds
 its own replica of the parameters (a tree of tensors), takes its own row r
 of every rank-major batch ``(p, b, ...)``, computes the loss and gradients
-of that shard, syncs the gradients and applies SGD (``p - lr * g``).  Three
-modes are ported:
+of that shard, syncs the gradients and applies SGD (``p - lr * g``) or, in
+``compiled`` mode, the ``optimizer`` (an optax-shaped one from
+``torchmpi_tpu_torch.optim``: ``update`` then ``p + u``).  Three modes:
 
 * ``compiled`` with ``use_pallas_collectives`` on: the JAX ring-synced
   step (``ring_synced_grads``).  Every gradient leaf of at least
@@ -15,6 +16,13 @@ modes are ported:
   one after another on one stream, the large leaves first.  Batch norm
   takes this rank's batch statistics, as inside the JAX ``shard_map`` body;
   the loss is the mean over ranks.
+* ``compiled`` with the knob off: GSPMD over the global batch
+  (``collectives/gspmd.py``).  The loss runs inside ``gspmd.global_batch``, so
+  batch norm averages its statistics over the ranks, and the gradients are
+  averaged with one ``torch.distributed`` allreduce a dtype; no ring
+  kernel runs.  JAX's ``engine_update_barrier`` knob, a fence against
+  XLA's fusion of the update into the backward, has no counterpart: eager
+  PyTorch fuses nothing.
 * ``eager_sync``: ``nn.synchronize_gradients`` (bucketed, through the
   selector) every step.
 * ``eager_async``: ``nn.async_.register_async_backward`` dispatches the
@@ -25,6 +33,27 @@ modes are ported:
   updates.  The parameters equal ``eager_sync``'s bit for bit;
   ``state["blocked_s"]`` holds the seconds the step sat in handle waits.
 
+The eager modes apply plain SGD whatever ``optimizer`` is, as the JAX
+engine's do.  Options of ``compiled`` mode, as in JAX:
+
+* ``accum_steps`` A: this rank's batch splits into A equal slices (JAX's
+  ``local_grads_of``: a rank's rows are already the device-local cut), the
+  gradients accumulate in f32 and the mean over the slices is synced once,
+  with one update per batch;
+* ``zero1`` (needs an optimizer): the optimizer state is sharded over the
+  ranks.  A state leaf whose leading dimension is at least p and divisible
+  by p lives as this rank's row block, the rest (the count) replicated; it
+  is born so (``init`` runs on the parameters' row blocks).  A step
+  reduce-scatters the gradients of those leaves into this rank's block (as
+  a mean), allreduces the rest, updates each block with its state and
+  all-gathers the updated rows into every rank's parameters: one
+  reduce-scatter and one all-gather a dtype, through ``torch.distributed``
+  whatever ``use_pallas_collectives`` says (JAX's zero1 ignores the knob),
+  and the loss sees the global batch as in GSPMD mode.  A full state given
+  to ``train`` (a restore) is cut to this rank's blocks;
+  :meth:`AllReduceSGDEngine.full_opt_state` gathers it back, which the
+  checkpoint hooks do before a save.
+
 In ``compiled`` mode ``train()`` and ``test()`` read their iterator
 through ``data.engine_wrap``, as the JAX engine does: under the default
 ``data_pipeline="auto"`` a ``DataPipeline`` stages each batch on the device
@@ -32,23 +61,20 @@ ahead of the step, and ``"off"`` stages it inside the step; both place it
 through ``data.stage_rank_major``, so the values are the same bit for bit.
 ``sample_array`` gives a hook this rank's batch either way.
 
-``compiled`` with the knob off is GSPMD over the global batch in JAX, so
-batch norm there normalizes with cross-rank statistics; it raises here
-until the slice that brings them.  ``optimizer=``, ``zero1`` and
-``accum_steps`` raise and name their slice too.
-
 Hooks (``on_start, on_start_epoch, on_sample, on_forward, on_backward,
 on_update, on_end_epoch, on_end``) are called with the mutable ``state``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import contextlib
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import nn as mpinn
-from ..collectives import cuda_ring, eager
+from .. import optim
+from ..collectives import cuda_ring, eager, gspmd
 from ..data.pipeline import engine_wrap
 from ..data.staging import Staged, stage_rank_major
 from ..runtime import communicator as _comm_mod
@@ -61,7 +87,6 @@ Hooks = Dict[str, Callable[[Dict[str, Any]], None]]
 
 MODES = ("compiled", "eager_sync", "eager_async")
 DRAINS = ("ready", "barrier")
-_LATER = "comes with a later slice (ROADMAP.md slice 3, item 8)"
 
 
 def sgd_update(params, grads, lr):
@@ -101,6 +126,39 @@ def value_and_grad(loss_fn: LossFn, params, batch):
     return loss.detach(), _tree.unflatten(treedef, list(grads))
 
 
+def local_grads(loss_fn: LossFn, params, batch, accum_steps: int = 1,
+                replicas: Optional[int] = None):
+    """(loss, grads) of this rank's batch; with ``accum_steps`` A > 1 the
+    batch splits into A equal slices along its first axis, the slices'
+    losses and gradients summed in f32 and divided by A, the gradients
+    then cast to their parameter's dtype (JAX's ``accum_scan``).
+    ``replicas`` (the GSPMD path) words the divisibility error over the
+    global batch, as JAX's ``grads_of`` does."""
+    A = accum_steps
+    if A == 1:
+        return value_and_grad(loss_fn, params, batch)
+    x, y = batch
+    b = x.shape[0]
+    if b % A:
+        if replicas is not None:
+            raise ValueError(
+                f"global batch {b * replicas} must be divisible by "
+                f"accum_steps * replicas = {A} * {replicas}")
+        raise ValueError(f"per-replica batch {b} must be divisible by "
+                         f"accum_steps = {A}")
+    xs = x.reshape(A, b // A, *x.shape[1:])
+    ys = y.reshape(A, b // A, *y.shape[1:])
+    g_acc, l_acc = None, None
+    for a in range(A):
+        loss, grads = value_and_grad(loss_fn, params, (xs[a], ys[a]))
+        g = [t.float() for t in _tree.leaves(grads)]
+        g_acc = g if g_acc is None else torch._foreach_add(g_acc, g)
+        l_acc = loss.float() if l_acc is None else l_acc + loss.float()
+    leaves, treedef = _tree.flatten(params)
+    return l_acc / A, _tree.unflatten(treedef, [
+        (t / A).to(p.dtype) for t, p in zip(g_acc, leaves)])
+
+
 def ring_plan(leaves, cutoff: int):
     """The rings of one step over gradient leaves in tree order, as lists
     of leaf indices: every leaf of at least ``cutoff`` elements alone, in
@@ -115,12 +173,13 @@ def ring_plan(leaves, cutoff: int):
     return big + list(small_by_dtype.values())
 
 
-def ring_synced_grads(loss_fn: LossFn, params, batch, comm):
+def ring_synced_grads(loss_fn: LossFn, params, batch, comm,
+                      accum_steps: int = 1):
     """This rank's loss and gradients, the gradients ring-allreduced to the
     replica mean and the loss averaged over ranks (the JAX engine's ring
     path, leaf for leaf)."""
     p = comm.size
-    loss, grads = value_and_grad(loss_fn, params, batch)
+    loss, grads = local_grads(loss_fn, params, batch, accum_steps)
     leaves, treedef = _tree.flatten(grads)
     synced = list(leaves)
     plan = ring_plan(leaves, int(config.get("small_allreduce_size_gpu")))
@@ -140,8 +199,54 @@ def ring_synced_grads(loss_fn: LossFn, params, batch, comm):
                                                                    synced)
 
 
+# ------------------------------------------------------------------ zero1
+
+def zero1_sharded(shape, p: int) -> bool:
+    """The zero1 rule (JAX ``_opt_state_shardings``): a leaf whose leading
+    dimension is at least p and divisible by p is sharded by rows."""
+    return len(shape) >= 1 and shape[0] >= p and shape[0] % p == 0
+
+
+def _rows(t: torch.Tensor, rank: int, p: int) -> torch.Tensor:
+    n = t.shape[0] // p
+    return t[rank * n:(rank + 1) * n]
+
+
+def _reduce_scatter_rows(comm, leaves, idxs) -> Dict[int, torch.Tensor]:
+    """This rank's row block of the ranks' mean of each leaf in ``idxs``:
+    one reduce-scatter a dtype over the leaves packed rank-major."""
+    p, out = comm.size, {}
+    for group in _tree.by_dtype(leaves, idxs):
+        packed = torch.cat([leaves[i].reshape(p, -1) for i in group], dim=1)
+        mine = eager.reduce_scatter(comm, packed.reshape(-1), op="mean")
+        off = 0
+        for i in group:
+            t = leaves[i]
+            n = t.numel() // p
+            out[i] = mine[off:off + n].view(t.shape[0] // p, *t.shape[1:])
+            off += n
+    return out
+
+
+def _allgather_rows(comm, blocks, idxs) -> Dict[int, torch.Tensor]:
+    """Every rank's row block of each leaf in ``idxs`` stacked into the
+    whole leaf: one all-gather a dtype over the blocks packed flat."""
+    p, out = comm.size, {}
+    for group in _tree.by_dtype(blocks, idxs):
+        packed = torch.cat([blocks[i].reshape(-1) for i in group])
+        every = eager.allgather(comm, packed).reshape(p, -1)
+        off = 0
+        for i in group:
+            b = blocks[i]
+            n = b.numel()
+            out[i] = every[:, off:off + n].reshape(p * b.shape[0],
+                                                   *b.shape[1:])
+            off += n
+    return out
+
+
 class AllReduceSGDEngine:
-    """Data-parallel SGD loop; see the module docstring."""
+    """Data-parallel training loop; see the module docstring."""
 
     def __init__(self, loss_fn: LossFn, lr: float = 0.01, optimizer=None,
                  comm=None, mode: str = "compiled",
@@ -151,20 +256,26 @@ class AllReduceSGDEngine:
                  accum_steps: int = 1):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}")
-        if optimizer is not None:
-            raise NotImplementedError(f"optimizer= {_LATER}; plain SGD runs")
-        if zero1:
-            raise NotImplementedError(f"zero1 {_LATER}")
-        if accum_steps != 1:
-            raise NotImplementedError(f"accum_steps {_LATER}")
+        if zero1 and mode != "compiled":
+            raise ValueError("zero1 requires compiled mode")
+        if zero1 and optimizer is None:
+            raise ValueError(
+                "zero1 shards optimizer state; pass an optax optimizer "
+                "(plain SGD keeps no state to shard)")
+        if accum_steps < 1:
+            raise ValueError("accum_steps must be >= 1")
+        if accum_steps > 1 and mode != "compiled":
+            raise ValueError("accum_steps requires compiled mode")
         self.loss_fn = loss_fn
         self.lr = lr
-        self.optimizer = None
+        self.optimizer = optimizer
         self._comm = comm
         self.mode = mode
         self.hooks = hooks or {}
         self.sync_parameters_on_start = sync_parameters_on_start
         self.check_frequency = check_frequency
+        self.zero1 = zero1
+        self.accum_steps = accum_steps
 
     @property
     def comm(self):
@@ -176,18 +287,15 @@ class AllReduceSGDEngine:
             fn(state)
 
     def _check_mode(self) -> None:
-        if self.mode == "compiled" and not config.get("use_pallas_collectives"):
-            raise NotImplementedError(
-                "compiled mode with use_pallas_collectives off is GSPMD over "
-                "the global batch in the JAX package: batch norm there "
-                "normalizes with cross-rank statistics, which come with a "
-                "later slice (ROADMAP.md slice 3, item 8); turn "
-                "use_pallas_collectives on (per-rank statistics, the ring "
-                "path) or use mode='eager_sync'")
         drain = config.get("engine_async_drain")
         if self.mode == "eager_async" and drain not in DRAINS:
             raise ValueError(f"engine_async_drain must be one of {DRAINS}, "
                              f"got {drain!r}")
+
+    def _rings(self) -> bool:
+        """The compiled step rings its gradients (JAX: the knob, and not
+        zero1)."""
+        return bool(config.get("use_pallas_collectives")) and not self.zero1
 
     @staticmethod
     def _local(batch, rank: int, device: torch.device):
@@ -199,11 +307,77 @@ class AllReduceSGDEngine:
         y, _ = stage_rank_major(yb, device, rank, dtype=torch.long)
         return x.array, y.array.long()
 
+    # ---------------------------------------------------- optimizer state
+
+    def _zero1_plan(self, params, comm) -> List[bool]:
+        """Which parameter leaves (and so which of their optimizer state
+        leaves) are sharded; none on one rank."""
+        return [comm.size > 1 and zero1_sharded(t.shape, comm.size)
+                for t in _tree.leaves(params)]
+
+    def _init_opt_state(self, params, opt_state, comm, device):
+        """The optimizer state a compiled ``train`` starts from: created by
+        ``optimizer.init`` when not given (under zero1 on this rank's row
+        blocks, never whole), else the given one on the parameters'
+        device, cut to this rank's blocks under zero1."""
+        if self.optimizer is None or self.mode != "compiled":
+            return opt_state
+        if opt_state is None:
+            if not self.zero1:
+                return self.optimizer.init(params)
+            leaves, treedef = _tree.flatten(params)
+            plan = self._zero1_plan(params, comm)
+            return self.optimizer.init(_tree.unflatten(treedef, [
+                _rows(t, comm.rank, comm.size) if s else t
+                for t, s in zip(leaves, plan)]))
+        opt_state = _tree.tree_map(lambda t: t.to(device), opt_state)
+        if not self.zero1 or comm.size == 1:
+            return opt_state
+        full = _tree.leaves(self._abstract_opt_state(params))
+        given, treedef = _tree.flatten(opt_state)
+        p, r = comm.size, comm.rank
+        out = []
+        for f, g in zip(full, given):
+            if zero1_sharded(f.shape, p) and tuple(g.shape) == tuple(f.shape):
+                g = _rows(g, r, p).clone()
+            elif zero1_sharded(f.shape, p) and g.shape[0] != f.shape[0] // p:
+                raise ValueError(f"optimizer state leaf of shape "
+                                 f"{tuple(g.shape)} is neither whole "
+                                 f"{tuple(f.shape)} nor a row block of it")
+            out.append(g)
+        return _tree.unflatten(treedef, out)
+
+    def _abstract_opt_state(self, params):
+        """The whole optimizer state's leaves on the meta device: shapes
+        and dtypes, no memory (JAX's ``eval_shape``)."""
+        return self.optimizer.init(_tree.tree_map(
+            lambda t: torch.empty_like(t, device="meta"), params))
+
+    def full_opt_state(self, opt_state, params, comm=None):
+        """The whole optimizer state on every rank: under zero1 each
+        sharded leaf all-gathered from the ranks' row blocks (one
+        all-gather a dtype; every rank must call this), else
+        ``opt_state`` itself."""
+        comm = comm if comm is not None else self.comm
+        if not self.zero1 or opt_state is None or comm.size == 1:
+            return opt_state
+        full = _tree.leaves(self._abstract_opt_state(params))
+        blocks, treedef = _tree.flatten(opt_state)
+        idxs = [i for i, f in enumerate(full)
+                if zero1_sharded(f.shape, comm.size)]
+        gathered = _allgather_rows(comm, blocks, idxs)
+        return _tree.unflatten(treedef, [gathered.get(i, b)
+                                         for i, b in enumerate(blocks)])
+
+    # -------------------------------------------------------------- train
+
     def train(self, params: Any, iterator, epochs: int = 1,
               opt_state: Any = None, start_step: int = 0) -> Dict[str, Any]:
         """Run the loop; returns the final state.  ``params``: this rank's
         replica; ``iterator``: rank-major ``(x: (p, b, ...), y: (p, b))``
-        batches, each rank taking its row."""
+        batches, each rank taking its row.  ``opt_state``: a state to
+        resume from (whole, also under zero1); by default
+        ``optimizer.init``'s."""
         self._check_mode()
         comm = self.comm
         device = _tree.leaves(params)[0].device
@@ -214,6 +388,8 @@ class AllReduceSGDEngine:
         }
         if self.sync_parameters_on_start:
             state["params"] = mpinn.synchronize_parameters(params, comm)
+        state["opt_state"] = self._init_opt_state(state["params"], opt_state,
+                                                  comm, device)
         if self.mode == "compiled":
             # The input plane: batches arrive staged on the device by a
             # background thread, per the data_pipeline knob ("off" hands
@@ -230,7 +406,10 @@ class AllReduceSGDEngine:
                 state["sample"] = batch
                 self._hook("on_sample", state)
                 local = self._local(batch, comm.rank, device)
-                self._step(state, local)
+                if self.mode == "compiled":
+                    self._compiled_step(state, local)
+                else:
+                    self._eager_step(state, local)
                 state["t"] += 1
                 if (self.check_frequency and self.mode != "compiled"
                         and state["t"] % self.check_frequency == 0):
@@ -240,24 +419,71 @@ class AllReduceSGDEngine:
         self._hook("on_end", state)
         return state
 
-    def _step(self, state, local) -> None:
+    def _compiled_step(self, state, local) -> None:
         comm = state["comm"]
-        if self.mode == "compiled":
-            loss, grads = ring_synced_grads(self.loss_fn, state["params"],
-                                            local, comm)
-            state["loss"] = loss
-            self._hook("on_forward", state)
-            self._hook("on_backward", state)
+        params = state["params"]
+        A = self.accum_steps
+        if self._rings():
+            loss, grads = ring_synced_grads(self.loss_fn, params, local,
+                                            comm, A)
         else:
-            loss, grads = value_and_grad(self.loss_fn, state["params"], local)
-            state["loss"] = eager.allreduce(comm, loss, op="mean")
-            self._hook("on_forward", state)
-            if self.mode == "eager_async":
-                state["loss_meter"].add(state["loss"])
-                self._async_sync_and_update(state, grads, comm)
-                return
-            grads = mpinn.synchronize_gradients(grads, comm)
-            self._hook("on_backward", state)
+            with gspmd.global_batch(comm):
+                loss, grads = local_grads(self.loss_fn, params, local, A,
+                                          replicas=comm.size)
+            loss = eager.allreduce(comm, loss, op="mean")
+            if not self.zero1:
+                grads = gspmd.sync_grads(grads, comm)
+        state["loss"] = loss
+        self._hook("on_forward", state)
+        self._hook("on_backward", state)
+        state["loss_meter"].add(loss)
+        if self.zero1:
+            state["params"], state["opt_state"] = self._zero1_update(
+                params, grads, state["opt_state"], comm)
+        elif self.optimizer is not None:
+            with torch.no_grad():
+                updates, state["opt_state"] = self.optimizer.update(
+                    grads, state["opt_state"], params)
+            state["params"] = optim.apply_updates(params, updates)
+        else:
+            state["params"] = sgd_update(params, grads, self.lr)
+
+    def _zero1_update(self, params, grads, opt_state, comm):
+        """One zero1 update: the sharded leaves' gradients reduce-scattered
+        into this rank's row blocks, the rest allreduced; each block
+        updated with its state; the updated rows all-gathered."""
+        p, r = comm.size, comm.rank
+        leaves, treedef = _tree.flatten(params)
+        g = _tree.leaves(grads)
+        plan = self._zero1_plan(params, comm)
+        sharded = [i for i, s in enumerate(plan) if s]
+        whole = [i for i, s in enumerate(plan) if not s]
+        g_blocks = _reduce_scatter_rows(comm, g, sharded)
+        synced = gspmd.allreduce_mean_leaves([g[i] for i in whole], comm)
+        g_mine = [g_blocks[i] if s else g[i] for i, s in enumerate(plan)]
+        for i, t in zip(whole, synced):
+            g_mine[i] = t
+        p_mine = _tree.unflatten(treedef, [
+            _rows(t, r, p) if s else t for t, s in zip(leaves, plan)])
+        with torch.no_grad():
+            updates, opt_state = self.optimizer.update(
+                _tree.unflatten(treedef, g_mine), opt_state, p_mine)
+        new = _tree.leaves(optim.apply_updates(p_mine, updates))
+        gathered = _allgather_rows(comm, new, sharded)
+        new = [gathered.get(i, t) for i, t in enumerate(new)]
+        return _tree.unflatten(treedef, new), opt_state
+
+    def _eager_step(self, state, local) -> None:
+        comm = state["comm"]
+        loss, grads = value_and_grad(self.loss_fn, state["params"], local)
+        state["loss"] = eager.allreduce(comm, loss, op="mean")
+        self._hook("on_forward", state)
+        if self.mode == "eager_async":
+            state["loss_meter"].add(state["loss"])
+            self._async_sync_and_update(state, grads, comm)
+            return
+        grads = mpinn.synchronize_gradients(grads, comm)
+        self._hook("on_backward", state)
         state["loss_meter"].add(state["loss"])
         state["params"] = sgd_update(state["params"], grads, self.lr)
 
@@ -279,13 +505,17 @@ class AllReduceSGDEngine:
 
     def test(self, params: Any, iterator, metric_fn: LossFn) -> float:
         """Mean of ``metric_fn`` over the iterator: each rank on its row,
-        averaged over ranks per batch."""
+        averaged over ranks per batch.  In ``compiled`` mode the metric sees
+        the global batch, as the JAX engine's jitted metric does (batch
+        statistics span the ranks)."""
         comm = self.comm
         device = _tree.leaves(params)[0].device
         meter = AverageValueMeter()
+        scope = contextlib.nullcontext()
         if self.mode == "compiled":
             iterator = engine_wrap(iterator, comm, device)
-        with torch.no_grad():
+            scope = gspmd.global_batch(comm)
+        with torch.no_grad(), scope:
             for batch in iterator:
                 val = metric_fn(params, self._local(batch, comm.rank, device))
                 meter.add(eager.allreduce(comm, val.float().reshape(1),

@@ -12,11 +12,14 @@ training.  The port of ``examples/mnist/mnist_allreduce.py``:
 one rank.  On a GPU every rank binds ``cuda:LOCAL_RANK % device_count``;
 ``--device cpu`` runs on the CPU over gloo.  The model is the MLP
 784-1024-1024-10 in f32.  ``--mode compiled`` reads its batches through a
-``DataPipeline`` and rings the gradients through the ring kernels
-(``use_pallas_collectives`` on: w0 and w1 ring alone, the other four
-leaves in one tail bucket, 3 rings a step); ``eager_sync`` syncs them with
-``nn.synchronize_gradients``; ``eager_async`` dispatches their bucket as an
-async allreduce (through the ring kernel above the small-message cutoff).
+``DataPipeline`` and, as the JAX example, follows ``use_pallas_collectives``
+(``runtime.config``, off by default): off, it is GSPMD over the global
+batch, the gradients averaged with one ``torch.distributed`` allreduce a
+step; on, they ring through the ring kernels (w0 and w1 alone, the other
+four leaves in one tail bucket, 3 rings a step).  ``eager_sync`` syncs them
+with ``nn.synchronize_gradients``; ``eager_async`` dispatches their bucket
+as an async allreduce (through the ring kernel above the small-message
+cutoff when the knob is on).
 The eager modes check the replicas every 10 steps and at the end.
 ``--ckpt-dir`` saves every ``--ckpt-every`` steps and at the end, and a
 rerun with the same directory resumes where the last save left off.
@@ -71,7 +74,6 @@ def run(args, hooks=None) -> dict:
     from torchmpi_tpu_torch.utils.data import (ShardedIterator, load_mnist,
                                                resume_at)
 
-    mpi.config.set("use_pallas_collectives", args.mode != "eager_sync")
     device = mpi.start(device=args.device)
     try:
         p, rank = mpi.size(), mpi.rank()

@@ -7,15 +7,21 @@ every step.
 ``--nproc p`` spawns the p ranks itself (``runtime.launch``); under
 ``torchrun`` each process is one rank.  On a GPU
 every rank binds ``cuda:LOCAL_RANK % device_count``; ``--device cpu`` runs
-on the CPU over gloo.  ``--mode compiled`` syncs the gradients through the
-ring kernels (``use_pallas_collectives`` on); ``--mode eager_sync`` through
-``nn.synchronize_gradients``; ``--mode eager_async`` as async bucket
-allreduces drained per ``--async-drain`` (``ready``: each bucket's
+on the CPU over gloo.  ``--mode compiled`` follows
+``use_pallas_collectives`` (``runtime.config``, off by default) as the JAX
+example does: off, it is GSPMD over the global batch (batch norm's
+statistics span the ranks, the gradients are averaged with one
+``torch.distributed`` allreduce); on, the gradients ring through the ring
+kernels and batch norm is per rank.  ``--mode eager_sync`` syncs them
+through ``nn.synchronize_gradients``; ``--mode eager_async`` as async
+bucket allreduces drained per ``--async-drain`` (``ready``: each bucket's
 parameters update as its collective completes; ``barrier``: after all of
-them), through the ring kernels above the small-message cutoff; the
-compiled mode reads its batches through a ``DataPipeline``.  The data is
-``synthetic_mnist`` at the image size asked for.  Every ``--stats-every`` steps the BN running statistics are
-refreshed from the last batch, and the run ends with an inference-mode
+them), through the ring kernels above the small-message cutoff when the
+knob is on; the compiled mode reads its batches through a
+``DataPipeline``.  The data is ``synthetic_mnist`` at the image size asked
+for.  Every ``--stats-every`` steps the BN running statistics are
+refreshed from the last global batch (every rank's rows, so every rank
+holds the same statistics), and the run ends with an inference-mode
 evaluation.  ``--ckpt-dir`` saves the parameters and the BN statistics
 every ``--ckpt-every`` steps and at the end, asynchronously, and a rerun
 with the same directory resumes from the latest save.  The defaults are a small net on 32x32 images; ``--depth 50
@@ -57,7 +63,8 @@ def parse_args(argv=None):
 
 
 def run(args) -> dict:
-    """One rank's run; returns its final numbers."""
+    """One rank's run; returns its final numbers and its BN running
+    statistics (numpy leaves in tree order)."""
     import torch
 
     from torchmpi_tpu_torch.data import DataPipeline
@@ -65,10 +72,10 @@ def run(args) -> dict:
     from torchmpi_tpu_torch.models import resnet
     from torchmpi_tpu_torch.runtime import communicator, config, lifecycle
     from torchmpi_tpu_torch.utils import checkpoint as ckpt
+    from torchmpi_tpu_torch.utils import tree
     from torchmpi_tpu_torch.utils.data import (ShardedIterator, resume_at,
                                                synthetic_mnist)
 
-    config.set("use_pallas_collectives", args.mode != "eager_sync")
     config.set("engine_async_drain", args.async_drain)
     device = lifecycle.start(device=args.device)
     try:
@@ -79,7 +86,8 @@ def run(args) -> dict:
         ds = synthetic_mnist(n=n, n_classes=args.classes, seed=args.seed,
                              image_shape=(args.image, args.image, 3))
         params, bn_state = resnet.init(args.seed, cfg, device=device)
-        update_stats = resnet.make_update_stats_fn(cfg)
+        update_stats = resnet.make_update_stats_fn(
+            cfg, comm=communicator.stack.current())
         box = {"state": bn_state, "x": None}
 
         mgr, start_step, hooks = None, 0, {}
@@ -133,7 +141,8 @@ def run(args) -> dict:
                           resnet.make_accuracy_fn(cfg, box["state"]))
         out = {"rank": rank, "size": p, "steps": state["t"],
                "loss": state["loss_meter"].mean, "accuracy": acc,
-               "device": str(device)}
+               "device": str(device),
+               "bn_stats": [t.cpu().numpy() for t in tree.leaves(box["state"])]}
         if rank == 0:
             print(f"final train loss {out['loss']:.4f}, inference-mode "
                   f"accuracy {acc * 100:.2f}%", flush=True)

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from ..utils import tree as _tree
 from ._common import DeviceLike, dense_init, generator as _generator, \
     num_params, resolve_device, stack_dense  # noqa: F401
 
@@ -406,6 +407,12 @@ def _sgd_update_(p: torch.Tensor, g: torch.Tensor, lr: float) -> None:
     p.sub_(g)
 
 
+def _needs_mesh(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs the mesh of ROADMAP.md item 12 (slice 3 of the port, "
+        f"data and model parallelism); this step trains on one device")
+
+
 def make_train_step(cfg: Config, mesh: Optional[Any] = None,
                     lr: float = 3e-4, attn: str = "full", optimizer=None,
                     remat: str = "none", loss_chunk: int = 0,
@@ -413,33 +420,42 @@ def make_train_step(cfg: Config, mesh: Optional[Any] = None,
     """One training step on one device:
     ``step(params, opt_state, tokens, targets) -> (params, opt_state, loss)``.
 
-    Plain SGD, ``p - lr * g``, applied to the parameters in place under
-    ``no_grad`` (the JAX step returns new ones and donates the old); the
-    returned ``params`` is the same tree.  Every leaf is made to require a
-    gradient, and each gradient is freed as soon as its update is applied.
-    ``remat``/``loss_chunk`` as in :func:`apply`/:func:`make_loss_fn` —
-    pass ``remat="dots"`` and a ``loss_chunk`` for 8B-scale configs.
-    ``mesh``, ``optimizer`` and ``zero1`` come with slice 3 of the port."""
+    Without ``optimizer``: plain SGD, ``p - lr * g``.  With one (an
+    optax-shaped optimizer of ``torchmpi_tpu_torch.optim``, its state from
+    ``optimizer.init(params)``): its update, then ``p + u``, as the JAX
+    step does.  Either is applied to the parameters (and the optimizer's
+    moments) in place under ``no_grad`` (the JAX step returns new ones and
+    donates the old); the returned ``params`` is the same tree.  Every leaf
+    is made to require a gradient, and each gradient is freed as soon as
+    its leaf is updated.  ``remat``/``loss_chunk`` as in
+    :func:`apply`/:func:`make_loss_fn` — pass ``remat="dots"`` and a
+    ``loss_chunk`` for 8B-scale configs.  ``opt_state_example`` only
+    shapes zero1's sharding in JAX; ``mesh`` and ``zero1`` need the mesh
+    of item 12 and raise."""
     if mesh is not None:
-        raise _mesh_slice_3("make_train_step(mesh=...)")
-    if optimizer is not None or opt_state_example is not None:
-        raise _mesh_slice_3("an optimizer other than plain SGD")
+        raise _needs_mesh("make_train_step(mesh=...)")
     if zero1:
-        raise _mesh_slice_3("zero1 (optimizer state sharded over dp)")
+        raise _needs_mesh("zero1 (optimizer state sharded over dp)")
     loss_fn = make_loss_fn(cfg, attn=attn, remat=remat,
                            loss_chunk=loss_chunk)
 
     def step(params: Params, opt_state: Any, tokens: torch.Tensor,
              targets: torch.Tensor):
-        leaves = list(_leaves(params))
+        # The optimizer's state is a tree in JAX order; the SGD step has
+        # no state, and keeps the parameters' own order.
+        leaves = (_tree.leaves(params) if optimizer is not None
+                  else list(_leaves(params)))
         for p in leaves:
             if not p.requires_grad:
                 p.requires_grad_(True)
         loss = loss_fn(params, (tokens, targets))
         grads = list(torch.autograd.grad(loss, leaves))
-        for i, p in enumerate(leaves):
-            _sgd_update_(p, grads[i], lr)
-            grads[i] = None
+        if optimizer is not None:
+            opt_state = optimizer.apply_(leaves, grads, opt_state)
+        else:
+            for i, p in enumerate(leaves):
+                _sgd_update_(p, grads[i], lr)
+                grads[i] = None
         return params, opt_state, loss.detach()
 
     return step

@@ -22,7 +22,10 @@ Where the two frameworks differ and the port follows JAX:
 Convolutions are ``torch.nn.functional.conv2d`` (cuDNN), as the JAX package
 leaves them to XLA.  Batch norm in training takes this process's batch
 statistics: with one process per rank that is the per-rank BN of the JAX
-engine's ring path.
+engine's ring path.  Inside ``collectives.gspmd.global_batch(comm)`` (the
+engine's GSPMD mode, and :func:`make_update_stats_fn` given ``comm``) the
+per-channel ``(mean, E[x^2])`` pair is averaged over the ranks first, so
+the statistics are the global batch's, as in the JAX package's GSPMD step.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..collectives import gspmd
 from ._common import DeviceLike, generator, num_params, resolve_device  # noqa: F401
 
 Params = Dict[str, Any]
@@ -138,6 +142,10 @@ def _batch_norm(x: torch.Tensor, p: Params, stats: Optional[Params],
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         msq = (xf * xf).mean(dim=(0, 2, 3))
+        comm = gspmd.current()
+        if comm is not None:
+            mean, msq = gspmd.mean_over_ranks(torch.stack([mean, msq]),
+                                              comm).unbind(0)
         var = torch.clamp(msq - mean * mean, min=0.0)
         if collect is not None:
             collect.append((mean, var))
@@ -288,13 +296,16 @@ def apply(cfg: Config, params: Params, x: torch.Tensor,
     return h.float() @ params["fc_w"].float() + params["fc_b"].float()
 
 
-def make_update_stats_fn(cfg: Config, momentum: float = 0.9):
+def make_update_stats_fn(cfg: Config, momentum: float = 0.9, comm=None):
     """``(params, state, x) -> new_state``: one training-mode forward whose
-    per-BN batch statistics EMA-update the running statistics."""
+    per-BN batch statistics EMA-update the running statistics.  With
+    ``comm`` the statistics are those of the global batch, every rank's
+    ``x`` together (the JAX example folds the global batch): each rank
+    then holds the same running statistics."""
 
     def update(params: Params, state: Params, x: torch.Tensor) -> Params:
         collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
-        with torch.no_grad():
+        with torch.no_grad(), gspmd.global_batch(comm):
             apply(cfg, params, x, train=True, _collect=collected)
         it = iter(collected)
 
@@ -317,7 +328,8 @@ def make_update_stats_fn(cfg: Config, momentum: float = 0.9):
 
 def make_loss_fn(cfg: Config):
     """Mean softmax cross-entropy in training mode (this process's BN
-    statistics): the ``loss_fn(params, batch)`` the engine takes."""
+    statistics, or the global batch's inside ``gspmd.global_batch``): the
+    ``loss_fn(params, batch)`` the engine takes."""
 
     def loss_fn(params: Params, batch) -> torch.Tensor:
         x, y = batch

@@ -328,29 +328,37 @@ def checkpoint_hooks(manager: CheckpointManager, save_process: int = 0,
 
     ``extra`` (``state -> dict``) merges more trees into every save, e.g.
     BN running statistics.  Only rank ``save_process`` writes: the
-    replicas' parameters are the same."""
+    replicas' parameters are the same.  Under the engine's zero1 the
+    optimizer state is gathered whole first (every rank takes part), so a
+    checkpoint restores with zero1 or without it, as the JAX package's
+    does."""
     last_saved = {"t": -1}
 
     def _save(state, final=False):
+        opt_state = state.get("opt_state")
+        engine = state.get("engine")
+        if opt_state is not None and getattr(engine, "zero1", False):
+            opt_state = engine.full_opt_state(opt_state, state["params"],
+                                              state.get("comm"))
+        last_saved["t"] = state["t"]
+        if _process_rank() != save_process:
+            return
         tree = {"params": state["params"]}
-        if state.get("opt_state") is not None:
-            tree["opt_state"] = state["opt_state"]
+        if opt_state is not None:
+            tree["opt_state"] = opt_state
         if extra is not None:
             tree.update(extra(state))
         meta = {"epoch": state["epoch"], "t": state["t"]}
         if final:
             meta["final"] = True
         manager.save(state["t"], tree, metadata=meta)
-        last_saved["t"] = state["t"]
 
     def on_update(state):
-        if _process_rank() != save_process:
-            return
         if manager.should_save(state["t"]) and state["t"] > 0:
             _save(state)
 
     def on_end(state):
-        if _process_rank() == save_process and last_saved["t"] != state["t"]:
+        if last_saved["t"] != state["t"]:
             _save(state, final=True)
         if isinstance(manager, AsyncCheckpointManager):
             manager.wait()
