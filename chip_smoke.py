@@ -183,6 +183,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the moments stay bf16, and each step launch B4, B5 and B6 as phase 6
    does; step ms and peak memory.
 
+17. hierarchy: 4 ranks spawned on the one card (gloo).  Device plane, CUDA
+   tensors of integer-valued f32 (every order of summation gives the same
+   bits) at config 1's gradient size (1,863,690) and at 2^23, each rank's
+   result held bit for bit against the plain result over every rank's
+   input (regenerated from its seed): over a cartesian 2x2 split
+   (``push_communicator(lambda r: r // 2)``), ``allreduce`` (sum, mean,
+   max), ``broadcast`` and ``reduce`` through the ``mpi`` surface at the
+   intra level, the inter level and the span (0, 2); over a 3+1 split
+   under ``use_tree_communicators``, ``allreduce_tree``,
+   ``broadcast_tree``, ``reduce_tree`` (roots 0 and 3) and
+   ``allgatherv``; at the world level ``alltoall`` and the three scalar
+   forms.  Then with ``use_pallas_collectives`` on and the span at (0, 2)
+   over the 2x2 split, one world-level allreduce of 25,557,032 f32
+   through ``selector.resolve`` must resolve to the world with no groups
+   and launch B1 exactly once on each rank (the counts set to 0 just
+   before), bit for bit against its plain version.  Host plane: a
+   ``HostCommunicator`` over the 4 ranks and a
+   ``HierarchicalHostCommunicator`` over ((0, 1), (2, 3)), wired from
+   endpoints gathered over the world group, run config 1's vector copied
+   from the card into pinned host memory, f32 and bf16: allreduce,
+   broadcast, reduce, allgather, sendreceive, barrier and the flat ring's
+   async allreduce, on the device plane's integer-valued random inputs,
+   each bit for bit against its plain result on the card; the
+   selector's host column (a CPU tensor in a world started on the card)
+   on the attached ring; and a pair of ranks whose second never enters,
+   whose first must raise ``HostcommTimeout`` within its 1 s deadline.
+   The f32 allreduce of config 1's size is timed on the host ring, with
+   gloo on the same host tensors and with B1 on the card (yardsticks).
+
 Then a ``timing`` line with each phase's seconds (the build included, the
 imports before it not), a line with the card's name and power limit, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of
@@ -2431,8 +2460,320 @@ def phase_options():
             "profiler": prec, "seconds": seconds}
 
 
+# The hierarchy phase: 4 ranks on the one card, config 1's gradient size
+# (the MLP 784-1024-1024-10's 1,863,690 f32) and 2^23; B1 once at the
+# collectives path's size under the span over both levels of a 2x2 split;
+# host rings with a stalled peer's deadline.
+HIER_RANKS = 4
+HIER_SIZES = (784 * 1024 + 1024 + 1024 * 1024 + 1024 + 1024 * 10 + 10, 1 << 23)
+HIER_RING_N = 25_557_032
+HIER_DEADLINE_MS = 30_000          # every host ring wait: a hang fails
+HIER_STALL_MS = 1_000              # the forced stall's deadline
+HIER_TIMED_CALLS = 5
+
+
+def _hier_inputs(torch, n, p, device):
+    """Every rank's integer-valued f32 vector (in [-8, 8], from a seed a
+    rank): any order of summation gives the same bits."""
+    return [torch.randint(-8, 9, (n,), dtype=torch.float32, device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(7919 + r)) for r in range(p)]
+
+
+def _hier_plain(torch, what, groups, me, xs, root=0):
+    """The plain result of a grouped collective for rank ``me``: the group
+    (a group of its own for a rank in none) reduced, broadcast or reduced
+    to a root from every member's input."""
+    full = list(groups or [tuple(range(len(xs)))])
+    full += [(r,) for r in range(len(xs)) if not any(r in g for g in full)]
+    g = next(g for g in full if me in g)
+    rows = torch.stack([xs[r] for r in g])
+    if what == "broadcast":
+        return xs[g[root]].clone()
+    red = rows.max(0).values if what == "max" else rows.sum(0)
+    if what == "mean":
+        red = red * (1.0 / len(g))          # exact: groups of 1, 2 and 4
+    if what.startswith("reduce"):
+        return red if me == g[root] else xs[me].clone()
+    return red
+
+
+def hierarchy_rank_main() -> dict:
+    """One rank of the hierarchy phase (spawned, 4 ranks on the card)."""
+    import torch
+    import torch.distributed as dist
+
+    import torchmpi_tpu_torch as mpi
+    from torchmpi_tpu_torch.collectives import (cuda_ring, eager,
+                                                hierarchical, hostcomm,
+                                                selector)
+    from torchmpi_tpu_torch.runtime import config
+    from torchmpi_tpu_torch.runtime.failure import HostcommTimeout
+
+    t_start = time.perf_counter()
+    dev = mpi.start()
+    world = mpi.stack.world()
+    me, p = world.rank, world.size
+    bad, done = [], []
+
+    def check(name, got, want):
+        done.append(name)
+        same = (got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(got.contiguous().view(torch.uint8),
+                                want.contiguous().view(torch.uint8)))
+        if not same:
+            bad.append(name)
+
+    def fact(name, ok):
+        done.append(name)
+        if not ok:
+            bad.append(name)
+
+    try:
+        # --- device plane: CUDA tensors through the mpi surface ---------
+        t0 = time.perf_counter()
+        intra, inter = ((0, 1), (2, 3)), ((0, 2), (1, 3))
+        for n in HIER_SIZES:
+            xs = _hier_inputs(torch, n, p, dev)
+            x = xs[me]
+            config.reset()
+            mpi.stack.reset(world)
+            mpi.push_communicator(lambda r: r // 2)
+            fact("2x2 is cartesian", mpi.stack.current().cartesian)
+            for label, move, want_groups in (
+                    ("intra", lambda: mpi.set_communicator(1), intra),
+                    ("inter", lambda: mpi.set_communicator(
+                        1, mpi.CommunicatorType.INTER), inter),
+                    ("span(0,2)", lambda: mpi.set_collective_span(0, 2),
+                     None)):
+                move()
+                _, groups = hierarchical.groups_for_cursor(mpi.stack)
+                fact(f"2x2 {label} groups", groups == want_groups)
+                tag = f"2x2 {label} n={n}"
+                for op in ("sum", "mean", "max"):
+                    check(f"{tag} allreduce {op}", mpi.allreduce(x, op=op),
+                          _hier_plain(torch, op, groups, me, xs))
+                check(f"{tag} broadcast", mpi.broadcast(x, root=1),
+                      _hier_plain(torch, "broadcast", groups, me, xs, 1))
+                check(f"{tag} reduce", mpi.reduce(x, root=0),
+                      _hier_plain(torch, "reduce", groups, me, xs))
+            # The tree: 3 + 1 under use_tree_communicators.
+            config.reset(use_tree_communicators=True,
+                         use_cartesian_communicators=False)
+            mpi.stack.reset(world)
+            mpi.push_communicator(lambda r: int(r == 3))
+            lv = mpi.stack.current()
+            fact("3+1 is a tree", not lv.cartesian
+                 and lv.group_ranks == ((0, 1, 2), (3,)))
+            tag = f"tree 3+1 n={n}"
+            check(f"{tag} allreduce_tree sum",
+                  hierarchical.allreduce_tree(lv, x),
+                  _hier_plain(torch, "sum", None, me, xs))
+            check(f"{tag} allreduce_tree mean",
+                  hierarchical.allreduce_tree(lv, x, op="mean"),
+                  _hier_plain(torch, "mean", None, me, xs))
+            for root in (0, 3):
+                check(f"{tag} broadcast_tree root {root}",
+                      hierarchical.broadcast_tree(lv, x, root=root),
+                      xs[root])
+                check(f"{tag} reduce_tree root {root}",
+                      hierarchical.reduce_tree(lv, x, root=root),
+                      _hier_plain(torch, "reduce", None, me, xs, root))
+            out, counts = eager.allgatherv(world, x, groups=lv.group_ranks)
+            g = lv.group_ranks[lv.group_of_rank(me)]
+            want = torch.zeros((3, n), device=dev)
+            want[:len(g)] = torch.stack([xs[r] for r in g])
+            check(f"{tag} allgatherv", out, want)
+            fact(f"{tag} allgatherv counts", list(counts) == [3, 3, 3, 1])
+            # The world level: alltoall and the scalar forms.
+            config.reset()
+            mpi.stack.reset(world)
+            m = n - n % p
+            check(f"world alltoall n={m}", mpi.alltoall(x[:m]), torch.cat(
+                [xs[r][:m].view(p, m // p)[me] for r in range(p)]))
+            v = me + 0.5
+            fact(f"world scalars n={n}",
+                 mpi.broadcast_scalar(v, root=2) == 2.5
+                 and mpi.reduce_scalar(v, root=1) == (8.0 if me == 1 else v)
+                 and mpi.sendreceive_scalar(v, src=0, dst=3)
+                 == (0.5 if me == 3 else v))
+            del xs, x
+        device_s = time.perf_counter() - t0
+
+        # --- B1 under the span over both levels of the 2x2 split ---------
+        config.reset(use_pallas_collectives=True)
+        mpi.stack.reset(world)
+        mpi.push_communicator(lambda r: r // 2)
+        mpi.set_collective_span(0, 2)
+        comm, groups = hierarchical.groups_for_cursor(mpi.stack)
+        xs = _hier_inputs(torch, HIER_RING_N, p, dev)
+        torch.cuda.synchronize()
+        _reset_ring_counts()
+        out = selector.resolve("allreduce")(comm, xs[me], groups=groups)
+        torch.cuda.synchronize()
+        launches = _ring_counts()
+        fact("span (0,2) resolves to the world with no groups",
+             comm is world and groups is None)
+        fact("B1 once", launches == {"ring_allreduce": 1,
+                                     "ring_reduce_scatter": 0,
+                                     "ring_allgather": 0})
+        want = cuda_ring._oneshot_allreduce_plain(xs)[me]
+        check("B1 under span (0,2) vs plain", out, want)
+        ring_err = float((out.double() - want.double()).abs().max())
+        del xs, out, want
+        config.reset()
+        mpi.stack.reset(world)
+        torch.cuda.empty_cache()
+
+        # --- host plane: rings wired from endpoints gathered over gloo ---
+        t1 = time.perf_counter()
+        groups2 = [[0, 1], [2, 3]]
+        ports = [None] * p
+        dist.all_gather_object(ports, hostcomm.free_ports(3))
+        lo = lambda i: [("127.0.0.1", q[i]) for q in ports]  # noqa: E731
+        ring_kw = dict(timeout_ms=60_000, io_deadline_ms=HIER_DEADLINE_MS)
+        flat = hostcomm.HostCommunicator(me, p, lo(0), **ring_kw)
+        hier = hostcomm.HierarchicalHostCommunicator(
+            me, groups2, lo(1), [lo(2)[g[0]] for g in groups2], **ring_kw)
+        n = HIER_SIZES[0]
+        # The device plane's integer-valued inputs: every partial sum of
+        # four of them is an integer of at most 32, exact in bf16 too, so
+        # a piece at the wrong offset or reduced twice changes the bits.
+        xs = _hier_inputs(torch, n, p, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            on_card = xs[me].to(dtype)
+
+            def pinned():
+                buf = torch.empty(n, dtype=dtype, pin_memory=True)
+                return buf.copy_(on_card)
+
+            def plain(what, root=0):
+                return _hier_plain(torch, what, None, me, xs, root).to(
+                    dtype).cpu()
+
+            dt = str(dtype).replace("torch.", "")
+            for name, ring in (("flat", flat), ("hierarchical", hier)):
+                tag = f"host {name} {dt}"
+                check(f"{tag} allreduce", ring.allreduce(pinned()),
+                      plain("sum"))
+                check(f"{tag} broadcast", ring.broadcast(pinned(), root=2),
+                      plain("broadcast", 2))
+                check(f"{tag} reduce", ring.reduce(pinned(), root=1),
+                      plain("reduce", 1))
+                check(f"{tag} allgather", ring.allgather(pinned()),
+                      torch.cat(xs).to(dtype).cpu())
+                check(f"{tag} sendreceive",
+                      ring.sendreceive(pinned(), src=1, dst=3),
+                      (xs[1] if me == 3 else xs[me]).to(dtype).cpu())
+                ring.barrier()
+            check(f"host flat {dt} allreduce_async",
+                  flat.allreduce_async(pinned()).wait(), plain("sum"))
+            # The selector's host column: a CPU tensor in a world started
+            # on the card, the ring attached to the world.
+            world.host_ring = flat
+            try:
+                buf = pinned()
+                fact(f"host column {dt} selected",
+                     selector.select(payload=buf) == "hostcomm")
+                check(f"host column {dt} allreduce mean",
+                      selector.resolve("allreduce", payload=buf)(
+                          world, buf, op="mean"), plain("mean"))
+            finally:
+                world.host_ring = None
+        del xs
+        host_s = time.perf_counter() - t1
+
+        # --- yardsticks: the f32 allreduce of config 1's size -------------
+        def timed(fn, sync=False):
+            ms = []
+            for i in range(HIER_TIMED_CALLS + 1):
+                dist.barrier()
+                a = time.perf_counter()
+                fn()
+                if sync:
+                    torch.cuda.synchronize()
+                if i:
+                    ms.append((time.perf_counter() - a) * 1e3)
+            return sorted(ms)[len(ms) // 2], ms
+
+        host_buf = torch.empty(n, pin_memory=True).copy_(
+            torch.full((n,), float(me), device=dev))
+        card_x = torch.full((n,), float(me), device=dev)
+        yard = {
+            "host_ring": timed(lambda: flat.allreduce(host_buf)),
+            "gloo_host": timed(lambda: dist.all_reduce(host_buf)),
+            "b1_card": timed(lambda: cuda_ring.ring_allreduce(world, card_x),
+                             sync=True)}
+
+        # --- a stalled peer: rank 1 never enters -------------------------
+        sp = [None] * p
+        dist.all_gather_object(sp, hostcomm.free_ports(1)[0])
+        stall = None
+        pair = None
+        if me < 2:
+            pair = hostcomm.HostCommunicator(
+                me, 2, [("127.0.0.1", sp[0]), ("127.0.0.1", sp[1])],
+                timeout_ms=60_000, io_deadline_ms=HIER_STALL_MS,
+                io_timeout_ms=60_000)
+        if me == 0:
+            a = time.perf_counter()
+            try:
+                pair.allreduce(torch.ones(1 << 16))
+                stall = {"raised": None}
+            except HostcommTimeout as e:
+                stall = {"raised": "HostcommTimeout", "message": str(e)}
+            stall["seconds"] = time.perf_counter() - a
+            stall["deadline_ms"] = HIER_STALL_MS
+            fact("a stalled peer raises HostcommTimeout in time",
+                 stall["raised"] == "HostcommTimeout"
+                 and stall["seconds"] < HIER_STALL_MS / 1e3 + 4.0)
+        dist.barrier()
+        if pair is not None:
+            pair.close()
+        flat.close()
+        hier.close()
+        return {"rank": me, "checks": len(done), "bad": bad,
+                "launches": launches, "ring_max_abs_err": ring_err,
+                "yardsticks_ms": yard, "stall": stall,
+                "device_plane_s": device_s, "host_plane_s": host_s,
+                "seconds": time.perf_counter() - t_start}
+    finally:
+        mpi.stop()
+
+
+def phase_hierarchy():
+    """The hierarchical communicators and the host plane on 4 ranks of the
+    one card; returns rank 0's record."""
+    from torchmpi_tpu_torch.collectives import hostcomm
+    from torchmpi_tpu_torch.runtime import launch
+
+    t0 = time.perf_counter()
+    hostcomm.lib()              # build the host plane once, before the ranks
+    build_s = time.perf_counter() - t0
+    res = launch.spawn(HIER_RANKS, hierarchy_rank_main, (), timeout_s=600)
+    r0 = res[0]
+    bad = {r["rank"]: r["bad"] for r in res if r["bad"]}
+    yard = {k: {"median_ms": v[0], "ms": v[1]}
+            for k, v in r0["yardsticks_ms"].items()}
+    emit(phase="hierarchy", ranks=HIER_RANKS, sizes=list(HIER_SIZES),
+         checks=[r["checks"] for r in res], failed=bad,
+         launches=[r["launches"] for r in res],
+         ring_n=HIER_RING_N, ring_max_abs_err=r0["ring_max_abs_err"],
+         stall=r0["stall"], host_build_s=build_s,
+         device_plane_s=r0["device_plane_s"],
+         host_plane_s=r0["host_plane_s"], rank0_s=r0["seconds"],
+         seconds=time.perf_counter() - t0)
+    emit(phase="hierarchy_yardsticks", n=HIER_SIZES[0], dtype="float32",
+         ranks=HIER_RANKS, where="host ring and gloo: the card's host CPU "
+         "over loopback; B1: the card, ranks time-sliced", **yard)
+    if bad:
+        raise AssertionError(f"hierarchy phase checks failed: {bad}")
+    return r0
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
-                       async_launches, async_rec, mnist_rec, options):
+                       async_launches, async_rec, mnist_rec, options,
+                       hierarchy):
     """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
     work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
     an eager_async step beside (times, bound and the largest error over
@@ -2442,7 +2783,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
     Launches of every path (train_resnet_async: its two eager_async
     runs; train_mnist: the example's three runs; train_mnist_options: its
     five runs, the profiler's window inside the first; tester: the ring
-    sweep)."""
+    sweep; hierarchy: the world-level allreduce under the span over both
+    levels of a 2x2 split, B1 only)."""
     replaces, function, kind, library = RING_KERNELS[name]
     big = next(r for r in rings[2]["records"]
                if r["kind"] == kind and "kernel_ms" in r)
@@ -2456,7 +2798,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
                "train_mnist_options": sum(
                    r["launches_total"][name]
                    for r in options["mnist_options"]["runs"].values()),
-               "tester": options["tester"]["ring"]["launches"][name]}
+               "tester": options["tester"]["ring"]["launches"][name],
+               "hierarchy": hierarchy["launches"][name]}
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     err = max(r["max_abs_err"] for p in (2, 4)
               for r in rings[p]["records"] if r["kind"] == kind)
@@ -2467,7 +2810,7 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
            "design": RING_DESIGN[name]}
     if kind == "allreduce":
         step, buckets = rings[2]["resnet_rings"], rings[2]["bucket_rings"]
-        err = max([err, step["max_abs_err"]]
+        err = max([err, step["max_abs_err"], hierarchy["ring_max_abs_err"]]
                   + [rings[p]["bucket_rings"]["max_abs_err"] for p in (2, 4)]
                   + [h["max_abs_err"]
                      for r in (train_rec, async_rec, mnist_rec)
@@ -2631,6 +2974,7 @@ def main() -> int:
                                       phase_train_resnet_async)
     mnist_rec = timed("train_mnist", phase_train_mnist)
     options = timed("options", phase_options)
+    hierarchy = timed("hierarchy", phase_hierarchy)
     if args.layers != 32:
         emit(phase="cut", n_layers=args.layers, of=32)
     gen, cfg = timed("generate", phase_generate, torch, llama, fa,
@@ -2709,7 +3053,7 @@ def main() -> int:
                       ("dk_max_abs_err", "dv_max_abs_err"), launches),
         *(ring_kernel_record(name, rings, resnet_rec["launches"],
                              resnet_rec, async_launches, async_rec,
-                             mnist_rec, options)
+                             mnist_rec, options, hierarchy)
           for name in RING_KERNELS),
         conv_kernel_record(conv_recs, conv_launches),
     ])

@@ -122,6 +122,68 @@ def test_resnet_engine_runs_without_jax_loaded():
     assert res.stdout.strip() == "ok"
 
 
+HIERARCHY_RANK = """
+import sys
+import torch
+import torchmpi_tpu_torch as mpi
+from torchmpi_tpu_torch.collectives import hierarchical, hostcomm
+import torch.distributed as dist
+
+mpi.config.set("use_tree_communicators", True)
+mpi.config.set("use_cartesian_communicators", False)
+mpi.start(device="cpu")
+me = mpi.rank()
+mpi.push_communicator(lambda r: r)          # two groups of one: a tree
+x = torch.full((6,), float(me + 1))
+tree = hierarchical.allreduce_tree(mpi.stack.current(), x)
+mpi.set_collective_span(0, 2)
+flat = mpi.allreduce(x)
+eps = [None, None]
+dist.all_gather_object(eps, ("127.0.0.1", hostcomm.free_ports(1)[0]))
+ring = hostcomm.HostCommunicator(me, 2, eps, timeout_ms=60000,
+                                 io_deadline_ms=20000)
+host = ring.allreduce(x.clone())
+ring.close()
+mpi.stop()
+assert tree.tolist() == flat.tolist() == host.tolist() == [3.0] * 6
+loaded = [m for m in sys.modules if m.split('.')[0] in
+          ('jax', 'jaxlib', 'torchmpi_tpu')]
+assert not loaded, loaded
+print('ok')
+"""
+
+
+def test_hierarchy_and_host_ring_run_without_jax_loaded(tmp_path):
+    """Two processes of a gloo world: a tree allreduce over a pushed split,
+    the flat one under the span over both levels, and a host ring wired
+    from endpoints gathered over the world, with neither JAX nor the JAX
+    package loaded."""
+    import os
+
+    from torchmpi_tpu_torch.runtime import launch
+
+    script = tmp_path / "rank.py"
+    script.write_text(HIERARCHY_RANK)
+    port = launch.free_port()
+    procs = []
+    for r in range(2):
+        env = {**os.environ, "PYTHONPATH": str(ROOT),
+               **launch._rank_env(r, 2, port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script)], cwd=tmp_path, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [pr.communicate(timeout=120) for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for pr, (out, err) in zip(procs, outs):
+        assert pr.returncode == 0, err
+        assert out.strip() == "ok"
+
+
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     # Where CUDA is visible these would run on the card; decide here, in
     # the test, and make the CPU-only case the one under test.

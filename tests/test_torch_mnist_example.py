@@ -21,7 +21,10 @@ top-level ``import torchmpi_tpu_torch as mpi`` surface, on 2 gloo ranks
   the lines of the JAX example, the loss falling, ``data=synthetic`` and,
   in the eager modes, the replica check.
 * The surface: every ported name, the collectives over the current
-  communicator, and ``NotImplementedError`` naming item 4 for the rest.
+  communicator (a split one too), and the names that raised
+  ``NotImplementedError`` naming item 4 until the hierarchical
+  collectives came, which now raise what the JAX package's raise with no
+  world started.
 """
 
 from __future__ import annotations
@@ -371,8 +374,28 @@ def test_surface_has_the_jax_packages_names():
 
 @pytest.mark.parametrize("name", list(ITEM_4))
 def test_item_4_names_raise(name):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        getattr(mpi, name)(*ITEM_4[name])
+    """Item 4's names are ported: with no world started each raises the
+    error the JAX package's raises (the empty stack's), never
+    ``NotImplementedError``, and ``collective_availability`` returns the
+    JAX package's table."""
+    import torchmpi_tpu as jmpi
+    from torchmpi_tpu.collectives import selector as jselector
+    from torchmpi_tpu.runtime import config as jconfig
+
+    jconfig.reset()
+    jselector.configure()
+    mpi.config.reset()
+    args = ITEM_4[name]
+    jargs = tuple(a.numpy() if isinstance(a, torch.Tensor) else a
+                  for a in args)
+    outcomes = []
+    for fn, a in ((getattr(mpi, name), args), (getattr(jmpi, name), jargs)):
+        try:
+            outcomes.append(("returned", fn(*a)))
+        except Exception as e:  # noqa: BLE001 - compared below
+            assert not isinstance(e, NotImplementedError), e
+            outcomes.append(("raised", type(e)))
+    assert outcomes[0] == outcomes[1]
 
 
 def _surface_job():
@@ -396,10 +419,7 @@ def _surface_job():
         }
         mpi.barrier()
         mpi.push_communicator(lambda q: q)      # two intra groups of one
-        try:
-            mpi.allreduce(x)
-        except NotImplementedError as e:
-            out["split"] = "item 4" in str(e)
+        out["split"] = mpi.allreduce(x).tolist()
         return out
     finally:
         mpi.stop()
@@ -419,4 +439,4 @@ def test_surface_collectives_over_the_current_communicator(pool):
         assert out["scalar"] == 2.0
         assert out["async"] == [3.0, 10.0]
         assert out["async_all"] == [[1.0, 0.0], [[1.0, 0.0], [2.0, 10.0]]]
-        assert out["split"] is True
+        assert out["split"] == [float(r + 1), 10.0 * r]

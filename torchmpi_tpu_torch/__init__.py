@@ -17,8 +17,10 @@ reference's flagship example):
 - ``models.resnet``, ``models.mlp``, ``models.cnn``, ``engine``
   (``AllReduceSGDEngine``), ``nn`` (parameter and gradient sync,
   bucketing), ``collectives`` (``eager`` over ``torch.distributed``, the
-  ring kernels of ``cuda_ring``, the ``selector``), ``runtime.communicator``
-  and ``runtime.lifecycle`` (one process per rank);
+  ring kernels of ``cuda_ring``, the host plane's TCP rings of
+  ``hostcomm``, the ``hierarchical`` composition, the ``selector``),
+  ``runtime.communicator`` (the split levels and the cursor) and
+  ``runtime.lifecycle`` (one process per rank);
 - ``data`` — the input data plane: a host stage, a device stage that
   copies each batch through pinned memory on a side CUDA stream, and
   ``DataPipeline``, which the engine's compiled mode reads through;
@@ -35,12 +37,12 @@ The top level is the reference's ``mpi`` table, as in the JAX package::
     x = mpi.allreduce(x)             # over the current communicator
     mpi.stop()
 
-``rank()`` and ``size()`` count processes, one per rank.  The names whose
-machinery comes with the hierarchical collectives (ROADMAP.md slice 3, item
-4) raise ``NotImplementedError``: ``allgatherv``, ``alltoall``,
-``broadcast_scalar``, ``reduce_scalar``, ``sendreceive_scalar``,
-``set_communicator``, ``set_collective_span`` and
-``collective_availability``.
+``rank()`` and ``size()`` count processes, one per rank.  The communicator
+stack and its cursor are JAX's: ``push_communicator(keys)`` splits the
+current level, ``set_communicator(level, type)`` and
+``set_collective_span(begin, end)`` move the cursor every collective
+resolves, and ``collective_availability()`` prints the selector's table.
+The host plane is ``collectives.hostcomm`` (TCP rings over CPU tensors).
 
 Entry points run on the current CUDA device unless the caller passes
 ``device="cpu"``; the kernels build with ``nvcc`` at first use
@@ -67,12 +69,16 @@ from .collectives import (  # noqa: F401,E402
     sendreceive_scalar,
 )
 from .runtime import config  # noqa: F401,E402
-from .runtime.communicator import Communicator, stack  # noqa: F401,E402
+from .runtime.communicator import (Communicator,  # noqa: F401,E402
+                                   CommunicatorGuard, CommunicatorType, stack)
 from .runtime.handles import SynchronizationHandle, sync_all  # noqa: F401,E402
 from .runtime.handles import wait as sync_handle  # noqa: F401,E402
 from .runtime.handles import wait_all as sync_handles  # noqa: F401,E402
 from .runtime.lifecycle import (  # noqa: F401,E402
     barrier,
+    communicator_names,
+    hostname,
+    need_inter_node_collectives,
     process_count,
     process_rank,
     rank,
@@ -81,8 +87,8 @@ from .runtime.lifecycle import (  # noqa: F401,E402
     started,
     stop,
 )
-
-_LATER = collectives.eager._LATER
+from .collectives.selector import (  # noqa: F401,E402
+    availability as collective_availability)
 
 
 def push_communicator(keys, name=None):
@@ -91,17 +97,16 @@ def push_communicator(keys, name=None):
     return stack.push(keys, name=name)
 
 
-def set_communicator(level, type=None):  # noqa: A002 - the JAX signature
-    """The (level, intra/inter) cursor: not ported yet."""
-    raise NotImplementedError(f"set_communicator: {_LATER}")
+def set_communicator(level, type=CommunicatorType.INTRA):  # noqa: A002
+    """Move the (level, intra/inter) cursor."""
+    stack.set_communicator(level, type)
 
 
 def set_collective_span(begin, end):
-    """The span of levels a hierarchical collective covers: not ported
-    yet."""
-    raise NotImplementedError(f"set_collective_span: {_LATER}")
+    """Bound hierarchical collectives to levels [begin, end)."""
+    stack.set_collective_span(begin, end)
 
 
-def collective_availability(*args, **kwargs):
-    """The selector's table of implementations per cell: not ported yet."""
-    raise NotImplementedError(f"collective_availability: {_LATER}")
+def num_nodes_in_communicator():
+    """Distinct hosts in the current communicator."""
+    return stack.current().num_nodes()

@@ -50,6 +50,7 @@ import torch
 
 from ..runtime import config
 from ..runtime.communicator import Communicator
+from .eager import _mean
 
 _LANE = 128
 # Collective ids: one per ring that may be in flight at once.  The engine
@@ -130,18 +131,6 @@ def _pad_rs(x: torch.Tensor, p: int) -> torch.Tensor:
     chunks = torch.zeros((p, rows * _LANE), dtype=x.dtype, device=x.device)
     chunks[:, :n // p] = x.view(p, n // p)
     return chunks
-
-
-def _mean(out: torch.Tensor, p: int) -> torch.Tensor:
-    """The replica mean as the JAX package computes it: its ``out / p``
-    divides by a constant, which XLA turns into a product with the f32
-    reciprocal of p (one ulp off an IEEE division in about a third of f32
-    elements at p = 3; exact at a power of two).  A bf16 vector rounds that
-    f32 product to bf16; an integer vector gives f32, as ``int / int``
-    does there."""
-    recip = torch.ones((), dtype=torch.float32) / p
-    prod = out.to(torch.float32) * recip.to(out.device)
-    return prod.to(out.dtype) if out.dtype == torch.bfloat16 else prod
 
 
 def _ring_allreduce_plain(xs: Sequence[torch.Tensor],

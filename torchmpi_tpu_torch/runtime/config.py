@@ -6,7 +6,11 @@ stays the one registry of both packages.  Only the knobs of the ported
 modules are here: the span tracer (``obs_trace``, ``obs_span_capacity``),
 the event journal (``journal_*``), the serving plane (``serve_*``), the
 collective selector and the ring collectives (``use_pallas_collectives``,
-``small_allreduce_size_gpu``, the buffer geometry), the async collectives
+``small_allreduce_size_gpu``, the buffer geometry), the communicators'
+splits and the hierarchical collectives (``use_hierarchical_collectives``,
+``use_cartesian_communicators``, ``use_tree_communicators``), the host
+plane's rings (``small_allreduce_size_cpu``, ``bcast_size_tree_based``,
+``*_buffer_size_cpu``, ``deadlock_timeout_seconds``, ``hc_*``), the async collectives
 (``num_async_collectives_in_flight``), gradient bucketing
 (``gradient_bucket_bytes``) and the engine's asynchronous gradient sync
 (``engine_async_drain``, ``sync_gradient_frequency``), the input data plane
@@ -44,6 +48,15 @@ class Constants:
     """The ported modules' knobs (see ``docs/config.md``)."""
 
     # --- collectives ---
+    # Hierarchical (intra group, then across groups) vs flat collectives:
+    # the selector's multi-node cells and the *_hierarchical dispatchers
+    # (collectives/hierarchical.py) read it.
+    use_hierarchical_collectives: bool = True
+    # Cartesian (equal groups: one inter group per intra position) vs tree
+    # (one group of the intra roots) splits; read by every Communicator
+    # when it is made (runtime/communicator.py).
+    use_cartesian_communicators: bool = True
+    use_tree_communicators: bool = False
     # Prefer the hand-written ring collectives (collectives/cuda_ring.py)
     # over torch.distributed's; the engine's compiled mode then syncs its
     # gradients through them.
@@ -58,6 +71,27 @@ class Constants:
     max_buffer_size: int = 1 << 20
     num_buffers_per_collective: int = 3
     max_num_buffers_per_collective_tpu: int = 16
+
+    # --- host plane (the hostcomm TCP rings, collectives/hostcomm.py) ---
+    # Small-message cutoff in ELEMENTS: at or below it a ring allreduce or
+    # reduce moves the message as one piece.
+    small_allreduce_size_cpu: int = 1 << 16
+    # At or below this many bytes a ring broadcast moves as one piece;
+    # above it, in pieces of the buffer geometry below.
+    bcast_size_tree_based: int = 1 << 22
+    # Transfer piece bytes within [min, max], one per in-flight buffer
+    # (num_buffers_per_collective buffers a message).
+    min_buffer_size_cpu: int = 1 << 17
+    max_buffer_size_cpu: int = 1 << 18
+    # Progress-warning interval of a ring wait: a peer making no progress
+    # for this long prints a deadlock warning and the wait goes on.
+    deadlock_timeout_seconds: float = 10.0
+    # Hard no-progress deadline per blocking ring wait, in ms: past it the
+    # collective raises HostcommTimeout.  0 waits forever.
+    hc_io_deadline_ms: int = _env("TORCHMPI_TPU_HC_IO_DEADLINE_MS", 0, int)
+    # CRC32 trailer on every ring data frame, checked on receive
+    # (HostcommCorruption on a mismatch); every rank of a ring must agree.
+    hc_frame_crc: bool = _env_bool("TORCHMPI_TPU_HC_FRAME_CRC", False)
     # Gradient bucketing: leaves fuse into flat buckets of at most this
     # many bytes, by dtype, in tree order (nn/bucketing.py).
     gradient_bucket_bytes: int = 32 * 1024 * 1024

@@ -15,13 +15,20 @@ a card of its own; ranks that share a card (NCCL refuses two ranks on one
 device) and CPU worlds use gloo.  The port's ring collectives do not go
 through the backend at all: it carries the setup exchange, the small
 messages and the scalar collectives.
+
+After the world communicator, :func:`start` splits the world by host
+(``_init_per_node_communicators``, the JAX package's): the hostnames are
+gathered over the world group, and on more than one host a level keyed by
+hostname is pushed and the collective span widened over both levels.  On
+one machine nothing is pushed.
 """
 
 from __future__ import annotations
 
 import os
+import socket
 import threading
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -32,6 +39,9 @@ _lock = threading.Lock()
 _started = False
 _owns_group = False
 _device: Optional[torch.device] = None
+_hostname: Optional[str] = None
+_hostnames: Optional[Tuple[str, ...]] = None
+_need_inter_node = False
 
 
 def started() -> bool:
@@ -51,11 +61,27 @@ def choose_backend(device: torch.device, local_world: int) -> str:
     return "gloo"
 
 
+def hostname() -> str:
+    """This host's name, read once."""
+    global _hostname
+    if _hostname is None:
+        _hostname = socket.gethostname()
+    return _hostname
+
+
+def hostnames() -> Optional[Tuple[str, ...]]:
+    """Every world rank's hostname, gathered by :func:`start` (``None``
+    before it)."""
+    return _hostnames
+
+
 def start(device: Union[str, torch.device, None] = None) -> torch.device:
-    """Join the process group, bind this rank's device and push the world
-    communicator; returns the device.  ``device="cpu"`` runs on the CPU
-    (gloo); otherwise a GPU is required."""
-    global _started, _owns_group, _device
+    """Join the process group, bind this rank's device, push the world
+    communicator and split it by host; returns the device.
+    ``device="cpu"`` runs on the CPU (gloo); otherwise a GPU is required.
+    The split mode is read from the ``use_tree_communicators`` and
+    ``use_cartesian_communicators`` knobs."""
+    global _started, _owns_group, _device, _hostnames
     import torch.distributed as dist
 
     with _lock:
@@ -85,17 +111,49 @@ def start(device: Union[str, torch.device, None] = None) -> torch.device:
                 dist.init_process_group(be, store=dist.HashStore(), rank=0,
                                         world_size=1)
             _owns_group = True
-        stack.reset(Communicator(range(dist.get_world_size()),
-                                 my_rank=dist.get_rank()))
+        world_comm = Communicator(range(dist.get_world_size()),
+                                  my_rank=dist.get_rank())
+        stack.reset(world_comm)
+        names = [None] * world_comm.size
+        dist.all_gather_object(names, hostname())
+        _hostnames = tuple(names)
+        _init_per_node_communicators(world_comm)
+        from ..collectives import selector
+
+        selector.configure()
         _started = True
         _device = dev
         return dev
 
 
+def _init_per_node_communicators(world: Communicator) -> None:
+    """Split the world by host into two levels and widen the collective
+    span over both, so hierarchical collectives run within each host, then
+    across hosts.  On one host nothing is pushed."""
+    global _need_inter_node
+    if world.num_nodes() <= 1:
+        _need_inter_node = False
+        return
+    level = stack.push([_hostnames[r] for r in world.ranks],
+                       name=f"host({hostname()})")
+    stack.set_collective_span(0, level + 1)
+    _need_inter_node = stack.at(level).num_groups > 1
+
+
+def need_inter_node_collectives() -> bool:
+    """Whether a communicator level crosses hosts."""
+    return _need_inter_node
+
+
+def communicator_names() -> str:
+    """The communicator stack, one level a line."""
+    return stack.names()
+
+
 def stop() -> None:
     """Free the ring collectives' staging memory, drop the communicator
     stack and leave the process group if :func:`start` joined it."""
-    global _started, _owns_group, _device
+    global _started, _owns_group, _device, _hostnames, _need_inter_node
     import torch.distributed as dist
 
     from ..collectives import cuda_ring
@@ -105,6 +163,9 @@ def stop() -> None:
             return
         cuda_ring.release_all()
         stack.clear()
+        _comm_mod.clear_groups()
+        _hostnames = None
+        _need_inter_node = False
         if _owns_group and dist.is_initialized():
             dist.destroy_process_group()
         _owns_group = False
