@@ -178,6 +178,37 @@ def test_eager_rows_equal_jax(pool, p, name, kwargs):
         np.testing.assert_array_equal(np.asarray(got[r]), np.asarray(ref[r]))
 
 
+def _rs_inplace_job(op, arrays):
+    """reduce_scatter with ``inplace=True``: (its result, the buffer it was
+    given, which then holds the sum)."""
+    import torch.distributed as dist
+
+    comm = Communicator(range(4), my_rank=dist.get_rank())
+    buf = torch.from_numpy(arrays[comm.rank].copy())
+    out = teager.reduce_scatter(comm, buf, op=op, inplace=True)
+    return out.numpy(), buf.numpy()
+
+
+@pytest.mark.parametrize("op", ["sum", "mean"])
+def test_reduce_scatter_in_place_equals_jax(pool, op):
+    """The in-place form (the zero1 step's: the caller's buffer takes the
+    sum) gives JAX's rows exactly, and leaves the sum in the buffer."""
+    import jax
+
+    from torchmpi_tpu.collectives import eager as jeager
+    from torchmpi_tpu.runtime.communicator import Communicator as JComm
+
+    vals = np.random.RandomState(7).randint(-50, 50, size=(4, 12)).astype(
+        np.float32)
+    got = pool.run(_rs_inplace_job, op, vals)
+    comm = JComm(jax.devices()[:4])
+    ref = jeager.to_numpy(jeager.reduce_scatter(
+        comm, jeager.shard(comm, vals), op=op))
+    for r in range(4):
+        np.testing.assert_array_equal(got[r][0], np.asarray(ref[r]))
+        np.testing.assert_array_equal(got[r][1], vals.sum(axis=0))
+
+
 def _later_forms_job(arrays):
     """This rank's results of the forms that raised before the hierarchical
     collectives were ported: a grouped allreduce, allgatherv and

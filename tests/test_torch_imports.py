@@ -158,12 +158,52 @@ def test_hierarchy_and_host_ring_run_without_jax_loaded(tmp_path):
     the flat one under the span over both levels, and a host ring wired
     from endpoints gathered over the world, with neither JAX nor the JAX
     package loaded."""
+    _run_two_ranks(tmp_path, HIERARCHY_RANK)
+
+
+MESH_RANK = """
+import sys
+import torch
+import torchmpi_tpu_torch as mpi
+from torchmpi_tpu_torch import parallel
+from torchmpi_tpu_torch.collectives import innerjit
+from torchmpi_tpu_torch.models import llama
+from torchmpi_tpu_torch.parallel import sequence, tp
+
+mpi.start(device="cpu")
+mesh = parallel.make_mesh({"sp": 2})
+cfg = llama.tiny()
+params = llama.shard_params(llama.init(0, cfg, device="cpu"), mesh, cfg)
+tokens = torch.randint(0, cfg.vocab, (1, 17), generator=torch.Generator().manual_seed(0))
+step = llama.make_train_step(cfg, mesh, lr=0.1, attn="ring")
+_, _, loss = step(params, None, tokens[:, :-1], tokens[:, 1:])
+x = torch.full((3,), float(mpi.rank() + 1))
+shifted = innerjit.ring_shift(x, "sp", mesh=mesh)
+me = mpi.rank()
+mpi.stop()
+assert torch.isfinite(loss) and shifted.tolist() == [float(2 - me)] * 3
+loaded = [m for m in sys.modules if m.split('.')[0] in
+          ('jax', 'jaxlib', 'torchmpi_tpu')]
+assert not loaded, loaded
+print('ok')
+"""
+
+
+def test_mesh_paths_run_without_jax_loaded(tmp_path):
+    """Two processes of a gloo world: the mesh modules (``parallel.mesh``,
+    ``tp``, ``sequence``, ``collectives.innerjit``) import and Llama's
+    ring-attention train step and a ring shift run over an {sp 2} mesh,
+    with neither JAX nor the JAX package loaded."""
+    _run_two_ranks(tmp_path, MESH_RANK)
+
+
+def _run_two_ranks(tmp_path, source):
     import os
 
     from torchmpi_tpu_torch.runtime import launch
 
     script = tmp_path / "rank.py"
-    script.write_text(HIERARCHY_RANK)
+    script.write_text(source)
     port = launch.free_port()
     procs = []
     for r in range(2):

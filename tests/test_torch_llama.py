@@ -270,8 +270,13 @@ def test_generate_rejects_wrong_prompt_length():
 
 @pytest.mark.parametrize("attn", ["ring", "ring-xla", "ring-zigzag"])
 def test_ring_attention_waits_for_a_later_slice(attn):
-    with pytest.raises(NotImplementedError):
+    """The ring modes are ported (the mesh, item 12): without a mesh they
+    raise what the JAX package raises, with the same message."""
+    with pytest.raises(ValueError) as jerr:
+        jl._make_attn_impl(jl.tiny(), attn, None, 0.25)
+    with pytest.raises(ValueError) as terr:
         tl._make_attn_impl(tl.tiny(), attn, None, 0.25)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_init_matches_jax_shapes_and_scales():

@@ -261,17 +261,38 @@ def test_argument_errors_match_jax(bad):
                                         torch.from_numpy(targets)))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(mesh={"dp": 1}),
                                 dict(optimizer=object()),
                                 dict(zero1=True)])
 def test_train_step_parts_of_later_slices_raise(kw):
-    """``mesh=`` and ``zero1`` wait for the mesh (item 12) and raise;
-    ``optimizer=`` is ported and builds a step."""
+    """What once waited for the mesh (item 12) does what the JAX package
+    does with the same call: ``mesh=`` builds a step on a real mesh (one
+    rank here), whose first loss is JAX's on a one-device mesh; ``zero1``
+    without an optimizer raises JAX's ValueError; ``optimizer=`` builds a
+    step."""
     if "optimizer" in kw:
         assert callable(tl.make_train_step(tl.tiny(), **kw))
         return
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tl.make_train_step(tl.tiny(), **kw)
+    if "zero1" in kw:
+        mesh = parallel.make_mesh({"dp": 1}, devices=jax.devices()[:1])
+        with pytest.raises(ValueError, match="zero1 needs optimizer"):
+            jl.make_train_step(jl.tiny(), mesh, **kw)
+        with pytest.raises(ValueError, match="zero1 needs optimizer"):
+            tl.make_train_step(tl.tiny(), **kw)
+        return
+    from torchmpi_tpu_torch.parallel import mesh as tmesh
+    from torchmpi_tpu_torch.runtime.communicator import Communicator
+
+    cfg = jl.tiny(seq=32)
+    jp, tp = _both(cfg)
+    tokens, targets = _batch(cfg, 2, 16)
+    jmesh = parallel.make_mesh(kw["mesh"], devices=jax.devices()[:1])
+    tmsh = tmesh.make_mesh(kw["mesh"], comm=Communicator([0], my_rank=0))
+    _, _, jloss = jl.make_train_step(cfg, jmesh, lr=0.1)(
+        jp, None, jnp.asarray(tokens), jnp.asarray(targets))
+    _, _, tloss = tl.make_train_step(cfg, tmsh, lr=0.1)(
+        tp, None, torch.from_numpy(tokens), torch.from_numpy(targets))
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
 
 
 ADAM_LR, ADAM_STEPS = 1e-3, 3
@@ -341,16 +362,35 @@ def test_train_step_matches_jax_over_three_adam_steps(dtype):
 
 
 def test_moe_and_mesh_forms_raise():
+    """MoE still raises, naming item 12a.  The mesh forms do what the JAX
+    package does: ``apply(mesh=)`` on a one-rank mesh gives the logits
+    without one; a ring mode raises JAX's errors, with no mesh and on a
+    mesh with no sp axis."""
     import dataclasses
 
+    from torchmpi_tpu_torch.parallel import mesh as tmesh
+    from torchmpi_tpu_torch.runtime.communicator import Communicator
+
     moe = dataclasses.replace(tl.tiny(), n_experts=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 12a"):
         tl.make_loss_fn(moe)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 12a"):
         tl.make_train_step(moe)
     cfg = tl.tiny()
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tl.apply(cfg, tl.init(0, cfg, device="cpu"), tokens, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tl.apply(cfg, tl.init(0, cfg, device="cpu"), tokens, attn="ring")
+    params = tl.init(0, cfg, device="cpu")
+    tmsh = tmesh.make_mesh({"dp": 1}, comm=Communicator([0], my_rank=0))
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            tl.apply(cfg, params, tokens, mesh=tmsh).numpy(),
+            tl.apply(cfg, params, tokens).numpy())
+    jmesh = parallel.make_mesh({"dp": 1}, devices=jax.devices()[:1])
+    jp = jl.init(jax.random.PRNGKey(0), jl.tiny())
+    for mesh_t, mesh_j, err in ((None, None, ValueError),
+                                (tmsh, jmesh, NameError)):
+        with pytest.raises(err) as jerr:
+            jl.apply(jl.tiny(), jp, jnp.zeros((1, 8), jnp.int32),
+                     mesh=mesh_j, attn="ring")
+        with pytest.raises(err) as terr:
+            tl.apply(cfg, params, tokens, mesh=mesh_t, attn="ring")
+        assert str(terr.value) == str(jerr.value)

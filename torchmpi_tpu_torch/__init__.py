@@ -52,7 +52,7 @@ Entry points run on the current CUDA device unless the caller passes
 from .version import __version__  # noqa: F401
 
 from . import (collectives, data, engine, models, nn, obs,  # noqa: F401,E402
-               ops, runtime, serving, utils)
+               ops, parallel, runtime, serving, utils)
 from .collectives import (  # noqa: F401,E402
     allgather,
     allgatherv,

@@ -20,6 +20,7 @@ import torch
 from ..runtime import communicator as _comm_mod
 from ..runtime.handles import SynchronizationHandle
 from . import cuda_ring, eager, gspmd, hierarchical, hostcomm, selector  # noqa: F401
+from . import innerjit  # noqa: F401,E402
 
 
 def _resolved():

@@ -169,10 +169,35 @@ def _mean(out: torch.Tensor, p: int) -> torch.Tensor:
     reciprocal of p (one ulp off an IEEE division in about a third of f32
     elements at p = 3; exact at a power of two).  A bf16 vector rounds that
     f32 product to bf16; an integer vector gives f32, as ``int / int``
-    does there."""
-    recip = torch.ones((), dtype=torch.float32) / p
-    prod = out.to(torch.float32) * recip.to(out.device)
-    return prod.to(out.dtype) if out.dtype == torch.bfloat16 else prod
+    does there.  A new tensor (:func:`_mean_` writes f32 and bf16 in
+    place)."""
+    if out.dtype in (torch.float32, torch.bfloat16):
+        return _mean_(out.clone(memory_format=torch.contiguous_format), p)
+    return out.to(torch.float32) * _recip(p, out.device)
+
+
+def _recip(p: int, device) -> torch.Tensor:
+    """The f32 reciprocal of p, as XLA folds it."""
+    return (torch.ones((), dtype=torch.float32) / p).to(device)
+
+
+_MEAN_CHUNK = 1 << 26
+
+
+def _mean_(out: torch.Tensor, p: int) -> torch.Tensor:
+    """:func:`_mean` of an f32 or bf16 tensor written into it, with an f32
+    temporary of at most ``_MEAN_CHUNK`` elements (a bf16 buffer of
+    gigabytes would otherwise take twice its size again in f32, twice)."""
+    recip = _recip(p, out.device)
+    if out.dtype == torch.float32:
+        return out.mul_(recip)
+    if out.dtype != torch.bfloat16 or not out.is_contiguous():
+        raise TypeError("_mean_ takes a contiguous f32 or bf16 tensor")
+    flat = out.view(-1)
+    for lo in range(0, flat.numel(), _MEAN_CHUNK):
+        part = flat[lo:lo + _MEAN_CHUNK]
+        part.copy_(part.to(torch.float32) * recip)
+    return out
 
 
 def _mean_div(op: str, out: torch.Tensor, p: int,
@@ -196,11 +221,11 @@ def _mean_div(op: str, out: torch.Tensor, p: int,
 # waits the work and finishes at once; the async form hands all three to a
 # handle.  A group of one rank makes no call.
 
-def _issue_allreduce(sub: _Sub, x, op, async_op):
+def _issue_allreduce(sub: _Sub, x, op, async_op, inplace=False):
     import torch.distributed as dist
 
     _dist_op(op)
-    out = x.clone()
+    out = x if inplace else x.clone()
     finish = lambda o: _mean_div(op, o, sub.size, sub.uniform)  # noqa: E731
     if sub.size == 1:
         return None, out, finish
@@ -307,6 +332,16 @@ def allreduce(comm: Communicator, x: torch.Tensor, op: str = "sum",
     return _sync(_issue_allreduce(_sub(comm, groups), x, op, False))
 
 
+def allreduce_(comm: Communicator, x: torch.Tensor,
+               op: str = "sum") -> torch.Tensor:
+    """:func:`allreduce` over the whole communicator written into ``x``
+    (no copy; the mean as :func:`_mean_` takes it: f32 or bf16): for the
+    large flat buffers their callers own.  Returns ``x``."""
+    _, out, _ = _issue_allreduce(_sub(comm, None), x, op, False,
+                                 inplace=True)
+    return _mean_(out, comm.size) if op == "mean" else out
+
+
 def broadcast(comm: Communicator, x: torch.Tensor, root: int = 0,
               groups: Groups = None) -> torch.Tensor:
     """Position ``root``'s tensor on every rank; a new tensor."""
@@ -360,10 +395,12 @@ def allgatherv(comm: Communicator, x: torch.Tensor,
 
 
 def reduce_scatter(comm: Communicator, x: torch.Tensor, op: str = "sum",
-                   groups: Groups = None) -> torch.Tensor:
+                   groups: Groups = None,
+                   inplace: bool = False) -> torch.Tensor:
     """Position i's part ``[i n/g, (i+1) n/g)`` of the group's reduction of
     the flat ``(n,)`` vectors (sum or mean).  Reduced with one allreduce,
-    since gloo has no reduce-scatter."""
+    since gloo has no reduce-scatter: with ``inplace`` into ``x`` itself
+    (contiguous; the caller's buffer, consumed), else into a copy."""
     if x.ndim != 1:
         raise ValueError("reduce_scatter expects this rank's flat (n,) vector")
     if op not in ("sum", "mean"):
@@ -374,8 +411,10 @@ def reduce_scatter(comm: Communicator, x: torch.Tensor, op: str = "sum",
     if n % g != 0:
         raise ValueError(f"reduce_scatter data axis {n} not divisible by "
                          f"group size {g}")
-    full = _sync(_issue_allreduce(sub, x, op, False))
-    return full[sub.pos * (n // g):(sub.pos + 1) * (n // g)].clone()
+    full = _sync(_issue_allreduce(sub, x, "sum", False, inplace))
+    part = full[sub.pos * (n // g):(sub.pos + 1) * (n // g)]
+    return _mean_div(op, part, g, sub.uniform) if op == "mean" \
+        else part.clone()
 
 
 def sendreceive(comm: Communicator, x: torch.Tensor, src: int,

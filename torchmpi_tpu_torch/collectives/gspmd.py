@@ -78,7 +78,7 @@ def allreduce_mean_leaves(leaves: List[torch.Tensor],
     out: List[Optional[torch.Tensor]] = [None] * len(leaves)
     for idx in _tree.by_dtype(leaves):
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-        flat = eager.allreduce(comm, flat, op="mean")
+        eager.allreduce_(comm, flat, op="mean")
         off = 0
         for i in idx:
             n = leaves[i].numel()

@@ -1,9 +1,10 @@
-"""Llama training on one device: the port's counterpart of
-``examples/llama/train_llama.py`` without a mesh.
+"""Llama training: the port's counterpart of ``examples/llama/train_llama.py``.
 
     python -m torchmpi_tpu_torch.examples.train_llama [--preset tiny|8b]
-        [--attn full|flash] [--remat none|dots|full] [--loss-chunk N]
-        [--generate N] [--device cpu]
+        [--dp N] [--tp N] [--sp N]
+        [--attn full|flash|ring|ring-zigzag|ring-xla]
+        [--remat none|dots|full] [--loss-chunk N] [--generate N]
+        [--device cpu]
 
 Plain SGD over a synthetic Markov corpus (no download): the loss must fall,
 and ``--generate N`` then scores how many generated transitions are legal
@@ -11,13 +12,21 @@ under the corpus' table.  Runs on the current CUDA device in bf16 unless
 ``--device`` names another; on the CPU in f32 (low precision on the
 accelerator, as the JAX example does).  8B-scale memory controls are on by
 default: ``--remat dots`` always, and for ``--preset 8b`` the chunked
-vocab loss (``--loss-chunk``, auto 512; 0 forces the dense loss).  The
-mesh and mixture-of-experts flags arrive with their slices of the port.
+vocab loss (``--loss-chunk``, auto 512; 0 forces the dense loss).
+
+``--dp``/``--tp``/``--sp`` (or a ring attention mode) train on a dp x sp x
+tp mesh: one rank per mesh position, spawned here (``runtime/launch``), a
+gloo world on the CPU with ``--device cpu``, and on one card every rank on
+that card (each rank holds its own shards and runs its own collectives).
+Ring attention needs an sp axis (``--sp``, default 2 with a ring mode).
+Every rank draws the same weights and batches; rank 0 prints.  The
+mixture-of-experts and pipeline flags wait for their slices of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import List, Optional
 
@@ -59,11 +68,20 @@ def legality(seqs: np.ndarray, table: np.ndarray, start: int) -> float:
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="tiny", choices=["tiny", "8b"])
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel axis size (a mesh rank each)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel axis size")
+    ap.add_argument("--sp", type=int, default=0,
+                    help="sequence-parallel axis size (default: 2 with a "
+                         "ring attention mode, else 1)")
     ap.add_argument("--batch", type=int, default=8, help="sequences/step")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--lr", type=float, default=1e-2)
-    ap.add_argument("--attn", default="full", choices=["full", "flash"])
+    ap.add_argument("--attn", default="full",
+                    choices=["full", "flash", "ring", "ring-zigzag",
+                             "ring-xla"])
     ap.add_argument("--remat", default="dots", choices=["none", "dots", "full"])
     ap.add_argument("--loss-chunk", type=int, default=-1,
                     help="sequence chunk for the vocab loss (0 = dense; "
@@ -87,18 +105,65 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise SystemExit("--steps must be >= 1")
     if args.generate < 0:
         raise SystemExit("--generate must be >= 0")
+    if args.sp == 0:
+        args.sp = 2 if args.attn.startswith("ring") else 1
+    if min(args.dp, args.tp, args.sp) < 1:
+        raise SystemExit("--dp, --tp and --sp must be >= 1")
+    nproc = args.dp * args.tp * args.sp
+    if nproc > 1 or args.attn.startswith("ring"):
+        from ..runtime import launch
 
-    dev = llama.resolve_device(args.device)
+        if args.device is None:
+            llama.resolve_device(None)      # a card, or the usual error
+        launch.spawn(nproc, _run, (args,))
+        return
+    _run(args)
+
+
+def _run(args) -> None:
+    """Train (and generate) on one device, or as one rank of the mesh."""
+    mesh, rank = None, 0
+    nproc = args.dp * args.tp * args.sp
+    if nproc > 1 or args.attn.startswith("ring"):
+        from .. import parallel
+        from ..runtime import lifecycle
+
+        if args.device is not None and torch.device(args.device).type == "cpu":
+            # The ranks share the host's cores.
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // nproc))
+        dev = lifecycle.start(device=args.device)
+        rank = lifecycle.rank()
+        axes = {"dp": args.dp, "tp": args.tp}
+        if args.sp > 1 or args.attn.startswith("ring"):
+            axes["sp"] = args.sp
+        mesh = parallel.make_mesh(axes)
+    else:
+        dev = llama.resolve_device(args.device)
+    try:
+        _train(args, dev, mesh, rank)
+    finally:
+        if mesh is not None:
+            lifecycle.stop()
+
+
+def _train(args, dev, mesh, rank: int) -> None:
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, flush=True)
+
     cfg = llama.llama3_8b() if args.preset == "8b" else llama.tiny(
         vocab=512, seq=args.seq)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    print(f"device {dev} dtype {str(dtype).split('.')[-1]} attn={args.attn} "
-          f"remat={args.remat} loss_chunk={args.loss_chunk}")
+    where = f"mesh {mesh.shape} " if mesh is not None else ""
+    say(f"device {dev} {where}dtype {str(dtype).split('.')[-1]} "
+        f"attn={args.attn} remat={args.remat} loss_chunk={args.loss_chunk}")
     params = llama.init(0, cfg, dtype=dtype, device=dev)
-    step = llama.make_train_step(cfg, lr=args.lr, attn=args.attn,
+    say(f"params: {llama.num_params(params) / 1e6:.1f}M")
+    if mesh is not None:
+        params = llama.shard_params(params, mesh, cfg)
+    step = llama.make_train_step(cfg, mesh, lr=args.lr, attn=args.attn,
                                  remat=args.remat,
                                  loss_chunk=args.loss_chunk)
-    print(f"params: {llama.num_params(params) / 1e6:.1f}M")
 
     data, table = synthetic_tokens(cfg, n_seq=max(args.batch * 8, 64),
                                    seq_len=args.seq)
@@ -111,11 +176,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         params, _, loss = step(params, None, batch[:, :-1], batch[:, 1:])
         losses.append(float(loss))
         if it % 10 == 0 or it == args.steps - 1:
-            print(f"step {it}: loss {losses[-1]:.4f}")
+            say(f"step {it}: loss {losses[-1]:.4f}")
     dt = time.perf_counter() - t0
     tok_s = args.batch * args.seq * args.steps / dt
-    print(f"trained {args.steps} steps in {dt:.1f}s ({tok_s:,.0f} tok/s); "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    say(f"trained {args.steps} steps in {dt:.1f}s ({tok_s:,.0f} tok/s); "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     assert losses[-1] < losses[0], "loss did not decrease"
 
     if args.generate:
@@ -127,12 +192,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                                      max_new=args.generate,
                                      temperature=args.temperature,
                                      top_k=args.top_k, top_p=args.top_p,
-                                     device=dev)
+                                     mesh=mesh, device=dev)
         out = gen(params, prompts, 7).cpu().numpy()
         seqs = np.concatenate([prompts, out], axis=1)
         chance = 100.0 * table.shape[1] / cfg.vocab
-        print(f"generation legality: {legality(seqs, table, pl - 1):.1f}% of "
-              f"transitions in the Markov table (chance {chance:.1f}%)")
+        say(f"generation legality: {legality(seqs, table, pl - 1):.1f}% of "
+            f"transitions in the Markov table (chance {chance:.1f}%)")
 
 
 if __name__ == "__main__":

@@ -63,3 +63,78 @@ def num_params(params: Any) -> int:
     if isinstance(params, dict):
         return sum(num_params(v) for v in params.values())
     return int(params.numel())
+
+
+# ------------------------------------------------------------ mesh placement
+
+class P(tuple):
+    """A partition spec: one mesh axis name (or None, replicated) per
+    dimension, as JAX's ``PartitionSpec(*entries)``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+def mesh_spec(spec: P, mesh, shape=None) -> P:
+    """THE axis-dropping rule, shared by every placement site: drop spec
+    axes the mesh lacks; with ``shape`` also drop axes whose dimension the
+    mesh axis size does not divide (e.g. a 10-class head over tp=4 stays
+    replicated instead of erroring)."""
+    sizes = dict(mesh.shape)
+
+    def keep(i, ax):
+        if ax not in sizes:
+            return None
+        if shape is not None and shape[i] % sizes[ax] != 0:
+            return None
+        return ax
+
+    return P(*[keep(i, ax) for i, ax in enumerate(spec)])
+
+
+def _spec_tree(params: Any, specs: Any, fn):
+    if isinstance(params, dict):
+        return {k: _spec_tree(params[k], specs[k], fn) for k in params}
+    return fn(params, specs)
+
+
+def shard_by_specs(params: Any, mesh, specs: Any) -> Any:
+    """This rank's shard of each leaf of a full tree, per its spec under
+    the shared :func:`mesh_spec` rule (shape-aware): the counterpart of
+    placing the leaf with ``device_put``.  Each shard is a copy, so the
+    full leaf can be freed."""
+
+    def place(a: torch.Tensor, spec) -> torch.Tensor:
+        spec = mesh_spec(spec, mesh, tuple(a.shape))
+        for dim, ax in enumerate(spec):
+            if ax is not None:
+                n = a.shape[dim] // mesh.shape[ax]
+                a = a.narrow(dim, mesh.coords[ax] * n, n)
+        return a.clone()
+
+    return _spec_tree(params, specs, place)
+
+
+def gather_by_specs(params: Any, mesh, specs: Any,
+                    full_shapes: Any) -> Any:
+    """The inverse of :func:`shard_by_specs`: every leaf of this rank's
+    shard tree gathered whole over the axes its spec shards it on
+    (``full_shapes``: the whole tree's shapes, which decide the rule).
+    Collective: every rank of the mesh calls it, in the same order."""
+    from ..collectives import innerjit
+
+    def gather(a: torch.Tensor, pair) -> torch.Tensor:
+        spec, shape = pair
+        spec = mesh_spec(spec, mesh, tuple(shape))
+        with torch.no_grad():
+            for dim, ax in enumerate(spec):
+                if ax is not None:
+                    a = innerjit.allgather(a, ax, concat_axis=dim, mesh=mesh)
+        return a
+
+    pairs = _spec_tree(specs, full_shapes, lambda s, sh: (s, sh)) \
+        if isinstance(specs, dict) else (specs, full_shapes)
+    return _spec_tree(params, pairs, gather)

@@ -13,7 +13,8 @@ plane's rings (``small_allreduce_size_cpu``, ``bcast_size_tree_based``,
 ``*_buffer_size_cpu``, ``deadlock_timeout_seconds``, ``hc_*``), the async collectives
 (``num_async_collectives_in_flight``), gradient bucketing
 (``gradient_bucket_bytes``) and the engine's asynchronous gradient sync
-(``engine_async_drain``, ``sync_gradient_frequency``), the input data plane
+(``engine_async_drain``, ``sync_gradient_frequency``), the tensor-parallel
+wire (``manual_wire_dtype``), the input data plane
 (``data_*``, read only by ``data/pipeline.py:knob_defaults``) and the
 logger's level (``verbose``).
 """
@@ -95,6 +96,13 @@ class Constants:
     # Gradient bucketing: leaves fuse into flat buckets of at most this
     # many bytes, by dtype, in tree order (nn/bucketing.py).
     gradient_bucket_bytes: int = 32 * 1024 * 1024
+
+    # --- mesh paths (parallel/tp.py, models/llama.py) ---
+    # Wire dtype of the tensor-parallel sums (the Megatron f/g pair and the
+    # vocab-sharded loss's dh): "auto" (f32 off a TPU, the JAX package's
+    # rule), "bfloat16" or "float32".
+    manual_wire_dtype: str = _env("TORCHMPI_TPU_MANUAL_WIRE_DTYPE",
+                                  "auto", str)
 
     # --- async collectives and the engine's eager_async mode ---
     # Outstanding async handles before the in-flight registry waits them
