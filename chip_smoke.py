@@ -240,8 +240,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    greedy tokens equal to the one-rank run's.  The flash kernels' plain
    versions must never run in a rank.
 
+19. moe: Mixtral-8x7B width (``llama.mixtral_8x7b()``: d_model 4096, d_ff
+   14336, 8 experts, top-2, vocab 32000), random weights, cut in depth
+   only.  (a) At MOE_CHECK_LAYERS layers in f32 with capacity factor 8,
+   the dropless decode's greedy tokens equal the teacher-forced argmax.
+   (b) ``make_generate_fn`` at MOE_GEN_LAYERS bf16 layers (about 24 GB),
+   a 2048-token prompt, 16 greedy tokens: B4 once a layer a call, prefill
+   ms and decode ms a token.  (c) ``make_train_step`` at MOE_TRAIN_LAYERS
+   bf16 layers, B=1, L=2048, flash, remat "dots", loss_chunk 512, SGD, 4
+   steps on one batch: the loss falls, the aux loss at init in (0.5, 2),
+   B4 4, B5 2, B6 2 launches a step; step ms and peak memory.  (d) 2
+   ranks spawned on the card over {ep 2} (4 experts each): the same steps,
+   step 1's loss within MOE_EP_LOSS_RTOL of (c)'s, the ep sums clocked;
+   then ``parallel/moe.make_moe_layer`` at the same width, f32, 4096
+   tokens a rank, within MOE_LAYER_RTOL of the one-rank layer, its
+   all-to-alls clocked.  No plain flash version runs, here or in a rank.
+20. parameterserver: config 3, the MNIST MLP on the card, synthetic data.
+   ``examples/mnist_parameterserver.py`` in this process with 4 shard
+   servers, Downpour then EASGD, 4 epochs of 64 steps: the loss falls
+   by 0.2 and the held-out accuracy exceeds 30% (the JAX package's bar
+   for these examples), every leaf on cuda, no retry, timeout or CRC
+   failure, and Downpour's shards equal, bit for bit, a numpy replay of
+   the 'add' rule over every vector pushed; push and pull ms and bytes a
+   cycle.  Then ``mnist_parameterserver_easgd_dataparallel`` on 3 ranks
+   in DP groups of 2 and 1 (two PS clients; the group checks its replicas
+   after every integration) and ``mnist_modelparallel`` on 2 ranks (tp
+   2), each converging by the same bar.
+
 Then a ``timing`` line with each phase's seconds (the build included, the
-imports before it not), a line with the card's name and power limit, a
+imports before it not) and the card memory each left allocated (before
+and after a collection of cyclic garbage), a line with the card's name and power limit, a
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of
 phases 4-6 to no fewer than 8 layers (never the width), and train_f32 to
 no more than that; a cut is printed.
@@ -255,6 +283,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2867,16 +2896,19 @@ class _WireClock:
     counted as the wire's; a call inside another clocked call counts only
     in the outer one."""
 
-    def __init__(self, torch, tp_mod, innerjit, eager):
+    def __init__(self, torch, tp_mod=None, innerjit=None, eager=None,
+                 wires=None):
         self.torch = torch
         self.ms, self.calls = {}, {}
         self._depth = 0
         self._undo = []
-        for mod, fn, name in ((tp_mod, "_tp_sum", "tp_sum"),
-                              (innerjit, "shift_raw", "ring_shift"),
-                              (innerjit, "allreduce", "loss"),
-                              (eager, "allreduce_", "grad_sync"),
-                              (eager, "allgather", "grad_sync")):
+        if wires is None:
+            wires = ((tp_mod, "_tp_sum", "tp_sum"),
+                     (innerjit, "shift_raw", "ring_shift"),
+                     (innerjit, "allreduce", "loss"),
+                     (eager, "allreduce_", "grad_sync"),
+                     (eager, "allgather", "grad_sync"))
+        for mod, fn, name in wires:
             orig = getattr(mod, fn)
             setattr(mod, fn, self._timed(orig, name))
             self._undo.append((mod, fn, orig))
@@ -3581,6 +3613,456 @@ def phase_mesh(torch, llama, fa, train_mod, gen_layers: int):
     return {"launches": launches, "record": rec, "blocks": blocks}
 
 
+# ---------------------------------------------------------------------- moe
+# Mixtral-8x7B width (d_model 4096, d_ff 14336, 8 experts, top-2, vocab
+# 32000), random weights from seeded generators, cut in depth only: all 32
+# layers in bf16 are 93 GB, more than the card holds.
+MOE_GEN_LAYERS = 8           # about 24 GB of bf16 weights
+MOE_TRAIN_LAYERS = 2
+MOE_CHECK_LAYERS = 2         # the f32 dropless-decode check
+MOE_CHECK_PROMPT, MOE_CHECK_NEW = 64, 8
+MOE_SEED = 16
+MOE_L, MOE_CHUNK, MOE_STEPS, MOE_EP_STEPS = 2048, 512, 4, 2
+# {ep 2}'s step 1 against the one-rank step's, the bound PR 15's mesh phase
+# set for bf16.  Each (token, choice) unit is combined alone and a token's
+# units meet in one rounded sum on either path, so on an NVIDIA H100 80GB
+# HBM3 at 700 W the two read equal.
+MOE_EP_LOSS_RTOL = 1e-3
+# make_moe_layer on {ep 2} against the one-rank layer, f32 with TF32 off,
+# both dropless (capacity = a rank's tokens, and all tokens for the one
+# rank): the same products, cuBLAS tiles of another size.  The largest
+# difference over the largest magnitude of the one-rank output.
+MOE_LAYER_TOKENS = 4096
+MOE_LAYER_RTOL = 1e-4
+
+
+def _mixtral(llama, layers: int, **kw):
+    return dataclasses.replace(llama.mixtral_8x7b(), n_layers=layers, **kw)
+
+
+class _PlainCalls:
+    """Count calls of the flash kernels' plain versions while it is open
+    (a path on the card must never reach them)."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.saved = {name: getattr(fa, name) for name in PLAIN_FNS}
+        self.calls = _count_plain(fa)
+
+    def close(self) -> None:
+        for name, fn in self.saved.items():
+            setattr(self.fa, name, fn)
+
+
+def moe_rank_main() -> dict:
+    """One rank of the moe phase's {ep 2} part (spawned on the one card):
+    MOE_EP_STEPS SGD steps of Mixtral width at MOE_TRAIN_LAYERS layers over
+    a mesh {ep 2} (each rank 4 experts), then ``parallel/moe``'s layer."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import torchmpi_tpu_torch as mpi
+    from torchmpi_tpu_torch.collectives import innerjit
+    from torchmpi_tpu_torch.examples import train_llama as train_mod
+    from torchmpi_tpu_torch.models import llama
+    from torchmpi_tpu_torch.parallel import mesh as mesh_mod
+    from torchmpi_tpu_torch.parallel import moe
+    from torchmpi_tpu_torch.parallel import tp as tp_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    fa = importlib.import_module("torchmpi_tpu_torch.ops.flash_attention")
+    plain = _count_plain(fa)
+    mpi.start()
+    try:
+        me = mpi.rank()
+        mesh = mesh_mod.make_mesh({"ep": 2})
+        cfg = _mixtral(llama, MOE_TRAIN_LAYERS)
+        g = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+        params = llama.shard_params(llama.init(g, cfg, dtype=torch.bfloat16),
+                                    mesh, cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tokens, targets = _mesh_tokens(torch, train_mod, cfg, 1, MOE_L, 0)
+        step = llama.make_train_step(cfg, mesh, lr=TRAIN_LR, attn="flash",
+                                     remat=TRAIN_REMAT, loss_chunk=MOE_CHUNK)
+        clock = _WireClock(torch, wires=((tp_mod, "_tp_sum", "ep_sum"),))
+        losses, step_ms, wires, per_step = [], [], [], []
+        for _ in range(MOE_EP_STEPS):
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            params, _, loss = step(params, None, tokens, targets)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            per_step.append(read_counts(fa))
+            wires.append(clock.read())
+        clock.close()
+        train_peak = torch.cuda.max_memory_allocated() / 1e9
+        expert_shape = list(params["layers"]["w_gate"].shape)
+        del params, step
+        torch.cuda.empty_cache()
+
+        # parallel/moe's layer: every rank draws the whole layer and all
+        # 2 x MOE_LAYER_TOKENS tokens, keeps its experts and its tokens.
+        E, D, F_, T = 8, 4096, 14336, MOE_LAYER_TOKENS
+        g = torch.Generator(device="cuda").manual_seed(MOE_SEED + 2)
+        whole = moe.init_experts(g, E, D, F_)
+        x = torch.randn((2 * T, D), generator=g, device="cuda")
+        mine = moe.shard_experts(whole, mesh)
+        fn = moe.make_moe_layer(mesh, E, capacity=T, k=2)
+        clock = _WireClock(torch, wires=((innerjit, "_alltoall",
+                                          "alltoall"),))
+        with torch.no_grad():
+            y = fn(mine, x[me * T:(me + 1) * T])
+            torch.cuda.synchronize()
+            clock.read()
+            t0 = time.perf_counter()
+            y = fn(mine, x[me * T:(me + 1) * T])
+            torch.cuda.synchronize()
+            layer_ms = (time.perf_counter() - t0) * 1e3
+            layer_wire = clock.read()
+            clock.close()
+            one = mesh_mod.Mesh(np.array([me]), ("ep",), me)
+            ref = moe.make_moe_layer(one, E, capacity=2 * T, k=2)(whole, x)
+            ref = ref[me * T:(me + 1) * T]
+            err = float((y - ref).abs().max() / ref.abs().max())
+            moved = float((y - x[me * T:(me + 1) * T]).abs().max())
+            finite = bool(torch.isfinite(y).all())
+        return {"rank": me, "losses": losses, "step_ms": step_ms,
+                "wires": wires, "launches_per_step": per_step,
+                "expert_shape": expert_shape, "train_peak_gb": train_peak,
+                "layer_ms": layer_ms, "layer_wire": layer_wire,
+                "layer_rel_err": err, "layer_moved": moved,
+                "layer_finite": finite, "plain_calls": dict(plain),
+                "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    except BaseException:
+        import traceback
+
+        print(f"moe rank {mpi.rank()}: {traceback.format_exc()}",
+              file=sys.stderr, flush=True)
+        raise
+    finally:
+        mpi.stop()
+
+
+def phase_moe(torch, llama, fa, train_mod):
+    """Mixtral-8x7B width through Llama's MoE paths on the one card: the
+    dropless decode against teacher forcing (f32, MOE_CHECK_LAYERS), greedy
+    generation (bf16, MOE_GEN_LAYERS), SGD training (bf16,
+    MOE_TRAIN_LAYERS), and {ep 2} on 2 spawned ranks (moe_rank_main)."""
+    from torchmpi_tpu_torch.runtime import launch
+
+    plain = _PlainCalls(fa)
+    bad = []
+    # Peaks are read above what this process held when the phase began.
+    held0 = torch.cuda.memory_allocated() / 1e9
+
+    def fact(name, ok, **detail):
+        if not ok:
+            bad.append({"check": name, **detail})
+
+    try:
+        # (a) The dropless decode's greedy tokens equal the teacher-forced
+        # argmax (JAX's test_generate_matches_teacher_forced; capacity
+        # factor 8 makes the teacher-forced forward dropless too).
+        cfg = _mixtral(llama, MOE_CHECK_LAYERS, capacity_factor=8.0)
+        g = torch.Generator(device="cuda").manual_seed(MOE_SEED)
+        params = llama.init(g, cfg, dtype=torch.float32)
+        prompt = torch.randint(0, cfg.vocab, (1, MOE_CHECK_PROMPT),
+                               generator=g, device="cuda")
+        toks = llama.make_generate_fn(cfg, MOE_CHECK_PROMPT, MOE_CHECK_NEW)(
+            params, prompt)
+        seq, forced = prompt, []
+        with torch.no_grad():
+            for i in range(MOE_CHECK_NEW):
+                nxt = llama.apply(cfg, params, seq)[:, -1].argmax(-1)
+                forced.append(int(nxt[0]))
+                seq = torch.cat([seq, nxt[:, None]], dim=1)
+        check = {"n_layers": cfg.n_layers, "dtype": "float32",
+                 "tokens": toks[0].tolist(), "teacher_forced": forced}
+        fact("f32 dropless decode = teacher-forced argmax",
+             toks[0].tolist() == forced, **check)
+        del params
+        torch.cuda.empty_cache()
+
+        # (b) Generation, bf16, MOE_GEN_LAYERS layers.
+        cfg = _mixtral(llama, MOE_GEN_LAYERS)
+        g = torch.Generator(device="cuda").manual_seed(MOE_SEED)
+        params = llama.init(g, cfg, dtype=torch.bfloat16)
+        prompt = torch.randint(0, cfg.vocab, (1, 2048), generator=g,
+                               device="cuda")
+        fn = llama.make_generate_fn(cfg, 2048, 16)
+        first = llama.make_generate_fn(cfg, 2048, 1)
+        fn(params, prompt)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        toks = fn(params, prompt)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        gen_launches = read_counts(fa)
+        t0 = time.perf_counter()
+        first(params, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        gen = {"n_layers": cfg.n_layers, "prompt_len": 2048, "max_new": 16,
+               "dtype": "bfloat16", "launches": gen_launches,
+               "prefill_ms": prefill_s * 1e3,
+               "decode_ms_per_token": (total_s - prefill_s) * 1e3 / 15,
+               "total_ms": total_s * 1e3, "tokens": toks[0].tolist(),
+               "weights_gb": sum(t.numel() * t.element_size()
+                                 for t in llama._leaves(params)) / 1e9,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9 - held0}
+        fact("generate: B4 once a layer, no backward",
+             gen_launches == {"flash_attention_fwd": cfg.n_layers,
+                              "flash_attention_bwd_dq": 0,
+                              "flash_attention_bwd_dkv": 0},
+             got=gen_launches)
+        fact("generate: tokens in the vocab",
+             all(0 <= t < cfg.vocab for t in gen["tokens"]))
+        del params, fn, first
+        torch.cuda.empty_cache()
+
+        # (c) Training, bf16, MOE_TRAIN_LAYERS layers, one batch.
+        cfg = _mixtral(llama, MOE_TRAIN_LAYERS)
+        g = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+        params = llama.init(g, cfg, dtype=torch.bfloat16)
+        tokens, targets = _mesh_tokens(torch, train_mod, cfg, 1, MOE_L, 0)
+        with torch.no_grad():
+            _, aux0 = llama.apply(cfg, params, tokens, attn="flash",
+                                  return_aux=True)
+        aux0 = float(aux0)
+        torch.cuda.reset_peak_memory_stats()
+        step = llama.make_train_step(cfg, lr=TRAIN_LR, attn="flash",
+                                     remat=TRAIN_REMAT, loss_chunk=MOE_CHUNK)
+        expected = {"flash_attention_fwd": FWD_PER_LAYER[TRAIN_REMAT]
+                    * cfg.n_layers,
+                    "flash_attention_bwd_dq": cfg.n_layers,
+                    "flash_attention_bwd_dkv": cfg.n_layers}
+        losses, step_ms, per_step = [], [], []
+        for _ in range(MOE_STEPS):
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            params, _, loss = step(params, None, tokens, targets)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            per_step.append(read_counts(fa))
+        train = {"n_layers": cfg.n_layers, "batch": 1, "seq": MOE_L,
+                 "dtype": "bfloat16", "attn": "flash", "remat": TRAIN_REMAT,
+                 "loss_chunk": MOE_CHUNK, "lr": TRAIN_LR,
+                 "aux_at_init": aux0, "losses": losses, "step_ms": step_ms,
+                 "steady_step_ms": sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+                 "launches_per_step": per_step,
+                 "expected_launches_per_step": expected,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9 - held0}
+        fact("train: losses finite and falling",
+             all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+             losses=losses)
+        fact("train: aux at init in (0.5, 2)", 0.5 < aux0 < 2.0, aux=aux0)
+        fact("train: launches per step", all(s == expected for s in per_step),
+             got=per_step, expected=expected)
+        del params, step
+        torch.cuda.empty_cache()
+
+        # (d) {ep 2}: 2 ranks on the card.
+        t0 = time.perf_counter()
+        res = launch.spawn(2, moe_rank_main, (), timeout_s=600)
+        ep_s = time.perf_counter() - t0
+        res.sort(key=lambda r: r["rank"])
+        ep_expected = expected
+        for r in res:
+            rel = abs(r["losses"][0] - losses[0]) / abs(losses[0])
+            r["step1_loss_rel_err_vs_one_rank"] = rel
+            fact("ep2: step 1 loss", rel < MOE_EP_LOSS_RTOL, rank=r["rank"],
+                 rel=rel)
+            fact("ep2: launches per step", all(
+                s == ep_expected for s in r["launches_per_step"]),
+                rank=r["rank"], got=r["launches_per_step"])
+            fact("ep2: experts sharded",
+                 r["expert_shape"] == [MOE_TRAIN_LAYERS, 4, 4096, 14336],
+                 got=r["expert_shape"])
+            fact("ep2: make_moe_layer = one rank's",
+                 r["layer_finite"] and r["layer_rel_err"] < MOE_LAYER_RTOL
+                 and r["layer_moved"] > 0, rank=r["rank"],
+                 rel=r["layer_rel_err"])
+            fact("ep2: no plain flash version", not any(
+                r["plain_calls"].values()), rank=r["rank"],
+                 calls=r["plain_calls"])
+        fact("no plain flash version in this process",
+             not any(plain.calls.values()), calls=dict(plain.calls))
+    finally:
+        plain.close()
+    ep = {"ranks": 2, "seconds": ep_s, "per_rank": res,
+          "loss_rtol": MOE_EP_LOSS_RTOL, "layer_rtol": MOE_LAYER_RTOL,
+          "layer": {"d_model": 4096, "d_ff": 14336, "n_experts": 8, "k": 2,
+                    "tokens_per_rank": MOE_LAYER_TOKENS, "dtype": "float32"}}
+    rec = {"phase": "moe", "config": "mixtral_8x7b",
+           "d_model": 4096, "d_ff": 14336, "n_experts": 8, "top_k": 2,
+           "vocab": 32000, "held_at_start_gb": held0, "check": check,
+           "generate": gen, "train": train, "ep2": ep, "failed": bad}
+    print(json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError(f"moe phase checks failed: {bad}")
+    launches = {"moe_generate": gen_launches,
+                "moe_train": _sum_counts(per_step),
+                "moe_ep2": _sum_counts([s for r in res
+                                        for s in r["launches_per_step"]])}
+    return rec, launches
+
+
+def _sum_counts(dicts) -> dict:
+    out = {name: 0 for name in COUNTERS}
+    for d in dicts:
+        for k in out:
+            out[k] += d[k]
+    return out
+
+
+# ----------------------------------------------------------- parameterserver
+# BASELINE config 3 ("MNIST async-SGD via parameter-server shard") and
+# mnist_modelparallel: the MNIST MLP 784-1024-1024-10 in f32 on the card,
+# synthetic data, the JAX examples' defaults (4 shard servers, update
+# frequency 4, batch 128, lr 0.1).
+# The one-worker runs: 4 epochs of the 8192 synthetic examples, 64 steps an
+# epoch; the spawned examples 2 epochs.
+PS_LIMIT, PS_EPOCHS, PS_SPAWNED_EPOCHS = 8192, 4, 2
+# The JAX package's bar for these examples (tests/test_examples.py
+# _assert_converged): accuracy above 30%, the loss down by 0.2.
+PS_MIN_ACC, PS_MIN_DROP = 0.30, 0.2
+
+
+def _ps_summary(out) -> dict:
+    st = out["stats"]
+    cycles = max(1, st["cycles"])
+    steps = sorted(out["step_s"][1:])
+    return {"steps": len(out["step_s"]),
+            "median_step_ms": steps[len(steps) // 2] * 1e3,
+            "cycles": st["cycles"],
+            "push_ms_per_cycle": st["push_s"] * 1e3 / cycles,
+            "pull_ms_per_cycle": st["pull_s"] * 1e3 / cycles,
+            "bytes_pushed_per_cycle": st["bytes_pushed"] / cycles,
+            "bytes_pulled_per_cycle": st["bytes_pulled"] / cycles}
+
+
+def phase_parameterserver(torch, fa):
+    """Config 3 through ``examples/mnist_parameterserver.py`` (one worker
+    in this process, 4 in-process shard servers, Downpour then EASGD),
+    ``mnist_parameterserver_easgd_dataparallel`` (3 ranks on the card in DP
+    groups of 2 and 1: two PS clients, one DP plane) and
+    ``mnist_modelparallel`` (2 ranks, tp 2)."""
+    import numpy as np
+
+    from torchmpi_tpu_torch.examples import mnist_modelparallel as mp_ex
+    from torchmpi_tpu_torch.examples import mnist_parameterserver as ps_ex
+    from torchmpi_tpu_torch.examples import \
+        mnist_parameterserver_easgd_dataparallel as dp_ex
+    from torchmpi_tpu_torch.runtime import launch
+
+    bad = []
+
+    def fact(name, ok, **detail):
+        if not ok:
+            bad.append({"check": name, **detail})
+
+    def converged(name, losses, acc):
+        fact(f"{name}: loss falls by {PS_MIN_DROP}",
+             losses[-1] < losses[0] - PS_MIN_DROP, losses=losses)
+        fact(f"{name}: accuracy above {PS_MIN_ACC}", acc > PS_MIN_ACC,
+             accuracy=acc)
+
+    def on_cuda(name, devices):
+        fact(f"{name}: every leaf on cuda",
+             bool(devices) and all(d.startswith("cuda") for d in devices),
+             devices=devices)
+
+    rec = {"phase": "parameterserver", "model": "mlp 784-1024-1024-10",
+           "dtype": "float32", "data": "synthetic", "limit": PS_LIMIT,
+           "epochs": PS_EPOCHS, "spawned_epochs": PS_SPAWNED_EPOCHS}
+    reset_counts(fa)
+    for rule in ("downpour", "easgd"):
+        record = []
+        t0 = time.perf_counter()
+        out = ps_ex.run(ps_ex.parse_args([
+            "--rule", rule, "--data", "synthetic", "--limit", str(PS_LIMIT),
+            "--epochs", str(PS_EPOCHS)]), record)
+        seconds = time.perf_counter() - t0
+        converged(rule, out["epoch_losses"], out["accuracy"])
+        on_cuda(rule, out["devices"])
+        # The shards against a numpy replay of the 'add' rule over every
+        # vector pushed, from the registered values, bit for bit.
+        replay = [t.numpy().copy() for t in record[0][1]]
+        pushes = [d for kind, d in record[1:] if kind == "add"]
+        for deltas in pushes:
+            for v, d in zip(replay, deltas):
+                v += d.numpy()
+        center = [out["center"][k].numpy() for k in sorted(out["center"])]
+        equal = all(v.tobytes() == c.tobytes()
+                    for v, c in zip(replay, center))
+        if rule == "downpour":
+            fact("downpour: shards = numpy replay bit for bit", equal,
+                 pushes=len(pushes))
+        counters = {k: out["counters"][k]
+                    for k in ("retry", "timeout", "crc_failure")}
+        rec[rule] = {"seconds": seconds, **_ps_summary(out),
+                     "epoch_losses": out["epoch_losses"],
+                     "accuracy": out["accuracy"], "pushes": len(pushes),
+                     "replay_bit_equal": equal, "counters": counters,
+                     "client_counters": out["client_counters"]}
+        fact(f"{rule}: no retry, timeout or CRC failure",
+             not any(counters.values()), counters=counters)
+
+    t0 = time.perf_counter()
+    res = dp_ex.launch(dp_ex.parse_args([
+        "--nproc", "3", "--div", "2", "--epochs", str(PS_SPAWNED_EPOCHS),
+        "--limit", str(PS_LIMIT)]))
+    dp_s = time.perf_counter() - t0
+    for r in res:
+        converged(f"easgd_dataparallel rank {r['rank']}", r["epoch_losses"],
+                  r["accuracy"])
+        on_cuda(f"easgd_dataparallel rank {r['rank']}", r["devices"])
+    fact("easgd_dataparallel: the DP group checked its replicas",
+         res[0]["replica_checks"] == res[1]["replica_checks"] >= 2,
+         checks=[r["replica_checks"] for r in res])
+    steps = sorted(res[0]["step_s"][1:])
+    rec["easgd_dataparallel"] = {
+        "ranks": 3, "div": 2, "seconds": dp_s,
+        "clients": [r["client"] for r in res],
+        "replica_checks": [r["replica_checks"] for r in res],
+        "accuracy": res[0]["accuracy"], "epoch_losses": res[0]["epoch_losses"],
+        "median_step_ms": steps[len(steps) // 2] * 1e3,
+        "root_cycles": [r["stats"]["cycles"] for r in res]}
+
+    t0 = time.perf_counter()
+    res = launch.spawn(2, mp_ex.run, (mp_ex.parse_args([
+        "--epochs", str(PS_SPAWNED_EPOCHS), "--limit", str(PS_LIMIT)]),),
+        timeout_s=300)
+    mp_s = time.perf_counter() - t0
+    for r in res:
+        converged(f"modelparallel rank {r['rank']}", r["epoch_losses"],
+                  r["accuracy"])
+        on_cuda(f"modelparallel rank {r['rank']}", r["devices"])
+    fact("modelparallel: the ranks' losses equal",
+         res[0]["epoch_losses"] == res[1]["epoch_losses"])
+    steps = sorted(res[0]["step_s"][1:])
+    rec["modelparallel"] = {"ranks": 2, "seconds": mp_s,
+                            "epoch_losses": res[0]["epoch_losses"],
+                            "accuracy": res[0]["accuracy"],
+                            "median_step_ms": steps[len(steps) // 2] * 1e3}
+    launches = read_counts(fa)
+    fact("no flash kernel on these paths", not any(launches.values()),
+         launches=launches)
+    rec["failed"] = bad
+    print(json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError(f"parameterserver phase checks failed: {bad}")
+    return rec
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
                        async_launches, async_rec, mnist_rec, options,
                        hierarchy):
@@ -3773,6 +4255,7 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p, HERE) for p in libs])
     took = {"build": time.perf_counter() - t0}
+    held = {}
 
     def timed(name, fn, *fn_args, **fn_kw):
         t = time.perf_counter()
@@ -3780,6 +4263,13 @@ def main() -> int:
             return fn(*fn_args, **fn_kw)
         finally:
             took[name] = time.perf_counter() - t
+            # What the phase left allocated on the card in this process,
+            # before and after a collection of cyclic garbage (which a
+            # phase may leave holding card memory until the collector
+            # next runs, into the next phase).
+            before = torch.cuda.memory_allocated() / 1e9
+            gc.collect()
+            held[name] = [before, torch.cuda.memory_allocated() / 1e9]
 
     kernel_recs = timed("kernel", phase_kernel, torch, fa, split)
     bwd_recs = timed("kernel_bwd", phase_kernel_bwd, torch, fa, split)
@@ -3863,7 +4353,13 @@ def main() -> int:
                  train_mod, args.layers)
     launches["train_adam"] = adam["launches"]
     launches.update(mesh["launches"])
-    emit(phase="timing", seconds=took, total_s=time.perf_counter() - start)
+    torch.cuda.empty_cache()
+    _, moe_launches = timed("moe", phase_moe, torch, llama, fa, train_mod)
+    launches.update(moe_launches)
+    torch.cuda.empty_cache()
+    timed("parameterserver", phase_parameterserver, torch, fa)
+    emit(phase="timing", seconds=took, total_s=time.perf_counter() - start,
+         held_gb_after=held)
 
     print(smi, flush=True)
     emit(kernels=[

@@ -382,3 +382,90 @@ def test_chip_smoke_leaves_no_process_behind(tmp_path):
     assert "Traceback" not in res.stderr and "leaked" not in res.stderr
     for pid in (tracker, stray):
         assert not pathlib.Path(f"/proc/{pid}").exists()
+
+
+SLICE16_MODULES = ["parallel/moe.py", "parameterserver/__init__.py",
+                   "parameterserver/native.py", "parameterserver/placement.py",
+                   "parameterserver/update.py", "obs/native.py",
+                   "obs/flight.py", "examples/mnist_modelparallel.py",
+                   "examples/mnist_parameterserver.py",
+                   "examples/mnist_parameterserver_easgd_dataparallel.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE16_MODULES)
+def test_slice16_modules_are_checked(rel):
+    """The import check above covers the MoE, parameter-server and
+    observability modules of the port."""
+    assert ROOT / "torchmpi_tpu_torch" / rel in PORT_FILES
+
+
+def test_ps_engine_is_the_ports_own_copy():
+    """``ps.cpp`` (and the headers it includes) are the port's copies, byte
+    for byte the JAX package's, and the library loads from the port's own
+    build directory."""
+    from torchmpi_tpu_torch._native import build
+    from torchmpi_tpu_torch.parameterserver import native
+
+    for name in ("ps.cpp", "bf16.h", "crc32.h", "trace.h"):
+        ours = ROOT / "torchmpi_tpu_torch" / "_native" / name
+        theirs = ROOT / "torchmpi_tpu" / "_native" / name
+        assert ours.read_bytes() == theirs.read_bytes(), name
+    native.lib()
+    path = build.library_path("tmpi_ps", ["ps.cpp"])
+    assert path.exists() and path.parent == build.BUILD_DIR
+    assert build.BUILD_DIR == ROOT / "torchmpi_tpu_torch" / "_native" / "_build"
+
+
+def test_moe_and_parameterserver_run_without_jax_loaded():
+    code = (
+        "import sys, torch\n"
+        "from torchmpi_tpu_torch.models import llama\n"
+        "from torchmpi_tpu_torch import parameterserver as ps\n"
+        "from torchmpi_tpu_torch.parameterserver import native\n"
+        "from torchmpi_tpu_torch.parameterserver.update import "
+        "DownpourUpdate\n"
+        "from torchmpi_tpu_torch.obs import flight\n"
+        "cfg = llama.moe_tiny()\n"
+        "p = llama.init(0, cfg, device='cpu')\n"
+        "t = llama.make_generate_fn(cfg, 8, 3, device='cpu')(p, [[1]*8])\n"
+        "assert tuple(t.shape) == (1, 3)\n"
+        "L = native.lib()\n"
+        "sid = L.tmpi_ps_server_start(0)\n"
+        "ps.init_cluster(endpoints=[('127.0.0.1', "
+        "L.tmpi_ps_server_port(sid))], start_server=False)\n"
+        "x = ps.init(torch.ones(5))\n"
+        "ps.send(x, torch.ones(5)).wait()\n"
+        "h, out = ps.receive(x)\n"
+        "assert h.wait().tolist() == [2.0] * 5\n"
+        "ps.shutdown()\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'jaxlib', 'torchmpi_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["mnist_modelparallel",
+                                  "mnist_parameterserver",
+                                  "mnist_parameterserver_easgd_dataparallel"])
+def test_slice16_examples_refuse_the_cpu_unless_asked(monkeypatch, capsys,
+                                                      name):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ex = importlib.import_module(f"torchmpi_tpu_torch.examples.{name}")
+    assert ex.main([]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_moe_entry_points_raise_without_a_gpu(monkeypatch):
+    from torchmpi_tpu_torch.parallel import moe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        moe.init_experts(0, 4, 8, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tl.init(0, tl.moe_tiny())

@@ -228,19 +228,21 @@ def _one_rank_mesh(axes):
 
 
 def test_what_still_raises():
-    """MoE names item 12a and the pp axis item 14; tp must divide the KV
-    heads (JAX's generate check, same message); flash over sp names the
-    ring modes; ring modes need an sp axis (JAX: an unbound axis)."""
+    """The pp axis names item 14 (MoE configs and the ep axis build since
+    item 12a; ep must divide the experts); tp must divide the KV heads
+    (JAX's generate check, same message); flash over sp names the ring
+    modes; ring modes need an sp axis (JAX: an unbound axis)."""
     from torchmpi_tpu.models import llama as jl
 
     cfg = tl.tiny()
     moe = dataclasses.replace(cfg, n_experts=4)
-    with pytest.raises(NotImplementedError, match="item 12a"):
-        tl.make_train_step(moe, _one_rank_mesh({"dp": 1}))
+    assert callable(tl.make_train_step(moe, _one_rank_mesh({"dp": 1})))
     with pytest.raises(NotImplementedError, match="item 14"):
         tl.make_train_step(cfg, _one_rank_mesh({"pp": 2}))
-    with pytest.raises(NotImplementedError, match="item 12a"):
-        tl.make_train_step(cfg, _one_rank_mesh({"ep": 2}))
+    assert callable(tl.make_train_step(cfg, _one_rank_mesh({"ep": 2})))
+    with pytest.raises(ValueError, match="n_experts"):
+        tl.make_train_step(dataclasses.replace(cfg, n_experts=3),
+                           _one_rank_mesh({"ep": 2}))
     kv1 = dataclasses.replace(cfg, n_kv_heads=1)
     with pytest.raises(ValueError) as jerr:
         jl.make_generate_fn(jl.tiny(), 8, 4, mesh=_jax_mesh({"tp": 4}))

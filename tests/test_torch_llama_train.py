@@ -362,20 +362,27 @@ def test_train_step_matches_jax_over_three_adam_steps(dtype):
 
 
 def test_moe_and_mesh_forms_raise():
-    """MoE still raises, naming item 12a.  The mesh forms do what the JAX
-    package does: ``apply(mesh=)`` on a one-rank mesh gives the logits
-    without one; a ring mode raises JAX's errors, with no mesh and on a
-    mesh with no sp axis."""
+    """MoE no longer raises (item 12a): a MoE config's loss equals the JAX
+    package's on the same weights (within 1e-6 relative).  The mesh forms
+    do what the JAX package does: ``apply(mesh=)`` on a one-rank mesh gives
+    the logits without one; a ring mode raises JAX's errors, with no mesh
+    and on a mesh with no sp axis."""
     import dataclasses
 
     from torchmpi_tpu_torch.parallel import mesh as tmesh
     from torchmpi_tpu_torch.runtime.communicator import Communicator
 
     moe = dataclasses.replace(tl.tiny(), n_experts=4)
-    with pytest.raises(NotImplementedError, match="item 12a"):
-        tl.make_loss_fn(moe)
-    with pytest.raises(NotImplementedError, match="item 12a"):
-        tl.make_train_step(moe)
+    jmoe = dataclasses.replace(jl.tiny(), n_experts=4)
+    jpm = jax.tree.map(np.asarray, jl.init(jax.random.PRNGKey(0), jmoe))
+    toks = np.arange(16, dtype=np.int32).reshape(2, 8) % 256
+    want = float(jax.jit(jl.make_loss_fn(jmoe))(jpm, (toks, toks)))
+    with torch.no_grad():
+        got = float(tl.make_loss_fn(moe)(
+            tl.from_jax_params(jpm, device="cpu"),
+            (torch.from_numpy(toks), torch.from_numpy(toks))))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert callable(tl.make_train_step(moe))
     cfg = tl.tiny()
     tokens = torch.zeros((1, 8), dtype=torch.long)
     params = tl.init(0, cfg, device="cpu")

@@ -20,6 +20,15 @@ top-level ``import torchmpi_tpu_torch as mpi`` surface, on 2 gloo ranks
   compiled with the knob off, the JAX example's default (GSPMD, no ring):
   the lines of the JAX example, the loss falling, ``data=synthetic`` and,
   in the eager modes, the replica check.
+* The examples of slice 16 at a small ``--limit``, converging by the JAX
+  package's bar (``tests/test_examples.py`` ``_assert_converged``: the
+  loss down by 0.2, accuracy above 30%): ``mnist_modelparallel`` on the 2
+  ranks (tp 2, the ranks' losses equal); ``mnist_parameterserver`` in
+  this process with 4 shard servers, Downpour and EASGD, whose shards end
+  equal, bit for bit, to a replay of every vector pushed;
+  ``mnist_parameterserver_easgd_dataparallel``'s workers on the 2 ranks
+  as one DP group (the replicas checked after every integration); and
+  ``train_llama --moe-experts 4 --ep 2``.
 * The surface: every ported name, the collectives over the current
   communicator (a split one too), and the names that raised
   ``NotImplementedError`` naming item 4 until the hierarchical
@@ -440,3 +449,121 @@ def test_surface_collectives_over_the_current_communicator(pool):
         assert out["async"] == [3.0, 10.0]
         assert out["async_all"] == [[1.0, 0.0], [[1.0, 0.0], [2.0, 10.0]]]
         assert out["split"] == [float(r + 1), 10.0 * r]
+
+
+# ------------------------------------------- the slice-16 examples (2 ranks)
+
+def _assert_converged(epoch_losses, accuracy, min_acc=0.30, min_drop=0.2):
+    """The JAX package's bar for these examples (``tests/test_examples.py``
+    ``_assert_converged``): the loss falls by ``min_drop`` over the epochs
+    and the accuracy beats ``min_acc``."""
+    assert len(epoch_losses) >= 2, epoch_losses
+    assert epoch_losses[-1] < epoch_losses[0] - min_drop, epoch_losses
+    assert accuracy > min_acc, accuracy
+
+
+def _captured(fn, *args):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def _modelparallel_job(argv):
+    from torchmpi_tpu_torch.examples import mnist_modelparallel as ex
+
+    return _captured(ex.run, ex.parse_args(argv))
+
+
+def test_modelparallel_example(pool):
+    res = pool.run(_modelparallel_job, [
+        "--device", "cpu", "--limit", "1024", "--epochs", "2", "--hidden",
+        "128"])
+    (r0, text), (r1, _) = res
+    assert "model parallel over tp=2" in text
+    assert "final accuracy" in text
+    _assert_converged(r0["epoch_losses"], r0["accuracy"])
+    # The output is replicated: both ranks see the same losses.
+    assert r0["epoch_losses"] == r1["epoch_losses"]
+    assert r0["devices"] == ["cpu"]
+
+
+@pytest.mark.parametrize("rule", ["downpour", "easgd"])
+def test_parameterserver_example_replays_bit_for_bit(rule):
+    """The worker in this process with 4 shard servers: it converges, and
+    the shards end equal, bit for bit, to a replay of the 'add' rule over
+    every vector the worker pushed, from the values it registered."""
+    from torchmpi_tpu_torch.examples import mnist_parameterserver as ex
+
+    record = []
+    out, text = _captured(ex.run, ex.parse_args([
+        "--device", "cpu", "--data", "synthetic", "--limit", "1024",
+        "--epochs", "2", "--rule", rule]), record)
+    assert "parameter server: 4 shard servers" in text
+    _assert_converged(out["epoch_losses"], out["accuracy"])
+    kinds = [k for k, _ in record]
+    assert kinds[0] == "seed" and kinds.count("add") == out["stats"][
+        "cycles"] >= 3
+    replay = [t.numpy().copy() for t in record[0][1]]
+    for _, deltas in record[1:]:
+        for v, d in zip(replay, deltas):
+            v += d.numpy()
+    from torchmpi_tpu_torch.utils import tree as ttree
+
+    center = ttree.leaves(out["center"])
+    for v, c in zip(replay, center):
+        assert v.tobytes() == c.numpy().tobytes()
+    assert out["counters"]["retry"] == out["counters"]["crc_failure"] == 0
+
+
+def _easgd_dp_job(argv, world_ports, group_ports, eps):
+    from torchmpi_tpu_torch.examples import (
+        mnist_parameterserver_easgd_dataparallel as ex)
+
+    return _captured(ex.worker, ex.parse_args(argv), world_ports,
+                     group_ports, eps)
+
+
+def test_easgd_dataparallel_example(pool):
+    """Both ranks in one DP group (so the DP plane and its replica checks
+    run), one EASGD client: the replicas agree after every integration."""
+    from torchmpi_tpu_torch import parameterserver as tps
+    from torchmpi_tpu_torch.collectives.hostcomm import free_ports
+    from torchmpi_tpu_torch.parameterserver import native
+
+    L = native.lib()
+    sids = [L.tmpi_ps_server_start(0) for _ in range(2)]
+    try:
+        eps = [("127.0.0.1", L.tmpi_ps_server_port(s)) for s in sids]
+        ports = free_ports(4)
+        res = pool.run(_easgd_dp_job, [
+            "--device", "cpu", "--nproc", "2", "--div", "2", "--epochs",
+            "2", "--limit", "1024", "--batch", "32", "--init-delay", "2"],
+            ports[:2], ports[2:], eps)
+    finally:
+        for s in sids:
+            L.tmpi_ps_server_stop(s)
+        tps.shutdown()
+    (r0, text), (r1, _) = res
+    assert "group 0: replica consistency check passed" in text
+    assert [r0["client"], r1["client"]] == [True, False]
+    assert r0["replica_checks"] == r1["replica_checks"] >= 3
+    _assert_converged(r0["epoch_losses"], r0["accuracy"])
+
+
+def _train_llama_job(argv):
+    from torchmpi_tpu_torch.examples import train_llama
+
+    torch.set_num_threads(2)
+    out = _captured(train_llama._run, train_llama.parse_args(argv))
+    torch.set_num_threads(2)
+    return out
+
+
+def test_train_llama_moe_on_ep(pool):
+    res = pool.run(_train_llama_job, [
+        "--device", "cpu", "--moe-experts", "4", "--ep", "2", "--steps",
+        "4", "--generate", "2"])
+    text = res[0][1]
+    assert "'ep': 2" in text and "moe=4x top-2" in text, text
+    assert "generation legality" in text

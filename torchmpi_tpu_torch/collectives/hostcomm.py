@@ -83,8 +83,8 @@ def lib() -> ctypes.CDLL:
             L.tmpi_hc_allgatherv.restype = i32
             L.tmpi_hc_barrier.argtypes = [i32]
             L.tmpi_hc_barrier.restype = i32
-            # The native trace ring: declared, and left off (its drain and
-            # clock alignment come with the port's obs/native.py).
+            # The native trace ring, drained by obs/native.py; the obs_trace
+            # knobs are pushed at load (obs/native.apply_config re-pushes).
             L.tmpi_hc_set_trace.argtypes = [i32, i32]
             L.tmpi_hc_set_trace.restype = None
             L.tmpi_hc_trace_drain.argtypes = [vp, i32]
@@ -95,6 +95,10 @@ def lib() -> ctypes.CDLL:
             L.tmpi_hc_set_correlation.restype = None
             L.tmpi_hc_set_clock_offset.argtypes = [ctypes.c_int64]
             L.tmpi_hc_set_clock_offset.restype = None
+            from ..runtime import config
+
+            L.tmpi_hc_set_trace(1 if config.get("obs_trace") else 0,
+                                int(config.get("obs_trace_ring_capacity")))
             _lib = L
         return _lib
 

@@ -1,7 +1,7 @@
 """Llama training: the port's counterpart of ``examples/llama/train_llama.py``.
 
     python -m torchmpi_tpu_torch.examples.train_llama [--preset tiny|8b]
-        [--dp N] [--tp N] [--sp N]
+        [--dp N] [--tp N] [--sp N] [--moe-experts E [--moe-top-k K] [--ep N]]
         [--attn full|flash|ring|ring-zigzag|ring-xla]
         [--remat none|dots|full] [--loss-chunk N] [--generate N]
         [--device cpu]
@@ -19,13 +19,17 @@ tp mesh: one rank per mesh position, spawned here (``runtime/launch``), a
 gloo world on the CPU with ``--device cpu``, and on one card every rank on
 that card (each rank holds its own shards and runs its own collectives).
 Ring attention needs an sp axis (``--sp``, default 2 with a ring mode).
-Every rank draws the same weights and batches; rank 0 prints.  The
-mixture-of-experts and pipeline flags wait for their slices of the port.
+Every rank draws the same weights and batches; rank 0 prints.
+``--moe-experts E`` switches the FFN to E routed SwiGLU experts (top
+``--moe-top-k``), sharded over an ``ep`` mesh axis of ``--ep`` ranks,
+which composes with dp x tp.  The pipeline flags wait for their slice of
+the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import List, Optional
@@ -65,7 +69,8 @@ def legality(seqs: np.ndarray, table: np.ndarray, start: int) -> float:
     return 100.0 * legal / total
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The flags, checked, with their derived defaults filled in."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="tiny", choices=["tiny", "8b"])
     ap.add_argument("--dp", type=int, default=1,
@@ -96,6 +101,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="after training, generate N tokens per prompt and "
                          "score what fraction of transitions are legal "
                          "under the synthetic Markov corpus")
+    ap.add_argument("--moe-experts", type=int, default=0,
+                    help="Mixtral-style MoE FFN with this many routed "
+                         "experts, sharded over an ep mesh axis (--ep)")
+    ap.add_argument("--moe-top-k", type=int, default=2)
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel mesh axis size (with --moe-experts)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
@@ -107,9 +118,22 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise SystemExit("--generate must be >= 0")
     if args.sp == 0:
         args.sp = 2 if args.attn.startswith("ring") else 1
-    if min(args.dp, args.tp, args.sp) < 1:
-        raise SystemExit("--dp, --tp and --sp must be >= 1")
-    nproc = args.dp * args.tp * args.sp
+    if min(args.dp, args.tp, args.sp, args.ep) < 1:
+        raise SystemExit("--dp, --tp, --sp and --ep must be >= 1")
+    if args.ep > 1 and not args.moe_experts:
+        raise SystemExit("--ep without --moe-experts would only replicate "
+                         "dense compute over the ep axis; add --moe-experts")
+    if args.moe_experts:
+        if args.moe_experts % args.ep:
+            raise SystemExit("--moe-experts must be divisible by --ep")
+        if args.moe_top_k < 1:
+            raise SystemExit("--moe-top-k must be >= 1")
+    return args
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    nproc = args.dp * args.tp * args.sp * args.ep
     if nproc > 1 or args.attn.startswith("ring"):
         from ..runtime import launch
 
@@ -123,7 +147,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 def _run(args) -> None:
     """Train (and generate) on one device, or as one rank of the mesh."""
     mesh, rank = None, 0
-    nproc = args.dp * args.tp * args.sp
+    nproc = args.dp * args.tp * args.sp * args.ep
     if nproc > 1 or args.attn.startswith("ring"):
         from .. import parallel
         from ..runtime import lifecycle
@@ -134,6 +158,8 @@ def _run(args) -> None:
         dev = lifecycle.start(device=args.device)
         rank = lifecycle.rank()
         axes = {"dp": args.dp, "tp": args.tp}
+        if args.ep > 1:
+            axes["ep"] = args.ep
         if args.sp > 1 or args.attn.startswith("ring"):
             axes["sp"] = args.sp
         mesh = parallel.make_mesh(axes)
@@ -153,10 +179,17 @@ def _train(args, dev, mesh, rank: int) -> None:
 
     cfg = llama.llama3_8b() if args.preset == "8b" else llama.tiny(
         vocab=512, seq=args.seq)
+    if args.moe_experts:
+        cfg = dataclasses.replace(
+            cfg, n_experts=args.moe_experts,
+            expert_top_k=min(args.moe_top_k, args.moe_experts))
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     where = f"mesh {mesh.shape} " if mesh is not None else ""
+    moe = (f" moe={cfg.n_experts}x top-{cfg.expert_top_k}"
+           if cfg.n_experts else "")
     say(f"device {dev} {where}dtype {str(dtype).split('.')[-1]} "
-        f"attn={args.attn} remat={args.remat} loss_chunk={args.loss_chunk}")
+        f"attn={args.attn} remat={args.remat} loss_chunk={args.loss_chunk}"
+        f"{moe}")
     params = llama.init(0, cfg, dtype=dtype, device=dev)
     say(f"params: {llama.num_params(params) / 1e6:.1f}M")
     if mesh is not None:

@@ -25,8 +25,18 @@ of the JAX package's ``_decoder_layer_tp_manual(markers=True)`` and
 vocab-sharded cross-entropy (``_make_tp_ce_sum``): two tp sums a layer on
 the f32 wire, the flash kernels or the sp ring on this rank's heads, the
 vocab-sharded loss with its analytic backward.  Every rank passes the
-global batch; each takes its dp rows and its sp chunk.  Mixture-of-experts
-layers (ROADMAP item 12a) and the ``pp`` axis (item 14) raise.
+global batch; each takes its dp rows and its sp chunk.  The ``pp`` axis
+(ROADMAP item 14) raises.
+
+Mixture-of-experts FFN (``Config(n_experts=E, expert_top_k=k)``,
+Mixtral-style — :func:`mixtral_8x7b`): GShard dispatch/combine einsums over
+routing groups (:func:`_moe_ffn`, routed by ``parallel/moe.py``'s
+:func:`~torchmpi_tpu_torch.parallel.moe.route_topk`), the Switch
+load-balance aux loss through the layers, dropless decode routing.  On a
+mesh the expert weights shard over ``ep`` (and their ``d_ff`` over
+``tp``); the batch shards over dp only, as in JAX, so every ep rank routes
+the same tokens, computes its own experts' buckets, and the combine's
+partial sums meet in one sum over ep x tp (the Megatron f/g pair).
 
 Entry points (:func:`init`, :func:`init_kv_cache`, :func:`make_generate_fn`)
 run on the current CUDA device unless the caller passes ``device``; with
@@ -48,6 +58,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..collectives import eager, gspmd, innerjit
 from ..parallel import tp as _tp
+from ..parallel import moe as _moe
 from ..parallel.mesh import AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, \
     Mesh, mesh_axis_size
 from ..utils import tree as _tree
@@ -71,9 +82,14 @@ class Config:
     max_seq: int = 2048
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
-    # Mixture-of-experts FFN: the port runs dense configs only
-    # (n_experts == 0) until ROADMAP item 12a; anything else raises.
+    # Mixture-of-experts FFN (0 = dense SwiGLU).  With n_experts > 0 every
+    # layer's FFN becomes `n_experts` SwiGLU experts routed top-k
+    # (Mixtral-style), expert weights sharded over the `ep` mesh axis.
     n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25  # per-expert slots = cf * k * G / E
+    moe_aux_coef: float = 0.01     # load-balance aux-loss weight
+    moe_group_size: int = 512      # tokens per routing group (GShard groups)
 
     @property
     def head_dim(self) -> int:
@@ -84,6 +100,11 @@ class Config:
             raise ValueError("d_model must be divisible by n_heads")
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be divisible by n_kv_heads")
+        if self.n_experts:
+            if not 1 <= self.expert_top_k <= self.n_experts:
+                raise ValueError("expert_top_k must be in [1, n_experts]")
+            if not self.capacity_factor > 0:
+                raise ValueError("capacity_factor must be > 0")
 
 
 def llama3_8b() -> Config:
@@ -92,17 +113,24 @@ def llama3_8b() -> Config:
                   n_kv_heads=8, d_ff=14336, max_seq=8192, rope_theta=500000.0)
 
 
+def mixtral_8x7b() -> Config:
+    """Mixtral-8x7B geometry: 8 SwiGLU experts per layer, top-2 routed."""
+    return Config(vocab=32000, d_model=4096, n_layers=32, n_heads=32,
+                  n_kv_heads=8, d_ff=14336, max_seq=8192, rope_theta=1e6,
+                  n_experts=8, expert_top_k=2)
+
+
 def tiny(vocab: int = 256, seq: int = 64) -> Config:
     """Test-scale config."""
     return Config(vocab=vocab, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
                   d_ff=128, max_seq=seq)
 
 
-def _dense_only(cfg: Config) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts layers come with ROADMAP item 12a of the "
-            "port; it runs dense configs (n_experts=0)")
+def moe_tiny(vocab: int = 256, seq: int = 64, n_experts: int = 4,
+             k: int = 2) -> Config:
+    """Test-scale MoE config."""
+    return Config(vocab=vocab, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                  d_ff=128, max_seq=seq, n_experts=n_experts, expert_top_k=k)
 
 
 # ---------------------------------------------------------------------- init
@@ -112,7 +140,6 @@ def init(rng: Union[int, torch.Generator], cfg: Config,
     """Stacked-layer parameter tree (leaves lead with n_layers), drawn from
     ``rng`` (a ``torch.Generator`` on the device, or an int seed).  Same
     distributions as the JAX package, not the same numbers."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     gen = _generator(rng, dev)
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -123,21 +150,47 @@ def init(rng: Union[int, torch.Generator], cfg: Config,
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
-    embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                        dtype=torch.float32, device=dev)
-    embed = embed.mul_(0.02).to(dtype)
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=dev)
+
+    def stack_experts(d_in, d_out):
+        # (n_layers, E, d_in, d_out), fan-in scaled like dense_init; drawn
+        # one layer at a time so that no f32 copy of a whole bf16 leaf
+        # (tens of GB at Mixtral width) is ever made.
+        w = torch.empty((cfg.n_layers, cfg.n_experts, d_in, d_out),
+                        dtype=dtype, device=dev)
+        for i in range(cfg.n_layers):
+            w[i] = (normal(cfg.n_experts, d_in, d_out)
+                    * math.sqrt(1.0 / d_in)).to(dtype)
+        return w
+
+    embed = normal(cfg.vocab, cfg.d_model).mul_(0.02).to(dtype)
+    attn = {"wq": stack(cfg.d_model, H * hd),
+            "wk": stack(cfg.d_model, KV * hd),
+            "wv": stack(cfg.d_model, KV * hd),
+            "wo": stack(H * hd, cfg.d_model)}
+    if cfg.n_experts:
+        ffn = {
+            "router": (normal(cfg.n_layers, cfg.d_model, cfg.n_experts)
+                       * 0.02).to(dtype),
+            "w_gate": stack_experts(cfg.d_model, cfg.d_ff),
+            "w_up": stack_experts(cfg.d_model, cfg.d_ff),
+            "w_down": stack_experts(cfg.d_ff, cfg.d_model),
+        }
+    else:
+        ffn = {
+            "w_gate": stack(cfg.d_model, cfg.d_ff),
+            "w_up": stack(cfg.d_model, cfg.d_ff),
+            "w_down": stack(cfg.d_ff, cfg.d_model),
+        }
     return {
         "embed": embed,
         "layers": {
             "attn_norm": ones(cfg.n_layers, cfg.d_model),
-            "wq": stack(cfg.d_model, H * hd),
-            "wk": stack(cfg.d_model, KV * hd),
-            "wv": stack(cfg.d_model, KV * hd),
-            "wo": stack(H * hd, cfg.d_model),
+            **attn,
             "mlp_norm": ones(cfg.n_layers, cfg.d_model),
-            "w_gate": stack(cfg.d_model, cfg.d_ff),
-            "w_up": stack(cfg.d_model, cfg.d_ff),
-            "w_down": stack(cfg.d_ff, cfg.d_model),
+            **ffn,
         },
         "norm": ones(cfg.d_model),
         "head": dense_init(gen, cfg.d_model, cfg.vocab, dtype, dev),
@@ -171,17 +224,26 @@ def from_jax_params(params: Any, device: DeviceLike = None) -> Params:
 def param_specs(cfg: Config) -> Params:
     """PartitionSpec tree: Megatron tp sharding over stacked layers
     (qkv/gate/up column-sharded, o/down row-sharded, the head
-    vocab-sharded)."""
-    _dense_only(cfg)
+    vocab-sharded); MoE expert weights additionally shard their expert axis
+    over ``ep``."""
     col = P(None, None, AXIS_TP)    # (layers, d_in, sharded d_out)
     row = P(None, AXIS_TP, None)    # (layers, sharded d_in, d_out)
+    if cfg.n_experts:
+        ffn = {
+            "router": P(None, None, None),
+            "w_gate": P(None, AXIS_EP, None, AXIS_TP),
+            "w_up": P(None, AXIS_EP, None, AXIS_TP),
+            "w_down": P(None, AXIS_EP, AXIS_TP, None),
+        }
+    else:
+        ffn = {"w_gate": col, "w_up": col, "w_down": row}
     return {
         "embed": P(None, None),
         "layers": {
             "attn_norm": P(None, None),
             "wq": col, "wk": col, "wv": col, "wo": row,
             "mlp_norm": P(None, None),
-            "w_gate": col, "w_up": col, "w_down": row,
+            **ffn,
         },
         "norm": P(None),
         "head": P(None, AXIS_TP),
@@ -191,14 +253,18 @@ def param_specs(cfg: Config) -> Params:
 def param_shapes(cfg: Config) -> Params:
     """The whole parameter tree's shapes (what :func:`init` makes)."""
     hd, H, KV, n = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
-    D, F_ = cfg.d_model, cfg.d_ff
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    if E:
+        ffn = {"router": (n, D, E), "w_gate": (n, E, D, F_),
+               "w_up": (n, E, D, F_), "w_down": (n, E, F_, D)}
+    else:
+        ffn = {"w_gate": (n, D, F_), "w_up": (n, D, F_),
+               "w_down": (n, F_, D)}
     return {
         "embed": (cfg.vocab, D),
         "layers": {"attn_norm": (n, D), "wq": (n, D, H * hd),
                    "wk": (n, D, KV * hd), "wv": (n, D, KV * hd),
-                   "wo": (n, H * hd, D), "mlp_norm": (n, D),
-                   "w_gate": (n, D, F_), "w_up": (n, D, F_),
-                   "w_down": (n, F_, D)},
+                   "wo": (n, H * hd, D), "mlp_norm": (n, D), **ffn},
         "norm": (D,),
         "head": (D, cfg.vocab),
     }
@@ -220,27 +286,23 @@ def gather_params(params: Params, mesh: Mesh, cfg: Config) -> Params:
 class _MeshPlan:
     """What a mesh path reads of its mesh: the axis sizes and this rank's
     coordinates, the tp wires (the Megatron f/g pair on the
-    ``manual_wire_dtype`` wire) and the cuts of the global batch."""
+    ``manual_wire_dtype`` wire), the MoE FFN's wires over ep x tp and the
+    cuts of the global batch."""
 
     def __init__(self, cfg: Config, mesh: Mesh):
-        _dense_only(cfg)
         sizes = dict(mesh.shape)
         if sizes.get(AXIS_PP, 1) > 1:
             raise NotImplementedError(
                 "the pp axis (pipeline-parallel Llama) comes with ROADMAP "
                 "item 14 of the port")
-        if sizes.get(AXIS_EP, 1) > 1:
-            raise NotImplementedError(
-                "the ep axis (expert parallelism) comes with ROADMAP item "
-                "12a of the port")
         if mesh.coords is None:
             raise RuntimeError(f"rank {mesh.my_rank} is not in the mesh")
         self.mesh = mesh
-        self.dp, self.sp, self.tp = (sizes.get(a, 1)
-                                     for a in (AXIS_DP, AXIS_SP, AXIS_TP))
-        self.dp_i, self.sp_i, self.tp_i = (mesh.coords.get(a, 0)
-                                           for a in (AXIS_DP, AXIS_SP,
-                                                     AXIS_TP))
+        self.dp, self.ep, self.sp, self.tp = (
+            sizes.get(a, 1) for a in (AXIS_DP, AXIS_EP, AXIS_SP, AXIS_TP))
+        self.dp_i, self.ep_i, self.sp_i, self.tp_i = (
+            mesh.coords.get(a, 0)
+            for a in (AXIS_DP, AXIS_EP, AXIS_SP, AXIS_TP))
         tp = self.tp
         if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp
                        or cfg.d_ff % tp):
@@ -248,6 +310,14 @@ class _MeshPlan:
                 f"tp={tp} must divide n_heads {cfg.n_heads}, n_kv_heads "
                 f"{cfg.n_kv_heads} and d_ff {cfg.d_ff}: each rank runs "
                 f"whole heads of its own")
+        if cfg.n_experts and cfg.n_experts % self.ep:
+            raise ValueError(f"ep={self.ep} must divide n_experts "
+                             f"{cfg.n_experts}")
+        # The axes an FFN's partial sums meet over: the experts' ep and
+        # their d_ff's tp (a dense FFN is replicated over ep).
+        self.ffn_axes = tuple(a for a in ((AXIS_EP, AXIS_TP) if cfg.n_experts
+                                          else (AXIS_TP,))
+                              if sizes.get(a, 1) > 1)
         self.wire = _tp.resolve_wire_dtype()
         head = _mesh_spec(param_specs(cfg)["head"], mesh,
                           (cfg.d_model, cfg.vocab))
@@ -281,6 +351,20 @@ class _MeshPlan:
         if self.tp == 1:
             return part
         return _tp.block_output(part, AXIS_TP, wire_dtype=self.wire,
+                                mesh=self.mesh)
+
+    def ffn_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron ``f`` over the FFN's axes (ep x tp for experts)."""
+        if not self.ffn_axes:
+            return x
+        return _tp.block_input(x, self.ffn_axes, wire_dtype=self.wire,
+                               mesh=self.mesh)
+
+    def ffn_sum(self, part: torch.Tensor) -> torch.Tensor:
+        """Megatron ``g`` over the FFN's axes: the experts' partial sums."""
+        if not self.ffn_axes:
+            return part
+        return _tp.block_output(part, self.ffn_axes, wire_dtype=self.wire,
                                 mesh=self.mesh)
 
     def logits(self, h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -427,21 +511,139 @@ def _layers(params: Params):
     return [dict(zip(names, views)) for views in zip(*per_leaf)]
 
 
+def _moe_group(cfg: Config, n_tokens: int) -> int:
+    """Routing-group size: largest divisor of ``n_tokens`` at most
+    ``cfg.moe_group_size``.  When only sliver divisors exist below the
+    target (e.g. ``n_tokens = 2 * prime``), groups of ~2 tokens would
+    collapse capacity to ~1 and reduce the aux statistic to noise, so fall
+    UP to the smallest divisor above the target instead: token counts the
+    caller cannot control (prime prompt lengths, odd decode batches) must
+    never fail."""
+    target = min(n_tokens, cfg.moe_group_size)
+    g = target
+    while n_tokens % g:
+        g -= 1
+    floor = min(n_tokens, max(16, cfg.moe_group_size // 8))
+    if g >= floor:
+        return g
+    for d in range(target + 1, n_tokens + 1):
+        if n_tokens % d == 0:      # n_tokens divides itself: always found
+            if d > 8 * cfg.moe_group_size:
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "moe routing group %d is %.0fx the configured %d "
+                    "(n_tokens=%d has no mid-sized divisor); dispatch "
+                    "memory grows with the group — pad the token count "
+                    "if this is the training path", d,
+                    d / cfg.moe_group_size, cfg.moe_group_size, n_tokens)
+            return d
+    return n_tokens  # unreachable
+
+
+def _moe_capacity(cfg: Config, group: int) -> int:
+    """Static per-expert slot count for one routing group.  Top-k experts
+    are distinct, so an expert's worst-case load is ``group`` (one unit per
+    token), not ``k * group``."""
+    k, E = cfg.expert_top_k, cfg.n_experts
+    cap = int(math.ceil(cfg.capacity_factor * k * group / E))
+    return max(1, min(cap, group))
+
+
+def _moe_ffn(cfg: Config, lp: Params, x: torch.Tensor,
+             dropless: bool = False, plan: Optional[_MeshPlan] = None):
+    """Mixture-of-experts SwiGLU FFN on normed input x (B, L, D) ->
+    ``(out (B, L, D), aux-loss scalar f32)``.
+
+    GShard-style dense dispatch/combine over fixed-size **routing groups**
+    of ~``cfg.moe_group_size`` tokens, each routed independently with
+    capacity ``C = cf * k * G / E`` slots per expert: the dispatch tensor
+    is (G·k, E, C) per group, and the layer is three batched GEMMs plus
+    routing.  Routing is ``parallel.moe.route_topk``: top-k with
+    choice-major capacity priority, weights renormalized over the chosen k
+    for k > 1, the raw gate prob for k = 1.  A unit past capacity is
+    dropped (contributes 0).  ``dropless=True`` sets C = G — the decode
+    path's guarantee that routing never depends on bucket pressure.  The
+    aux loss is the Switch/GShard load-balance term ``E * sum_e
+    mean_prob_e * primary_fraction_e`` (1 at perfect balance), averaged
+    over groups.
+
+    With ``plan`` (a mesh): ``x`` is this rank's block, ``lp`` its shards
+    (``E / ep`` experts, their ``d_ff / tp`` columns).  The groups are cut
+    from the GLOBAL tokens, as JAX's program cuts them: when this rank's
+    tokens are not whole groups, ``x`` is first gathered over dp (and sp)
+    and the rank routes every token, keeping its own block of the output.
+    Every ep x tp rank routes the same tokens (the router is replicated);
+    each computes its experts' buckets, the expert input and the combine
+    weights pass ``block_input`` and the partial outputs ``block_output``
+    over ep x tp.  The aux term is then this rank's groups' mean (the mean
+    over dp x sp is the global one) or, gathered, the global one."""
+    B, L, D = x.shape
+    E, k = cfg.n_experts, cfg.expert_top_k
+    gathered = False
+    if dropless or plan is None:
+        G = _moe_group(cfg, B * L)     # dropless: every token on its own
+    else:
+        G = _moe_group(cfg, B * plan.dp * L * plan.sp)
+        whole = (L % G == 0) if plan.sp > 1 else ((B * L) % G == 0)
+        if not whole:
+            mesh = plan.mesh
+            if plan.sp > 1:
+                x = innerjit.allgather(x, AXIS_SP, concat_axis=1, mesh=mesh)
+            if plan.dp > 1:
+                x = innerjit.allgather(x, AXIS_DP, concat_axis=0, mesh=mesh)
+            gathered = True
+    Bx, Lx = x.shape[:2]
+    C = G if dropless else _moe_capacity(cfg, G)
+    xg = x.reshape(Bx * Lx // G, G, D)
+
+    logits = xg.float() @ lp["router"].float()                  # (nG, G, E)
+    probs = torch.softmax(logits, dim=-1)
+    # ONE routing definition for both MoE forms (parallel/moe.py).
+    sel_f, w_f, onehot, slot = _moe.route_topk(probs, k, k > 1)
+    me = probs.mean(dim=1)
+    ce = F.one_hot(sel_f[:, :G], E).float().mean(dim=1)
+    aux = (E * (me * ce).sum(dim=-1)).mean()
+
+    if plan is not None and plan.ep > 1:
+        E_l = E // plan.ep
+        onehot = onehot.narrow(-1, plan.ep_i * E_l, E_l)
+        slot = slot.narrow(-1, plan.ep_i * E_l, E_l)
+    # one_hot(slot, C) drops units whose queue position >= C.
+    dispatch = ((slot[..., None] == torch.arange(C, device=x.device))
+                & (onehot[..., None] == 1)).to(x.dtype)     # (nG, kG, E_l, C)
+    xin = xg
+    if plan is not None:
+        xin, w_f = plan.ffn_in(xg), plan.ffn_in(w_f)
+    xk = xin.repeat(1, k, 1)                                    # (nG, kG, D)
+    buckets = torch.einsum("gtec,gtd->gecd", dispatch, xk)  # (nG, E_l, C, D)
+    hb = (F.silu(torch.einsum("gecd,edf->gecf", buckets, lp["w_gate"]))
+          * torch.einsum("gecd,edf->gecf", buckets, lp["w_up"]))
+    out_b = torch.einsum("gecf,efd->gecd", hb, lp["w_down"])
+    combine = dispatch * w_f[..., None, None].to(x.dtype)
+    yk = torch.einsum("gtec,gecd->gtd", combine, out_b)         # (nG, kG, D)
+    y = yk.reshape(-1, k, G, D).sum(dim=1).reshape(Bx, Lx, D)
+    if plan is not None:
+        y = plan.ffn_sum(y)
+        if gathered:
+            y = plan.chunk(plan.rows(y))
+    return y, aux
+
+
 def _decoder_layer(cfg: Config, lp: Params, h: torch.Tensor,
                    positions: torch.Tensor, attn_impl: Callable,
                    with_kv: bool = False, tp: Optional[_MeshPlan] = None):
-    """One pre-norm decoder block (attention + SwiGLU FFN with residuals).
-    Returns ``(h, aux)`` (aux: the MoE load-balance term, 0 for dense);
-    with ``with_kv`` also the native-KV-head K/V projections — the cache
-    seed for decoding.
+    """One pre-norm decoder block (attention + SwiGLU-or-MoE FFN with
+    residuals).  Returns ``(h, aux)`` (aux: the MoE load-balance term, 0
+    for dense); with ``with_kv`` also the native-KV-head K/V projections —
+    the cache seed for decoding.
 
     With ``tp`` (a mesh plan) ``lp`` holds this rank's shards and the block
     writes its own Megatron collectives, as the JAX package's
     ``_decoder_layer_tp_manual(markers=True)``: each parallel branch's
     input passes ``block_input`` (a tp sum backward) and its output
     ``block_output`` (a tp sum forward), two sums a layer; attention runs
-    on this rank's heads."""
-    _dense_only(cfg)
+    on this rank's heads.  An MoE FFN writes its own (:func:`_moe_ffn`)."""
     B, L, _ = h.shape
     hd = cfg.head_dim
     H, KV = lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd
@@ -455,11 +657,15 @@ def _decoder_layer(cfg: Config, lp: Params, h: torch.Tensor,
     part = o.reshape(B, L, H * hd) @ lp["wo"]
     h = h + (tp.tp_sum(part) if tp is not None else part)
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    if tp is not None:
-        x = tp.block_in(x)
-    part = (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
-    h = h + (tp.tp_sum(part) if tp is not None else part)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.n_experts:
+        g, aux = _moe_ffn(cfg, lp, x, plan=tp)
+        h = h + g
+    else:
+        if tp is not None:
+            x = tp.block_in(x)
+        part = (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+        h = h + (tp.tp_sum(part) if tp is not None else part)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if with_kv:
         return h, aux, (k, v)
     return h, aux
@@ -633,8 +839,8 @@ def apply(cfg: Config, params: Params, tokens: torch.Tensor,
     its sp chunk of the sequence, (B/dp, L/sp, ...) — the logits over the
     whole vocab (gathered over tp), the hidden states as they are.
     ``attn='ring-zigzag'`` needs tokens already permuted into the zigzag
-    layout and their ``positions``."""
-    _dense_only(cfg)
+    layout and their ``positions``.  An MoE config's aux on a mesh is this
+    rank's share (:func:`_moe_ffn`)."""
     if layer_loop not in ("scan", "unroll"):
         raise ValueError("layer_loop must be 'scan' or 'unroll'")
     B, L = tokens.shape
@@ -693,8 +899,8 @@ def make_loss_fn(cfg: Config, mesh: Optional[Any] = None, attn: str = "full",
     tp does not divide) the plain loss; ``loss_chunk`` must divide this
     rank's sequence chunk.  ``attn='ring-zigzag'`` permutes tokens,
     targets and RoPE positions into the zigzag layout: the mean NLL is
-    permutation-invariant, so the loss equals the contiguous layout's."""
-    _dense_only(cfg)
+    permutation-invariant, so the loss equals the contiguous layout's.
+    An MoE config adds ``cfg.moe_aux_coef * aux``, as JAX's loss does."""
     plan = _MeshPlan(cfg, mesh) if mesh is not None else None
 
     def loss_fn(params: Params, batch) -> torch.Tensor:
@@ -708,18 +914,23 @@ def make_loss_fn(cfg: Config, mesh: Optional[Any] = None, attn: str = "full",
             idx = torch.as_tensor(seq.zigzag_indices(tokens.shape[1], p),
                                   device=tokens.device)
             tokens, targets, positions = tokens[:, idx], targets[:, idx], idx
-        h, _ = apply(cfg, params, tokens, mesh=mesh, attn=attn, remat=remat,
-                     return_hidden=True, return_aux=True,
-                     layer_loop=layer_loop,
-                     positions=positions)                 # (B, L, D)
+        h, aux = apply(cfg, params, tokens, mesh=mesh, attn=attn,
+                       remat=remat, return_hidden=True, return_aux=True,
+                       layer_loop=layer_loop,
+                       positions=positions)               # (B, L, D)
         if plan is None:
-            return _nll_from_hidden(params["head"], h, targets, loss_chunk)
+            nll = _nll_from_hidden(params["head"], h, targets, loss_chunk)
+            if cfg.n_experts:
+                nll = nll + cfg.moe_aux_coef * aux
+            return nll
         targets = plan.chunk(plan.rows(targets))
         if plan.head_sharded:
             nll = _nll_from_hidden_tp(params["head"], h, targets,
                                       loss_chunk, plan)
         else:
             nll = _nll_from_hidden(params["head"], h, targets, loss_chunk)
+        if cfg.n_experts:
+            nll = nll + cfg.moe_aux_coef * aux
         comm = plan.grad_comm()
         return _GlobalMean.apply(nll, comm) if comm is not None else nll
 
@@ -1007,8 +1218,7 @@ def _decode_step(cfg: Config, params: Params, cache: Params,
     entries weigh exactly 0 there, so the result is the same.  With ``tp``
     the weights and the cache are this rank's shards (its heads), the two
     tp sums of a layer run on the wire dtype and the logits are gathered
-    over tp."""
-    _dense_only(cfg)
+    over tp.  An MoE FFN routes dropless (capacity = tokens a group)."""
     pos = int(pos)
     B = tokens.shape[0]
     hd = cfg.head_dim
@@ -1034,6 +1244,13 @@ def _decode_step(cfg: Config, params: Params, cache: Params,
         part = o.to(h.dtype) @ lp["wo"]
         h = h + (tp.tp_sum(part) if tp is not None else part)
         x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+        if cfg.n_experts:
+            # Dropless at decode: capacity = tokens a group covers the
+            # worst case (top-k experts are distinct, so an expert gets at
+            # most one unit per token).
+            g, _ = _moe_ffn(cfg, lp, x[:, None, :], dropless=True, plan=tp)
+            h = h + g[:, 0]
+            continue
         part = (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
         h = h + (tp.tp_sum(part) if tp is not None else part)
     h = rms_norm(h, params["norm"], cfg.norm_eps)
@@ -1146,7 +1363,6 @@ def make_generate_fn(cfg: Config, prompt_len: int, max_new: int,
         # believe they sampled.
         raise ValueError("top_k/top_p require temperature > 0 "
                          "(temperature=0 is greedy)")
-    _dense_only(cfg)
     dev = resolve_device(device)
     max_len = prompt_len + max_new
     plan = _MeshPlan(cfg, mesh) if mesh is not None else None

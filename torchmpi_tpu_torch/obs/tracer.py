@@ -88,6 +88,12 @@ def drain() -> List[Dict[str, Any]]:
     return out
 
 
+def peek() -> List[Dict[str, Any]]:
+    """All finished spans, oldest first, without draining them."""
+    with _lock:
+        return list(_spans)
+
+
 # ------------------------------------------------------------------- spans
 
 class _NullSpan:

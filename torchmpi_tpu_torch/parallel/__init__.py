@@ -1,7 +1,7 @@
 """Parallelism strategies of the port: mesh construction over the ranks,
-tensor parallel and sequence/context parallel (counterpart of
-``torchmpi_tpu/parallel``; its ``blocks`` and ``pipeline`` wait for ROADMAP
-item 14, ``moe`` for item 12a)."""
+tensor parallel, sequence/context parallel and expert parallel (counterpart
+of ``torchmpi_tpu/parallel``; its ``blocks`` and ``pipeline`` wait for
+ROADMAP item 14)."""
 
 from .mesh import (  # noqa: F401
     AXIS_DP,
@@ -15,5 +15,6 @@ from .mesh import (  # noqa: F401
     mesh_axis_size,
     validate_hosts_on_slow_axes,
 )
+from . import moe  # noqa: F401
 from . import sequence  # noqa: F401
 from . import tp  # noqa: F401

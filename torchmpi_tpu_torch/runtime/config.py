@@ -15,8 +15,10 @@ plane's rings (``small_allreduce_size_cpu``, ``bcast_size_tree_based``,
 (``gradient_bucket_bytes``) and the engine's asynchronous gradient sync
 (``engine_async_drain``, ``sync_gradient_frequency``), the tensor-parallel
 wire (``manual_wire_dtype``), the input data plane
-(``data_*``, read only by ``data/pipeline.py:knob_defaults``) and the
-logger's level (``verbose``).
+(``data_*``, read only by ``data/pipeline.py:knob_defaults``), the
+parameter server (``parameterserver_offload_pool_size``, ``ps_*``), the
+native trace rings and the flight recorder (``obs_trace_ring_capacity``,
+``obs_flight*``) and the logger's level (``verbose``).
 """
 
 from __future__ import annotations
@@ -138,6 +140,55 @@ class Constants:
     # their copy has completed; off on the CPU, where the "copy" aliases.
     data_reuse_host_buffers: bool = True
 
+    # --- parameter server (parameterserver/, _native/ps.cpp) ---
+    # Offload pool threads of the PS client's async pushes and pulls.
+    parameterserver_offload_pool_size: int = 4
+    # Max request attempts per PS operation (connect + send + reply).
+    # Retries honour the idempotency split: a send-side failure always
+    # retries, a lost reply only for idempotent ops (pull/create/free/ping
+    # — never a rule=add push).
+    ps_retry_max: int = 4
+    # Exponential backoff between attempts: base * 2^attempt plus jitter,
+    # capped at the max.
+    ps_retry_backoff_ms: int = 50
+    ps_retry_backoff_max_ms: int = 2000
+    # Per-request socket deadline in ms; 0 waits forever.  An expired
+    # deadline counts in tmpi_ps_timeout_count and fails the attempt.
+    ps_request_deadline_ms: int = 0
+    # CRC32 trailers on PS frames (push payloads verified server-side with
+    # a retriable NACK, pull replies client-side); mismatches count in
+    # tmpi_ps_crc_failure_count.
+    ps_frame_crc: bool = False
+    # Server-side durable snapshot directory ("" = durability off): the
+    # server restores the newest snapshot that validates and starts the
+    # cadence writer.
+    ps_snapshot_dir: str = _env("TORCHMPI_TPU_PS_SNAPSHOT_DIR", "", str)
+    # Cadence of the background snapshot writer in ms (0 = on demand).
+    ps_snapshot_interval_ms: int = 0
+    # Epoch fence for non-idempotent pushes: a server restarted from a
+    # snapshot NACKs stale pushes, and the client's failover re-seeds the
+    # shard from its shadow before replaying — `add` lands exactly once.
+    ps_epoch_fence: bool = True
+    # Client failover budget (reconnect pings; 0 = off, failures raise
+    # PSTransportError at once) and its base backoff (exponential, capped
+    # at about 2 s).
+    ps_failover_max: int = 8
+    ps_failover_backoff_ms: int = 250
+    # Replicated multi-server group: shard keys on a consistent-hash ring,
+    # a backup per shard, promotion of a dead primary, live handoff.
+    ps_replication: bool = False
+    # Virtual points per server slot on the placement ring (identical on
+    # every client of a cluster).
+    ps_placement_vnodes: int = 128
+    # Reconnect attempts to an unresponsive primary before promoting its
+    # backup (replicated mode only).
+    ps_promote_reconnect_max: int = 1
+    # Promotion-storm suppression window in ms (0 = off).
+    ps_promote_jitter_ms: int = _env(
+        "TORCHMPI_TPU_PS_PROMOTE_JITTER_MS", 0, int)
+    # Bound (frames) on each server's pending-forward queue to its backups.
+    ps_forward_queue_max: int = 1024
+
     # --- logging ---
     # 1 lifts the loggers' default level from INFO to DEBUG
     # (utils/logging.py; TORCHMPI_TPU_LOG_LEVEL wins over it).
@@ -149,6 +200,17 @@ class Constants:
     # Capacity (spans) of the tracer's finished-span buffer; drop-oldest.
     obs_span_capacity: int = _env(
         "TORCHMPI_TPU_OBS_SPAN_CAPACITY", 4096, int)
+    # Capacity (events) of each native trace ring (hostcomm.cpp, ps.cpp);
+    # drop-oldest, losses counted in tmpi_{hc,ps}_trace_dropped.
+    obs_trace_ring_capacity: int = _env(
+        "TORCHMPI_TPU_OBS_TRACE_RING_CAPACITY", 4096, int)
+    # Failure flight recorder (obs/flight.py): when on, the PS failover and
+    # promotion paths write a post-mortem bundle (spans, drained native
+    # ring tails, counters, knobs) to obs_flight_dir ("" = the working
+    # directory), keeping at most obs_flight_keep bundles.
+    obs_flight: bool = _env_bool("TORCHMPI_TPU_OBS_FLIGHT", False)
+    obs_flight_dir: str = _env("TORCHMPI_TPU_OBS_FLIGHT_DIR", "", str)
+    obs_flight_keep: int = _env("TORCHMPI_TPU_OBS_FLIGHT_KEEP", 8, int)
 
     # --- job history plane: persistent event journal (obs/journal.py) ---
     # Master switch: append-only JSONL journal of discrete state changes.
@@ -212,6 +274,11 @@ def set(name: str, value: Any) -> None:  # noqa: A001 - mirrors the JAX API
         raise KeyError(f"unknown constant {name!r}")
     with _lock:
         setattr(_constants, name, value)
+
+
+def snapshot() -> dict:
+    """All knobs as a dict, for logging / reproducibility."""
+    return dataclasses.asdict(_constants)
 
 
 def reset(**overrides: Any) -> None:

@@ -1,10 +1,10 @@
 """Typed transport faults of the host plane.
 
 Counterpart of the typed errors of ``torchmpi_tpu/runtime/failure.py``:
-the hostcomm rings raise these instead of bare ``RuntimeError`` s, so a
-caller can tell a sick network (a deadline that expired, a damaged frame,
-a reset connection) from a programming error.  A fault poisons the ring it
-happened on; recovery is a fresh ring.
+the hostcomm rings and the parameter-server client raise these instead of
+bare ``RuntimeError`` s, so a caller can tell a sick network (a deadline
+that expired, a damaged frame, a reset connection) from a programming
+error.  A fault poisons the ring it happened on; recovery is a fresh ring.
 """
 
 from __future__ import annotations
@@ -30,3 +30,15 @@ class HostcommCorruption(HostcommError):
     """A received hostcomm frame failed its CRC32 trailer check
     (``hc_frame_crc``): the payload was damaged in flight and was not
     applied."""
+
+
+class PSTransportError(TransportFailure):
+    """A parameter-server request failed after its bounded retry/backoff
+    budget (connect failures, expired per-request deadlines, torn frames)."""
+
+
+class PSFenceError(PSTransportError):
+    """A fenced (non-idempotent) PS push was NACKed by a server restarted
+    from a snapshot — the rule provably never ran — and the client could
+    not complete the failover re-seed-and-replay contract
+    (``ps_failover_max`` 0 or exhausted)."""

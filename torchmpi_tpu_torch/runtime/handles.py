@@ -131,6 +131,32 @@ class SynchronizationHandle:
         return f"SynchronizationHandle<{kind}, done={self._done}>"
 
 
+class ParameterServerSynchronizationHandle(SynchronizationHandle):
+    """A parameter-server push or pull in flight (reference:
+    resources.cpp:1225-1242): waited by the native client's ``wait_fn``.
+    With tracing on, the wait also records the operation's end-to-end span
+    (``op_label``, from its dispatch to its completion, under the
+    dispatching span's correlation id)."""
+
+    @classmethod
+    def from_native(cls, wait_fn: Callable[[], Any], payload: Any = None,
+                    correlation: int = 0, op_label: Optional[str] = None,
+                    op_bytes: int = 0, dispatch_t_ns: int = 0,
+                    ) -> "ParameterServerSynchronizationHandle":
+        if not (correlation and op_label):
+            return cls(native_wait=wait_fn, payload=payload)
+
+        def timed():
+            from ..obs import tracer as _tracer
+
+            out = wait_fn()
+            _tracer.record(op_label, dispatch_t_ns, _tracer.now_ns(),
+                           correlation, bytes=op_bytes)
+            return out
+
+        return cls(native_wait=timed, payload=payload)
+
+
 def fence(x: Any) -> Optional[torch.cuda.Event]:
     """An event recorded on the current stream after the work that wrote
     ``x``, when ``x`` is a CUDA tensor; else None."""

@@ -151,9 +151,13 @@ def communicator_names() -> str:
 
 
 def stop() -> None:
-    """Free the ring collectives' staging memory, drop the communicator
-    stack and leave the process group if :func:`start` joined it."""
+    """Free the ring collectives' staging memory, tear down the
+    parameter-server client (when this process used one), drop the
+    communicator stack and leave the process group if :func:`start`
+    joined it."""
     global _started, _owns_group, _device, _hostnames, _need_inter_node
+    import sys
+
     import torch.distributed as dist
 
     from ..collectives import cuda_ring
@@ -162,6 +166,9 @@ def stop() -> None:
         if not _started:
             return
         cuda_ring.release_all()
+        ps = sys.modules.get("torchmpi_tpu_torch.parameterserver")
+        if ps is not None:
+            ps.shutdown()
         stack.clear()
         _comm_mod.clear_groups()
         _hostnames = None

@@ -21,45 +21,53 @@ def _is_namedtuple(t: Any) -> bool:
     return isinstance(t, tuple) and hasattr(type(t), "_fields")
 
 
+# The walks are module-level functions that take their accumulator: a
+# nested function that calls itself is a reference cycle (the function and
+# the cell it reads itself from), and one holding the leaves would keep
+# every tensor it saw alive until the garbage collector next runs.
+
+def _flatten_into(t: Any, leaves: List[Any]) -> Any:
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return ("dict", tuple(keys),
+                tuple(_flatten_into(t[k], leaves) for k in keys))
+    if _is_namedtuple(t):
+        return ("namedtuple", type(t),
+                tuple(_flatten_into(x, leaves) for x in t))
+    if isinstance(t, (list, tuple)):
+        return (type(t).__name__, len(t),
+                tuple(_flatten_into(x, leaves) for x in t))
+    if t is None:
+        return ("none",)
+    leaves.append(t)
+    return _LEAF
+
+
 def flatten(tree: Any) -> Tuple[List[Any], Any]:
     """``(leaves, treedef)``: leaves in JAX order; ``treedef`` rebuilds the
     structure in :func:`unflatten`."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return ("dict", tuple(keys), tuple(walk(t[k]) for k in keys))
-        if _is_namedtuple(t):
-            return ("namedtuple", type(t), tuple(walk(x) for x in t))
-        if isinstance(t, (list, tuple)):
-            return (type(t).__name__, len(t), tuple(walk(x) for x in t))
-        if t is None:
-            return ("none",)
-        leaves.append(t)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(d: Any, it) -> Any:
+    if d == _LEAF:
+        return next(it)
+    kind = d[0]
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    if kind == "none":
+        return None
+    if kind == "namedtuple":
+        return d[1](*(_build(c, it) for c in d[2]))
+    children = [_build(c, it) for c in d[2]]
+    return children if kind == "list" else tuple(children)
 
 
 def unflatten(treedef: Any, leaves: List[Any]) -> Any:
     """Inverse of :func:`flatten`."""
     it = iter(leaves)
-
-    def build(d):
-        if d == _LEAF:
-            return next(it)
-        kind = d[0]
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        if kind == "none":
-            return None
-        if kind == "namedtuple":
-            return d[1](*(build(c) for c in d[2]))
-        children = [build(c) for c in d[2]]
-        return children if kind == "list" else tuple(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("more leaves than the tree holds")
     return out
@@ -78,27 +86,28 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
                           for i, x in enumerate(lv)])
 
 
+def _paths_into(t: Any, path: Tuple[Any, ...],
+                out: List[Tuple[Tuple[Any, ...], Any]]) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _paths_into(t[k], path + (k,), out)
+    elif _is_namedtuple(t):
+        for name, x in zip(type(t)._fields, t):
+            _paths_into(x, path + ("." + name,), out)
+    elif isinstance(t, (list, tuple)):
+        for i, x in enumerate(t):
+            _paths_into(x, path + (i,), out)
+    elif t is not None:
+        out.append((path, t))
+
+
 def flatten_with_paths(tree: Any) -> List[Tuple[Tuple[Any, ...], Any]]:
     """``(path, leaf)`` pairs in JAX order, as
     ``jax.tree_util.tree_flatten_with_path`` gives them: a path is the dict
     keys, sequence indices and ``NamedTuple`` fields (as ``".name"``, the
     string of JAX's ``GetAttrKey``) from the root to the leaf."""
     out: List[Tuple[Tuple[Any, ...], Any]] = []
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], path + (k,))
-        elif _is_namedtuple(t):
-            for name, x in zip(type(t)._fields, t):
-                walk(x, path + ("." + name,))
-        elif isinstance(t, (list, tuple)):
-            for i, x in enumerate(t):
-                walk(x, path + (i,))
-        elif t is not None:
-            out.append((path, t))
-
-    walk(tree, ())
+    _paths_into(tree, (), out)
     return out
 
 
