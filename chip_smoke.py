@@ -267,6 +267,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    after every integration) and ``mnist_modelparallel`` on 2 ranks (tp
    2), each converging by the same bar.
 
+21. pipeline: BASELINE config 4 and Llama's pipeline steps over the
+   mesh's pp axis, 4 ranks spawned on the one card (every hand-off a gloo
+   send and receive through the host, tagged by tick and direction).
+   Llama-3-8B width cut to PIPE_LAYERS (4) layers, bf16, random weights
+   from PIPE_SEED, one batch of PIPE_BATCH sequences of PIPE_L tokens as
+   PIPE_M micro-batches, flash, remat "dots", loss_chunk 512, SGD at
+   TRAIN_LR.  Every rank first runs one layer and the loss head on its
+   shard (``_pipe_warm``), so that no step pays its cold start.  (a)
+   GPipe (``make_pp_train_step``) over {pp 2} on ranks 0 and 1,
+   PIPE_GPIPE_STEPS steps: step 1's loss within PIPE_LOSS_RTOL of
+   the one-rank ``make_train_step`` on the same weights and batch (run
+   here after the ranks), the updated embed, norm and head bit-equal on
+   both ranks, B4-B6 launches a rank a step as ``pipe_expected`` predicts;
+   the hand-offs and the two broadcasts clocked (``_WireClock``), one
+   16.8 MB hop timed alone, the hand-offs' wait beyond their transfers
+   over the step beside ``pipeline_stats(2, PIPE_M)``, peak GB.  (b) 1F1B
+   (``make_1f1b_train_step``, ``stage_tp="manual"``) over {pp 2, tp 2},
+   ``"combined"`` then ``"alternating"`` from the same weights,
+   PIPE_1F1B_STEPS steps each: step 1's loss within PIPE_LOSS_RTOL of the
+   one-rank step's, the stash's high-water mark within the schedule's
+   bound, B4-B6 as predicted; the hand-offs, tp sums, the loss's tp
+   reductions and the sums over pp clocked, peak GB.  (c) config 4, the
+   port's ``mnist_pipeline`` with its defaults for PIPE_MNIST_EPOCHS
+   epochs over {pp 4}, f32: the epoch loss down by 0.2 and the held-out
+   accuracy above 30% (the JAX package's bar), every stage leaf on cuda,
+   the ranks' losses equal; step ms.  No plain flash version runs in a
+   rank.
+
 Then a ``timing`` line with each phase's seconds (the build included, the
 imports before it not) and the card memory each left allocated (before
 and after a collection of cyclic garbage), a line with the card's name and power limit, a
@@ -4063,6 +4091,410 @@ def phase_parameterserver(torch, fa):
     return rec
 
 
+# ----------------------------------------------------------------- pipeline
+# BASELINE config 4 and Llama's pipeline steps over the mesh's pp axis, on
+# ranks spawned on the one card (every hand-off a gloo send and receive
+# staged through the host).  Llama-3-8B width cut to PIPE_LAYERS layers
+# (V = 2 a stage over pp 2), bf16, the global batch PIPE_BATCH sequences of
+# PIPE_L tokens as PIPE_M micro-batches of one sequence.
+PIPE_LAYERS = 4
+PIPE_L, PIPE_BATCH, PIPE_M, PIPE_CHUNK = 2048, 4, 4, 512
+PIPE_GPIPE_STEPS = 3
+PIPE_1F1B_STEPS = 1     # each schedule; the phase stays under 90 s
+PIPE_SEED = 17
+PIPE_HOP_CALLS = 5
+PIPE_MNIST_EPOCHS = 2
+# Step 1's loss against the one-rank step's (the bf16 bound of the mesh
+# phase's last step: the same forward, its sums in other orders).
+PIPE_LOSS_RTOL = 1e-3
+# Config 4's bar: the JAX package's for its examples
+# (tests/test_examples.py _assert_converged: accuracy above 30%, the epoch
+# loss down by 0.2).
+PIPE_MNIST_ACC, PIPE_MNIST_DROP = 0.30, 0.2
+
+
+def pipe_expected(kind: str, V: int, M: int) -> dict:
+    """B4-B6 launches a rank a step.  GPipe runs each of its V layers once a
+    micro-batch forward, and remat "dots" runs the forward again in the
+    backward; 1F1B's forward op runs the layer without a graph, and its
+    backward op re-forms the forward (then remat runs it once more)."""
+    fwd = FWD_PER_LAYER[TRAIN_REMAT] + (1 if kind == "1f1b" else 0)
+    return {"flash_attention_fwd": fwd * V * M,
+            "flash_attention_bwd_dq": V * M,
+            "flash_attention_bwd_dkv": V * M}
+
+
+def _peak_gb(torch, reset: bool = False) -> float:
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _pipe_cfg(llama):
+    return dataclasses.replace(llama.llama3_8b(), n_layers=PIPE_LAYERS)
+
+
+def _pipe_inputs(torch, llama, train_mod, dev):
+    """The whole model from PIPE_SEED (bf16) and the batch, the same on
+    every rank and in the one-rank run."""
+    cfg = _pipe_cfg(llama)
+    g = torch.Generator(device=dev).manual_seed(PIPE_SEED)
+    whole = llama.init(g, cfg, dtype=torch.bfloat16, device=dev)
+    data, _ = train_mod.synthetic_tokens(cfg, n_seq=PIPE_BATCH,
+                                         seq_len=PIPE_L, seed=0)
+    batch = torch.from_numpy(data).to(dev, torch.long)
+    return cfg, whole, batch[:, :-1], batch[:, 1:]
+
+
+def _pipe_steps(torch, fa, step, params, tokens, targets, steps, clock):
+    """``steps`` calls of a pipeline step ``(params, tokens, targets) ->
+    (params, loss)``: losses, ms, B4-B6 launches and wire ms a step."""
+    losses, step_ms, per_step, wires = [], [], [], []
+    for _ in range(steps):
+        reset_counts(fa)
+        torch.cuda.synchronize()
+        clock.read()
+        t0 = time.perf_counter()
+        params, loss = step(params, tokens, targets)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append(read_counts(fa))
+        wires.append(clock.read())
+    return params, {"losses": losses, "step_ms": step_ms,
+                    "launches_per_step": per_step, "wires": wires}
+
+
+def _pipe_gpipe(torch, llama, fa, mesh, cfg, params, tokens, targets, dev):
+    """(a): make_pp_train_step over {pp 2} on this rank's shard, then one
+    hand-off timed alone."""
+    from torchmpi_tpu_torch.collectives import eager, innerjit
+
+    step, V = llama.make_pp_train_step(
+        cfg, mesh, PIPE_M, lr=TRAIN_LR, attn="flash", remat=TRAIN_REMAT,
+        loss_chunk=PIPE_CHUNK)
+    clock = _WireClock(torch, wires=((innerjit, "handoff", "handoff"),
+                                     (eager, "broadcast", "broadcast")))
+    _peak_gb(torch, reset=True)
+    try:
+        params, rec = _pipe_steps(torch, fa, step, params, tokens, targets,
+                                  PIPE_GPIPE_STEPS, clock)
+    finally:
+        clock.close()
+    rec.update(V=V, peak_gb=_peak_gb(torch),
+               expected_per_step=pipe_expected("gpipe", V, PIPE_M),
+               replicated={k: _digest([params[k]])
+                           for k in ("embed", "norm", "head")})
+    del params, step
+    # One hop alone: a (1, PIPE_L, d_model) bf16 activation from stage 0
+    # to stage 1 (ticks far past the schedule's, so no tag repeats).
+    comm = mesh.comm("pp")
+    x = torch.randn((1, PIPE_L, cfg.d_model), dtype=torch.bfloat16,
+                    device=dev)
+    hop = []
+    for i in range(PIPE_HOP_CALLS):
+        sends = [(1, x)] if comm.rank == 0 else []
+        recvs = [(0, x)] if comm.rank == 1 else []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        innerjit.handoff(sends, recvs, comm, 1_000_000 + i)
+        torch.cuda.synchronize()
+        hop.append((time.perf_counter() - t0) * 1e3)
+    rec["hop_ms"] = sorted(hop)[len(hop) // 2]
+    rec["hop_bytes"] = x.numel() * x.element_size()
+    return rec
+
+
+def _pipe_warm(torch, llama, cfg, shard, dev) -> float:
+    """One decoder layer's forward and backward and the chunked loss head's
+    on this rank's shard (its shapes, PIPE_L tokens), with no collective:
+    the card loads the GEMM and flash kernels the steps run, on all ranks
+    at once (this cold start took 9.8-11.3 s on an H100 80GB HBM3 at 700
+    W).  Returns its seconds."""
+    t0 = time.perf_counter()
+    lp = {k: v[0].detach().requires_grad_(True)
+          for k, v in shard["layers"].items()}
+    head = shard["head"].detach().requires_grad_(True)
+    h = torch.randn((1, PIPE_L, cfg.d_model), dtype=torch.bfloat16,
+                    device=dev, requires_grad=True)
+    attn = llama._make_attn_impl(cfg, "flash", None,
+                                 1.0 / math.sqrt(cfg.head_dim))
+    out, _ = llama._decoder_layer(cfg, lp, h,
+                                  torch.arange(PIPE_L, device=dev), attn)
+    tgt = torch.zeros((1, PIPE_L), dtype=torch.long, device=dev)
+    loss = llama._nll_from_hidden(head, out, tgt, PIPE_CHUNK)
+    loss.backward()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _pipe_1f1b(torch, llama, fa, mesh, cfg, shard0, tokens, targets):
+    """(b): make_1f1b_train_step over {pp 2, tp 2}, stage_tp="manual",
+    each schedule from the same weights."""
+    from torchmpi_tpu_torch.collectives import eager, innerjit
+    from torchmpi_tpu_torch.parallel import tp as tp_mod
+    from torchmpi_tpu_torch.utils import tree
+
+    out = {}
+    for sched in ("combined", "alternating"):
+        params = tree.tree_map(lambda t: t.clone(), shard0)
+        step, V = llama.make_1f1b_train_step(
+            cfg, mesh, PIPE_M, lr=TRAIN_LR, attn="flash", remat=TRAIN_REMAT,
+            loss_chunk=PIPE_CHUNK, stage_tp="manual", manual_schedule=sched)
+        clock = _WireClock(torch, wires=(
+            (tp_mod, "_tp_sum", "tp_sum"), (innerjit, "handoff", "handoff"),
+            (innerjit, "allreduce", "loss"), (eager, "allreduce_", "pp_sum")))
+        _peak_gb(torch, reset=True)
+        highs = []
+
+        def counted(p, t, tg, _step=step):
+            res = _step(p, t, tg)
+            highs.append(_step.pipe.stash_high_water)
+            return res
+
+        try:
+            params, rec = _pipe_steps(torch, fa, counted, params, tokens,
+                                      targets, PIPE_1F1B_STEPS, clock)
+        finally:
+            clock.close()
+        rec.update(V=V, peak_gb=_peak_gb(torch), stash_high_water=highs,
+                   stash_bound=step.pipe.stash_bound,
+                   expected_per_step=pipe_expected("1f1b", V, PIPE_M),
+                   replicated={k: _digest([params[k]])
+                               for k in ("embed", "norm", "head")})
+        out[sched] = rec
+        del params, step
+    return out
+
+
+def pipeline_rank_main() -> dict:
+    """One of the pipeline phase's 4 ranks (spawned on the one card): a
+    warm-up (``_pipe_warm``), (a) GPipe on {pp 2} (ranks 0 and 1; ranks 2
+    and 3 make the mesh's groups with them, then wait), (b) 1F1B on {pp 2,
+    tp 2}, (c) config 4's example on {pp 4}.  The process group is this function's, so that the
+    example may start and stop the runtime on it."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    import torchmpi_tpu_torch as mpi
+    from torchmpi_tpu_torch.examples import mnist_pipeline
+    from torchmpi_tpu_torch.examples import train_llama as train_mod
+    from torchmpi_tpu_torch.models import llama
+    from torchmpi_tpu_torch.parallel import mesh as mesh_mod
+    from torchmpi_tpu_torch.runtime.communicator import Communicator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    fa = importlib.import_module("torchmpi_tpu_torch.ops.flash_attention")
+    plain = _count_plain(fa)
+    dist.init_process_group("gloo", init_method="env://",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    out = {"rank": dist.get_rank()}
+    try:
+        t0 = time.perf_counter()
+        dev = mpi.start()
+        try:
+            me = mpi.rank()
+            cfg, whole, tokens, targets = _pipe_inputs(torch, llama,
+                                                       train_mod, dev)
+            pp2 = mesh_mod.make_mesh({"pp": 2},
+                                     comm=Communicator(range(2), my_rank=me))
+            pp2_tp2 = mesh_mod.make_mesh({"pp": 2, "tp": 2})
+            out["coords"] = pp2_tp2.coords
+            # Both layouts cut from the whole model, which then goes.
+            gpipe0 = (llama.shard_params_pp(whole, pp2, cfg) if me < 2
+                      else None)
+            shard0 = llama.shard_params_pp(whole, pp2_tp2, cfg)
+            del whole
+            out["warm_s"] = _pipe_warm(torch, llama, cfg,
+                                       gpipe0 if me < 2 else shard0, dev)
+            torch.cuda.empty_cache()
+            if me < 2:
+                out["gpipe"] = _pipe_gpipe(torch, llama, fa, pp2, cfg,
+                                           gpipe0, tokens, targets, dev)
+            del gpipe0
+            dist.barrier()
+            out["gpipe_s"] = time.perf_counter() - t0
+            out["1f1b"] = _pipe_1f1b(torch, llama, fa, pp2_tp2, cfg, shard0,
+                                     tokens, targets)
+            del shard0
+            out["1f1b_s"] = time.perf_counter() - t0 - out["gpipe_s"]
+        finally:
+            mpi.stop()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            res = mnist_pipeline.run(mnist_pipeline.parse_args(
+                ["--epochs", str(PIPE_MNIST_EPOCHS)]))
+        out["mnist"] = {**res, "text": text.getvalue(),
+                        "seconds": time.perf_counter() - t1}
+        out["plain_calls"] = dict(plain)
+        out["max_memory_gb"] = _peak_gb(torch)
+        return out
+    except BaseException:
+        import traceback
+
+        print(f"pipeline rank {out['rank']}: {traceback.format_exc()}",
+              file=sys.stderr, flush=True)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _pipe_one_rank(torch, llama, train_mod, dev) -> dict:
+    """The one-rank ``make_train_step`` on the same weights and batch:
+    step 1's loss, and the ms of steps 1 and 2."""
+    cfg, whole, tokens, targets = _pipe_inputs(torch, llama, train_mod, dev)
+    step = llama.make_train_step(cfg, lr=TRAIN_LR, attn="flash",
+                                 remat=TRAIN_REMAT, loss_chunk=PIPE_CHUNK)
+    losses, ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = step(whole, None, tokens, targets)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return {"loss": losses[0], "losses": losses, "step_ms": ms}
+
+
+def _pipe_checks(res, ref, stats) -> tuple:
+    """The phase's checks over the ranks' results (``res``, by rank) and
+    the one-rank run (``ref``); returns (failed checks, record)."""
+    bad = []
+
+    def fact(name, ok, **detail):
+        if not ok:
+            bad.append({"check": name, **detail})
+
+    def run_checks(name, runs):
+        for r, run in runs:
+            rel = abs(run["losses"][0] - ref["loss"]) / abs(ref["loss"])
+            run["step1_loss_rel_err"] = rel
+            fact(f"{name}: step 1 loss", rel < PIPE_LOSS_RTOL, rank=r,
+                 rel=rel)
+            fact(f"{name}: losses finite",
+                 all(math.isfinite(x) for x in run["losses"]), rank=r,
+                 losses=run["losses"])
+            fact(f"{name}: launches per step", all(
+                s == run["expected_per_step"]
+                for s in run["launches_per_step"]), rank=r,
+                got=run["launches_per_step"],
+                expected=run["expected_per_step"])
+
+    gpipe = [(r["rank"], r["gpipe"]) for r in res if "gpipe" in r]
+    run_checks("gpipe", gpipe)
+    fact("gpipe: embed, norm and head bit-equal on both pp ranks",
+         gpipe[0][1]["replicated"] == gpipe[1][1]["replicated"],
+         digests=[run["replicated"] for _, run in gpipe])
+    for sched in ("combined", "alternating"):
+        runs = [(r["rank"], r["1f1b"][sched]) for r in res]
+        run_checks(f"1f1b {sched}", runs)
+        for r, run in runs:
+            fact(f"1f1b {sched}: stash within the schedule's bound",
+                 max(run["stash_high_water"]) <= run["stash_bound"], rank=r,
+                 high=run["stash_high_water"], bound=run["stash_bound"])
+    for r in res:
+        m = r["mnist"]
+        losses = m["epoch_losses"]
+        fact("config 4: converged", losses[-1] < losses[0] - PIPE_MNIST_DROP
+             and m["accuracy"] > PIPE_MNIST_ACC, rank=r["rank"],
+             losses=losses, accuracy=m["accuracy"])
+        fact("config 4: every stage leaf on cuda",
+             all(d.startswith("cuda") for d in m["devices"]),
+             rank=r["rank"], devices=m["devices"])
+        fact("config 4: the ranks agree", losses == res[0]["mnist"][
+            "epoch_losses"], rank=r["rank"])
+    plain = [r["plain_calls"] for r in res]
+    fact("no plain flash version on the card",
+         all(v == 0 for d in plain for v in d.values()), plain=plain)
+
+    def steady(ms):
+        return ms[1:] or ms
+
+    def wire_ms(run, name):
+        return run["wires"][-1]["ms"].get(name, 0.0)
+
+    g_rec = {}
+    for r, run in gpipe:
+        ms = steady(run["step_ms"])[-1]
+        hops = run["wires"][-1]["calls"].get("handoff", 0)
+        handoff = wire_ms(run, "handoff")
+        g_rec[r] = {
+            "losses": run["losses"], "step_ms": run["step_ms"],
+            "step1_loss_rel_err": run["step1_loss_rel_err"],
+            "launches_per_step": run["launches_per_step"][-1],
+            "wires": run["wires"][-1], "hop_ms": run["hop_ms"],
+            "hop_bytes": run["hop_bytes"], "peak_gb": run["peak_gb"],
+            # The hand-offs' wait beyond their transfers, over the step.
+            "idle_share": (handoff - hops * run["hop_ms"]) / ms,
+            "wire_share": (handoff + wire_ms(run, "broadcast")) / ms}
+    b_rec = {}
+    for sched in ("combined", "alternating"):
+        b_rec[sched] = {
+            r["rank"]: {k: r["1f1b"][sched][k] for k in (
+                "losses", "step_ms", "step1_loss_rel_err", "stash_high_water",
+                "stash_bound", "peak_gb", "replicated")}
+            | {"wires": r["1f1b"][sched]["wires"][-1],
+               "launches_per_step": r["1f1b"][sched][
+                   "launches_per_step"][-1]}
+            for r in res}
+    m_rec = {r["rank"]: {"epoch_losses": r["mnist"]["epoch_losses"],
+                         "accuracy": r["mnist"]["accuracy"],
+                         "step_ms_median": 1e3 * sorted(
+                             r["mnist"]["step_s"])[len(r["mnist"]["step_s"])
+                                                   // 2],
+                         "steps": len(r["mnist"]["step_s"]),
+                         "seconds": r["mnist"]["seconds"],
+                         "devices": r["mnist"]["devices"]} for r in res}
+    rec = {"gpipe": g_rec, "1f1b": b_rec, "config4": m_rec,
+           "one_rank": ref, "pipeline_stats": stats, "plain_calls": plain,
+           "max_memory_gb": [r["max_memory_gb"] for r in res],
+           "part_s": [{k: r[k] for k in ("warm_s", "gpipe_s", "1f1b_s")}
+                      for r in res]}
+    return bad, rec
+
+
+def phase_pipeline(torch, llama, fa, train_mod):
+    """BASELINE config 4 and Llama's pipeline steps on the one card: 4
+    ranks spawned (pipeline_rank_main), then the one-rank step on the same
+    weights and batch here, and the checks (_pipe_checks)."""
+    from torchmpi_tpu_torch.parallel import pipeline as pl
+    from torchmpi_tpu_torch.runtime import launch
+
+    t_start = time.perf_counter()
+    res = launch.spawn(4, pipeline_rank_main, (), timeout_s=600)
+    res.sort(key=lambda r: r["rank"])
+    spawn_s = time.perf_counter() - t_start
+    ref = _pipe_one_rank(torch, llama, train_mod, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    stats = {mode: pl.pipeline_stats(2, PIPE_M, mode)
+             for mode in ("gpipe", "1f1b", "1f1b-combined")}
+    bad, rec = _pipe_checks(res, ref, stats)
+    rec.update(phase="pipeline", n_layers=PIPE_LAYERS, seq=PIPE_L,
+               batch=PIPE_BATCH, microbatches=PIPE_M, remat=TRAIN_REMAT,
+               loss_chunk=PIPE_CHUNK, lr=TRAIN_LR, spawn_s=spawn_s,
+               seconds=time.perf_counter() - t_start, failed=bad)
+    print(json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError(f"pipeline phase checks failed: {bad}")
+    launches = {
+        "pipeline_gpipe_pp2": {k: sum(
+            sum(s[k] for s in r["gpipe"]["launches_per_step"])
+            for r in res if "gpipe" in r) for k in COUNTERS}}
+    for sched in ("combined", "alternating"):
+        launches[f"pipeline_1f1b_pp2_tp2_{sched}"] = {k: sum(
+            sum(s[k] for s in r["1f1b"][sched]["launches_per_step"])
+            for r in res) for k in COUNTERS}
+    return {"launches": launches, "record": rec}
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
                        async_launches, async_rec, mnist_rec, options,
                        hierarchy):
@@ -4356,6 +4788,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, moe_launches = timed("moe", phase_moe, torch, llama, fa, train_mod)
     launches.update(moe_launches)
+    torch.cuda.empty_cache()
+    pipe = timed("pipeline", phase_pipeline, torch, llama, fa, train_mod)
+    launches.update(pipe["launches"])
     torch.cuda.empty_cache()
     timed("parameterserver", phase_parameterserver, torch, fa)
     emit(phase="timing", seconds=took, total_s=time.perf_counter() - start,

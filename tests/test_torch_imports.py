@@ -180,8 +180,17 @@ _, _, loss = step(params, None, tokens[:, :-1], tokens[:, 1:])
 x = torch.full((3,), float(mpi.rank() + 1))
 shifted = innerjit.ring_shift(x, "sp", mesh=mesh)
 me = mpi.rank()
+pp = parallel.make_mesh({"pp": 2})
+whole = llama.init(0, cfg, device="cpu")
+gpipe, V = llama.make_pp_train_step(cfg, pp, 1, lr=0.1)
+_, loss_pp = gpipe(llama.shard_params_pp(whole, pp, cfg), tokens[:, :-1],
+                   tokens[:, 1:])
+one_f_one_b, _ = llama.make_1f1b_train_step(cfg, pp, 1, lr=0.1)
+_, loss_1f1b = one_f_one_b(llama.shard_params_pp(whole, pp, cfg),
+                           tokens[:, :-1], tokens[:, 1:])
 mpi.stop()
 assert torch.isfinite(loss) and shifted.tolist() == [float(2 - me)] * 3
+assert V == 1 and abs(float(loss_pp) - float(loss_1f1b)) < 1e-5
 loaded = [m for m in sys.modules if m.split('.')[0] in
           ('jax', 'jaxlib', 'torchmpi_tpu')]
 assert not loaded, loaded
@@ -191,9 +200,11 @@ print('ok')
 
 def test_mesh_paths_run_without_jax_loaded(tmp_path):
     """Two processes of a gloo world: the mesh modules (``parallel.mesh``,
-    ``tp``, ``sequence``, ``collectives.innerjit``) import and Llama's
-    ring-attention train step and a ring shift run over an {sp 2} mesh,
-    with neither JAX nor the JAX package loaded."""
+    ``tp``, ``sequence``, ``pipeline``, ``collectives.innerjit``) import,
+    Llama's ring-attention train step and a ring shift run over an {sp 2}
+    mesh, and a GPipe step and a 1F1B step over a {pp 2} mesh (the same
+    loss from the same weights), with neither JAX nor the JAX package
+    loaded."""
     _run_two_ranks(tmp_path, MESH_RANK)
 
 
@@ -469,3 +480,32 @@ def test_moe_entry_points_raise_without_a_gpu(monkeypatch):
         moe.init_experts(0, 4, 8, 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tl.init(0, tl.moe_tiny())
+
+
+SLICE17_MODULES = ["parallel/pipeline.py", "parallel/blocks.py",
+                   "examples/mnist_pipeline.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE17_MODULES)
+def test_slice17_modules_are_checked(rel):
+    """The import check above covers the pipeline modules of the port and
+    config 4's example."""
+    assert ROOT / "torchmpi_tpu_torch" / rel in PORT_FILES
+
+
+def test_pipeline_entry_points_raise_without_a_gpu(monkeypatch, capsys):
+    """Config 4's example, ``train_llama --pp`` and ``BlockSequential.init``
+    refuse to fall back to the CPU when no GPU is visible and no device was
+    asked for."""
+    from torchmpi_tpu_torch.examples import mnist_pipeline, train_llama
+    from torchmpi_tpu_torch.parallel import blocks
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mnist_pipeline.main([]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mnist_pipeline.run(mnist_pipeline.parse_args([]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_llama.main(["--pp", "2", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        blocks.BlockSequential([]).init(0)

@@ -228,7 +228,9 @@ def _one_rank_mesh(axes):
 
 
 def test_what_still_raises():
-    """The pp axis names item 14 (MoE configs and the ep axis build since
+    """The pp axis builds since item 14: the plain step treats it as
+    replicas, as JAX's GSPMD step does an axis no spec names, and the
+    pipeline step builds on it (MoE configs and the ep axis build since
     item 12a; ep must divide the experts); tp must divide the KV heads
     (JAX's generate check, same message); flash over sp names the ring
     modes; ring modes need an sp axis (JAX: an unbound axis)."""
@@ -237,8 +239,8 @@ def test_what_still_raises():
     cfg = tl.tiny()
     moe = dataclasses.replace(cfg, n_experts=4)
     assert callable(tl.make_train_step(moe, _one_rank_mesh({"dp": 1})))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tl.make_train_step(cfg, _one_rank_mesh({"pp": 2}))
+    assert callable(tl.make_train_step(cfg, _one_rank_mesh({"pp": 2})))
+    assert tl.make_pp_train_step(cfg, _one_rank_mesh({"pp": 2}), 2)[1] == 1
     assert callable(tl.make_train_step(cfg, _one_rank_mesh({"ep": 2})))
     with pytest.raises(ValueError, match="n_experts"):
         tl.make_train_step(dataclasses.replace(cfg, n_experts=3),

@@ -187,32 +187,75 @@ def alltoall(x: torch.Tensor, axis: AxisName, split_axis: int,
 
 def exchange(sends: Sequence[Tuple[int, torch.Tensor]],
              recvs: Sequence[Tuple[int, torch.Tensor]],
-             comm: Communicator) -> List[torch.Tensor]:
+             comm: Communicator, send_tags: Sequence[int] = (),
+             recv_tags: Sequence[int] = (),
+             timeout_s: Optional[float] = None) -> List[torch.Tensor]:
     """Point-to-point sends and receives among the positions of ``comm``,
     all issued before any is waited (``batch_isend_irecv``), so that pairs
     of ranks sending to each other cannot block one another.  ``recvs``
     give the source and a tensor of the shape and dtype to receive;
     returns the received tensors on their devices.  gloo stages CUDA
-    tensors through the host."""
+    tensors through the host.  A message goes to the receive of the same
+    tag (``send_tags``/``recv_tags``, one an op; default 0); with
+    ``timeout_s`` every wait raises past it."""
+    import datetime
+
     import torch.distributed as dist
 
     group = comm.group
+    send_tags = list(send_tags) or [0] * len(sends)
+    recv_tags = list(recv_tags) or [0] * len(recvs)
     ops, bufs = [], []
-    for dst, t in sends:
+    for (dst, t), tag in zip(sends, send_tags):
         buf = (t.cpu() if eager._host_staged(group, t) else t).contiguous()
         bufs.append(buf)
-        ops.append(dist.P2POp(dist.isend, buf, comm.global_rank(dst), group))
+        ops.append(dist.P2POp(dist.isend, buf, comm.global_rank(dst), group,
+                              tag))
     outs = []
-    for src, like in recvs:
+    for (src, like), tag in zip(recvs, recv_tags):
         host = eager._host_staged(group, like)
         buf = torch.empty(like.shape, dtype=like.dtype,
                           device="cpu" if host else like.device)
         outs.append((buf, like.device))
-        ops.append(dist.P2POp(dist.irecv, buf, comm.global_rank(src), group))
+        ops.append(dist.P2POp(dist.irecv, buf, comm.global_rank(src), group,
+                              tag))
     if ops:
+        wait = ({} if timeout_s is None else
+                {"timeout": datetime.timedelta(seconds=timeout_s)})
         for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            work.wait(**wait)
     return [b.to(dev) for b, dev in outs]
+
+
+# The bound of every wait of a pipeline hand-off: a stage that never sends
+# (a peer that died or skipped a tick) raises past it instead of hanging.
+HANDOFF_TIMEOUT_S = 600.0
+
+
+def handoff_tag(tick: int, src: int, dst: int) -> int:
+    """The tag of a hand-off message: its tick and its direction (0 toward
+    a later position, 1 toward an earlier one), so that a receive pairs
+    only with the send of the same tick going the same way."""
+    return 2 * int(tick) + (0 if dst > src else 1)
+
+
+def handoff(sends: Sequence[Tuple[int, torch.Tensor]],
+            recvs: Sequence[Tuple[int, torch.Tensor]], comm: Communicator,
+            tick: int) -> List[torch.Tensor]:
+    """One tick's pipeline hand-offs among the positions of ``comm`` (the
+    ``pp`` axis): each ``(dst, tensor)`` of ``sends`` goes to position
+    ``dst``, each ``(src, like)`` of ``recvs`` is received from ``src``;
+    both sides tag the message with (``tick``, direction)
+    (:func:`handoff_tag`), so that ranks that skip ticks on which they have
+    nothing to move still pair each payload with its own receive.  All are
+    issued at once (:func:`exchange`, ``batch_isend_irecv``) and every wait
+    is bounded by :data:`HANDOFF_TIMEOUT_S`.  No autograd: the pipeline
+    schedules run their backward hand-offs themselves."""
+    me = comm.rank
+    return exchange(sends, recvs, comm,
+                    send_tags=[handoff_tag(tick, me, d) for d, _ in sends],
+                    recv_tags=[handoff_tag(tick, s, me) for s, _ in recvs],
+                    timeout_s=HANDOFF_TIMEOUT_S)
 
 
 def shift_raw(tensors: Sequence[torch.Tensor], comm: Communicator,

@@ -2,6 +2,7 @@
 
     python -m torchmpi_tpu_torch.examples.train_llama [--preset tiny|8b]
         [--dp N] [--tp N] [--sp N] [--moe-experts E [--moe-top-k K] [--ep N]]
+        [--pp S [--microbatches M]]
         [--attn full|flash|ring|ring-zigzag|ring-xla]
         [--remat none|dots|full] [--loss-chunk N] [--generate N]
         [--device cpu]
@@ -22,8 +23,12 @@ Ring attention needs an sp axis (``--sp``, default 2 with a ring mode).
 Every rank draws the same weights and batches; rank 0 prints.
 ``--moe-experts E`` switches the FFN to E routed SwiGLU experts (top
 ``--moe-top-k``), sharded over an ``ep`` mesh axis of ``--ep`` ranks,
-which composes with dp x tp.  The pipeline flags wait for their slice of
-the port.
+which composes with dp x tp.  ``--pp S`` switches to the GPipe step
+(``llama.make_pp_train_step``: the layers as S stages of n_layers / S,
+``--microbatches`` micro-batches), composing with ``--dp`` and ``--tp``
+(the stage hand-sharded over tp); ring attention, ``--sp`` and MoE do not
+compose with it.  ``--generate`` after a pipeline run gathers the layers
+back whole on every rank first.
 """
 
 from __future__ import annotations
@@ -107,6 +112,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--moe-top-k", type=int, default=2)
     ap.add_argument("--ep", type=int, default=1,
                     help="expert-parallel mesh axis size (with --moe-experts)")
+    ap.add_argument("--pp", type=int, default=0,
+                    help="pipeline stages; >0 switches to the GPipe step "
+                         "(layers as stages); combines with --dp/--tp")
+    ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
@@ -116,6 +125,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         raise SystemExit("--steps must be >= 1")
     if args.generate < 0:
         raise SystemExit("--generate must be >= 0")
+    if args.pp < 0:
+        raise SystemExit("--pp must be >= 0")
+    if args.pp > 0:
+        if args.attn.startswith("ring"):
+            raise SystemExit(f"--attn {args.attn} does not compose with "
+                             "--pp (the sp ring and the GPipe carrier "
+                             "conflict); use full or flash")
+        if args.moe_experts:
+            raise SystemExit("--moe-experts does not compose with --pp "
+                             "(make_pp_train_step rejects MoE configs)")
+        if args.ep > 1 or args.sp > 1:
+            raise SystemExit("--ep and --sp do not compose with --pp; "
+                             "compose it with --dp and --tp")
     if args.sp == 0:
         args.sp = 2 if args.attn.startswith("ring") else 1
     if min(args.dp, args.tp, args.sp, args.ep) < 1:
@@ -131,9 +153,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
+def _nproc(args) -> int:
+    return args.dp * args.tp * args.sp * args.ep * max(args.pp, 1)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
-    nproc = args.dp * args.tp * args.sp * args.ep
+    nproc = _nproc(args)
     if nproc > 1 or args.attn.startswith("ring"):
         from ..runtime import launch
 
@@ -147,7 +173,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 def _run(args) -> None:
     """Train (and generate) on one device, or as one rank of the mesh."""
     mesh, rank = None, 0
-    nproc = args.dp * args.tp * args.sp * args.ep
+    nproc = _nproc(args)
     if nproc > 1 or args.attn.startswith("ring"):
         from .. import parallel
         from ..runtime import lifecycle
@@ -158,6 +184,8 @@ def _run(args) -> None:
         dev = lifecycle.start(device=args.device)
         rank = lifecycle.rank()
         axes = {"dp": args.dp, "tp": args.tp}
+        if args.pp > 0:
+            axes["pp"] = args.pp
         if args.ep > 1:
             axes["ep"] = args.ep
         if args.sp > 1 or args.attn.startswith("ring"):
@@ -192,11 +220,24 @@ def _train(args, dev, mesh, rank: int) -> None:
         f"{moe}")
     params = llama.init(0, cfg, dtype=dtype, device=dev)
     say(f"params: {llama.num_params(params) / 1e6:.1f}M")
-    if mesh is not None:
-        params = llama.shard_params(params, mesh, cfg)
-    step = llama.make_train_step(cfg, mesh, lr=args.lr, attn=args.attn,
-                                 remat=args.remat,
-                                 loss_chunk=args.loss_chunk)
+    if args.pp > 0:
+        params = llama.shard_params_pp(params, mesh, cfg)
+        pp_step, V = llama.make_pp_train_step(
+            cfg, mesh, n_microbatches=args.microbatches, lr=args.lr,
+            attn=args.attn, remat=args.remat, loss_chunk=args.loss_chunk)
+
+        def step(p, o, t, tg):
+            p, loss = pp_step(p, t, tg)
+            return p, o, loss
+
+        say(f"pipeline: {args.pp} stages x {V} layers/stage, "
+            f"{args.microbatches} micro-batches")
+    else:
+        if mesh is not None:
+            params = llama.shard_params(params, mesh, cfg)
+        step = llama.make_train_step(cfg, mesh, lr=args.lr, attn=args.attn,
+                                     remat=args.remat,
+                                     loss_chunk=args.loss_chunk)
 
     data, table = synthetic_tokens(cfg, n_seq=max(args.batch * 8, 64),
                                    seq_len=args.seq)
@@ -221,11 +262,15 @@ def _train(args, dev, mesh, rank: int) -> None:
         # trained model should be far above it.
         pl = min(16, args.seq)
         prompts = data[:4, :pl]
+        gen_mesh = mesh
+        if args.pp > 0:
+            # The stages' layers back whole on every rank.
+            params, gen_mesh = llama.gather_params_pp(params, mesh, cfg), None
         gen = llama.make_generate_fn(cfg, prompt_len=pl,
                                      max_new=args.generate,
                                      temperature=args.temperature,
                                      top_k=args.top_k, top_p=args.top_p,
-                                     mesh=mesh, device=dev)
+                                     mesh=gen_mesh, device=dev)
         out = gen(params, prompts, 7).cpu().numpy()
         seqs = np.concatenate([prompts, out], axis=1)
         chance = 100.0 * table.shape[1] / cfg.vocab

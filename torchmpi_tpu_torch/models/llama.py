@@ -25,8 +25,16 @@ of the JAX package's ``_decoder_layer_tp_manual(markers=True)`` and
 vocab-sharded cross-entropy (``_make_tp_ce_sum``): two tp sums a layer on
 the f32 wire, the flash kernels or the sp ring on this rank's heads, the
 vocab-sharded loss with its analytic backward.  Every rank passes the
-global batch; each takes its dp rows and its sp chunk.  The ``pp`` axis
-(ROADMAP item 14) raises.
+global batch; each takes its dp rows and its sp chunk.
+
+The pipeline over the mesh's ``pp`` axis (BASELINE config 4 applied to the
+transformer): :func:`make_pp_train_step` (GPipe) and
+:func:`make_1f1b_train_step` (1F1B) cut the stacked layers into S
+contiguous stages of V = n_layers / S; each rank holds its stage's rows
+(:func:`shard_params_pp`, tp-sharded within the stage) and runs the
+schedules of ``parallel/pipeline.py`` over its own stage program
+(:func:`_make_pp_stage_fn`: V decoder layers with this rank's Megatron
+sums and its heads' flash kernels).
 
 Mixture-of-experts FFN (``Config(n_experts=E, expert_top_k=k)``,
 Mixtral-style — :func:`mixtral_8x7b`): GShard dispatch/combine einsums over
@@ -287,22 +295,20 @@ class _MeshPlan:
     """What a mesh path reads of its mesh: the axis sizes and this rank's
     coordinates, the tp wires (the Megatron f/g pair on the
     ``manual_wire_dtype`` wire), the MoE FFN's wires over ep x tp and the
-    cuts of the global batch."""
+    cuts of the global batch.  Outside the pipeline steps a ``pp`` axis
+    only replicates, as an axis that no spec names does in JAX."""
 
     def __init__(self, cfg: Config, mesh: Mesh):
         sizes = dict(mesh.shape)
-        if sizes.get(AXIS_PP, 1) > 1:
-            raise NotImplementedError(
-                "the pp axis (pipeline-parallel Llama) comes with ROADMAP "
-                "item 14 of the port")
         if mesh.coords is None:
             raise RuntimeError(f"rank {mesh.my_rank} is not in the mesh")
         self.mesh = mesh
-        self.dp, self.ep, self.sp, self.tp = (
-            sizes.get(a, 1) for a in (AXIS_DP, AXIS_EP, AXIS_SP, AXIS_TP))
-        self.dp_i, self.ep_i, self.sp_i, self.tp_i = (
+        self.dp, self.pp, self.ep, self.sp, self.tp = (
+            sizes.get(a, 1)
+            for a in (AXIS_DP, AXIS_PP, AXIS_EP, AXIS_SP, AXIS_TP))
+        self.dp_i, self.pp_i, self.ep_i, self.sp_i, self.tp_i = (
             mesh.coords.get(a, 0)
-            for a in (AXIS_DP, AXIS_EP, AXIS_SP, AXIS_TP))
+            for a in (AXIS_DP, AXIS_PP, AXIS_EP, AXIS_SP, AXIS_TP))
         tp = self.tp
         if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp
                        or cfg.d_ff % tp):
@@ -971,13 +977,16 @@ class _Zero1:
     leaves (the count) stay whole.  A step reduce-scatters the gradients
     into this rank's blocks (one reduce-scatter a dtype), updates its
     blocks of the parameters with its blocks of the state, and all-gathers
-    the updated blocks (one all-gather a dtype)."""
+    the updated blocks (one all-gather a dtype).  ``specs`` is the layout
+    the parameters rest in (default :func:`param_specs`; the pipeline steps
+    pass :func:`param_specs_pp`, as JAX's ``_zero1_opt_shardings`` takes
+    them)."""
 
-    def __init__(self, cfg: Config, plan: _MeshPlan):
+    def __init__(self, cfg: Config, plan: _MeshPlan, specs=None):
         self.plan = plan
         dp = plan.dp
         self.axis: Dict[tuple, Optional[int]] = {}
-        specs = dict(_dict_leaves(param_specs(cfg)))
+        specs = dict(_dict_leaves(specs or param_specs(cfg)))
         for path, shape in _dict_leaves(param_shapes(cfg)):
             spec = _mesh_spec(specs[path], plan.mesh, shape)
             entries = list(spec) + [None] * (len(shape) - len(spec))
@@ -1151,6 +1160,15 @@ def make_train_step(cfg: Config, mesh: Optional[Mesh] = None,
                            loss_chunk=loss_chunk)
     plan = _MeshPlan(cfg, mesh) if mesh is not None else None
     z1 = _Zero1(cfg, plan) if zero1 else None
+    return _make_step(loss_fn, plan, optimizer, lr, z1)
+
+
+def _make_step(loss_fn: Callable, plan: Optional[_MeshPlan], optimizer,
+               lr: float, z1: Optional[_Zero1]):
+    """The body :func:`make_train_step` and :func:`make_pp_train_step`
+    share: the gradients of ``loss_fn(params, (tokens, targets))``,
+    averaged over the plan's dp x sp (or through zero1), and the update in
+    place."""
 
     def step(params: Params, opt_state: Any, tokens: torch.Tensor,
              targets: torch.Tensor):
@@ -1178,6 +1196,297 @@ def make_train_step(cfg: Config, mesh: Optional[Mesh] = None,
         return params, opt_state, loss.detach()
 
     return step
+
+
+# ------------------------------------------------------------- pipeline (pp)
+
+def param_specs_pp(cfg: Config) -> Params:
+    """PartitionSpec tree for the pipeline steps: stacked layer leaves'
+    leading (n_layers) axis shards over ``pp`` — contiguous rows land on
+    contiguous stages — while the within-layer dims keep
+    :func:`param_specs`' Megatron tp layout.  Embed/norm stay replicated;
+    the head keeps its tp column sharding."""
+    base = param_specs(cfg)
+    layers = {k: P(AXIS_PP, *tuple(sp)[1:]) for k, sp in
+              base["layers"].items()}
+    return {"embed": base["embed"], "layers": layers,
+            "norm": base["norm"], "head": base["head"]}
+
+
+def shard_params_pp(params: Params, mesh: Mesh,
+                    cfg: Optional[Config] = None) -> Params:
+    """This rank's shard of a whole tree for the pipeline steps: its
+    stage's layer rows ``[s V, (s + 1) V)`` (and, with ``cfg`` given, its
+    tp shards within them and of the head, per :func:`param_specs_pp` — the
+    3-D layout); embed and norm whole."""
+    if cfg is not None:
+        return shard_by_specs(params, mesh, param_specs_pp(cfg))
+    layers = {k: P(AXIS_PP) for k in params["layers"]}
+    specs = {"embed": P(), "layers": layers, "norm": P(), "head": P()}
+    return shard_by_specs(params, mesh, specs)
+
+
+def gather_params_pp(params: Params, mesh: Mesh, cfg: Config) -> Params:
+    """The inverse of :func:`shard_params_pp` (with ``cfg``): the whole tree
+    on every rank, the layers gathered over pp and the tp shards over tp
+    (every rank of the mesh calls it)."""
+    return gather_by_specs(params, mesh, param_specs_pp(cfg),
+                           param_shapes(cfg))
+
+
+def _make_pp_stage_fn(cfg: Config, attn_impl: Callable, remat: str,
+                      plan: _MeshPlan) -> Callable:
+    """One pipeline stage: ``stage_fn(lp_stage, h)`` runs the V decoder
+    layers of ``lp_stage`` (leaves with a leading V) over a (mb, L, D)
+    carrier, each under the remat policy (:func:`_wrap_remat`).  It is the
+    JAX package's ``_make_pp_stage_fn`` and ``_make_pp_stage_fn_tp_manual``
+    at once: :func:`_decoder_layer` with the plan writes this rank's two
+    Megatron sums a layer through the f/g pair (JAX's
+    ``_decoder_layer_tp_manual(markers=True)``), whose backward is right
+    on this rank alone, as both schedules need; without a tp axis the pair
+    makes no call."""
+    tp = plan if plan.tp > 1 else None
+
+    def layer(h, lp, positions):
+        return _decoder_layer(cfg, lp, h, positions, attn_impl, tp=tp)[0]
+
+    layer = _wrap_remat(layer, remat)
+
+    def stage_fn(lp_stage, h):
+        positions = torch.arange(h.shape[1], device=h.device)
+        for lp in _layers({"layers": lp_stage}):
+            h = layer(h, lp, positions)
+        return h
+
+    return stage_fn
+
+
+def _pp_validate(cfg: Config, mesh: Mesh, attn: str, stage_tp: str,
+                 vocab: bool = False) -> int:
+    """The JAX package's checks of both pipeline steps, in its order;
+    returns the stage count S."""
+    if cfg.n_experts:
+        # The GPipe carrier is a single (mb, L, D) tensor; threading the MoE
+        # aux loss through the stage boundary needs an augmented carrier.
+        # Train MoE configs with the dp x tp x ep step (make_train_step).
+        raise NotImplementedError("pipeline step does not support MoE configs")
+    S = mesh.shape[AXIS_PP]
+    sizes = dict(mesh.shape)
+    if cfg.n_layers % S:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp={S}")
+    if attn not in ("full", "flash"):
+        raise ValueError("pp step supports attn='full'|'flash'")
+    if sizes.get(AXIS_SP, 1) > 1:
+        raise ValueError("the pp steps do not compose with an sp axis (the "
+                         "ring and the stage carrier conflict)")
+    if stage_tp == "manual":
+        tp = sizes.get(AXIS_TP, 1)
+        if AXIS_TP not in mesh.axis_names:
+            raise ValueError("stage_tp='manual' needs a tp mesh axis")
+        if attn != "flash":
+            raise ValueError("stage_tp='manual' runs the flash kernels on "
+                             "the local head shard; pass attn='flash'")
+        if vocab:
+            if (cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_ff % tp
+                    or cfg.d_model % tp or cfg.vocab % tp):
+                raise ValueError(f"tp={tp} must divide n_heads/n_kv_heads/"
+                                 f"d_ff/d_model/vocab")
+        elif (cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_ff % tp
+              or cfg.d_model % tp):
+            raise ValueError(
+                f"tp={tp} must divide n_heads/n_kv_heads/d_ff/d_model")
+    elif stage_tp != "auto":
+        raise ValueError("stage_tp must be 'auto' or 'manual'")
+    return S
+
+
+def _pp_rows(plan: _MeshPlan, x: torch.Tensor, M: int) -> torch.Tensor:
+    """The global (B, ...) batch as M micro-batches of this rank's dp rows:
+    (M, B / (M dp), ...), micro-batch m being global rows ``[m B/M, (m+1)
+    B/M)`` cut over dp, as JAX shards the (M, mb) form over (pp, dp)."""
+    B = x.shape[0]
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by {M} micro-batches")
+    xm = x.reshape(M, B // M, *x.shape[1:])
+    if xm.shape[1] % plan.dp:
+        raise ValueError(f"micro-batch {xm.shape[1]} not divisible by "
+                         f"dp={plan.dp}")
+    n = xm.shape[1] // plan.dp
+    return xm.narrow(1, plan.dp_i * n, n)
+
+
+def _staged(layers: Params) -> Params:
+    """This rank's (V, ...) layer rows as the pipeline's stage row (1, V,
+    ...), views."""
+    return {k: v.unsqueeze(0) for k, v in layers.items()}
+
+
+def make_pp_train_step(cfg: Config, mesh: Mesh, n_microbatches: int,
+                       lr: float = 3e-4, attn: str = "full",
+                       remat: str = "none", loss_chunk: int = 0,
+                       optimizer=None, opt_state_example=None,
+                       zero1: bool = False, stage_tp: str = "auto"):
+    """Pipeline-parallel training step: the stacked decoder layers become
+    GPipe stages over the mesh's ``pp`` axis (``parallel/pipeline.py``
+    ``make_pipeline_fn``), composed with ``dp`` and ``tp``.
+
+    Every rank passes the global (B, L) batch; ``params`` is this rank's
+    :func:`shard_params_pp` shard (its stage's V layers, tp-sharded).
+    Micro-batch m is global rows ``[m B/M, (m+1) B/M)``, cut over dp.  The
+    embedding runs on every rank (stage 0 feeds it to the pipeline); the
+    last stage's outputs are broadcast over pp and every pp rank runs the
+    final norm and the loss head on them (the head vocab-sharded over tp
+    through :class:`_TpCE`), so the embed, norm and head gradients come out
+    the same on every pp rank — the embedding's from stage 0's input
+    gradient, broadcast back — and those leaves stay equal there with no
+    sum over pp.  JAX's default shards the pipeline I/O over pp instead and
+    sums the head's gradient over pp: here that sum would move the (D,
+    vocab) head through the host on one card.  The gradients are then
+    averaged over dp, as :func:`make_train_step` averages them.
+
+    ``stage_tp``: ``"manual"`` (needs ``attn="flash"`` and a tp axis) runs
+    the hand-sharded stage, flash on this rank's heads.  The port has no
+    GSPMD, so on a tp mesh ``"auto"`` runs the same hand-sharded stage
+    with the given ``attn`` (full or flash); without tp both are the plain
+    stage.  JAX's validation errors otherwise.  ``zero1=True`` (needs
+    ``optimizer`` and ``opt_state_example``) shards the optimizer state
+    over dp on top of the pp x tp layout (:class:`_Zero1` over
+    :func:`param_specs_pp`).
+
+    Returns ``(step, V)``.  Without ``optimizer``: ``step(params, tokens,
+    targets) -> (params, loss)`` (SGD at ``lr``).  With one:
+    ``step(params, opt_state, tokens, targets) -> (params, opt_state,
+    loss)``.  The update is in place, as :func:`make_train_step`'s."""
+    from ..parallel import pipeline as _pp
+
+    S = _pp_validate(cfg, mesh, attn, stage_tp)
+    if zero1 and (optimizer is None or opt_state_example is None):
+        raise ValueError("zero1 needs optimizer and opt_state_example")
+    V = cfg.n_layers // S
+    M = n_microbatches
+    plan = _MeshPlan(cfg, mesh)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    stage_fn = _make_pp_stage_fn(cfg, _make_attn_impl(cfg, attn, None, scale),
+                                 remat, plan)
+    pipe = _pp.make_pipeline_fn(mesh, stage_fn, M, sharded_io=False)
+
+    def loss_fn(params: Params, batch) -> torch.Tensor:
+        tokens, targets = (torch.as_tensor(t) for t in batch)
+        tok = _pp_rows(plan, tokens, M)                 # (M, mb, L)
+        h = params["embed"][tok.long()]                 # (M, mb, L, D)
+        h = pipe(_staged(params["layers"]), h)
+        h = h.reshape(-1, *h.shape[2:])
+        h = rms_norm(h, params["norm"], cfg.norm_eps)
+        tgt = _pp_rows(plan, targets, M).reshape(h.shape[:2])
+        if plan.head_sharded:
+            nll = _nll_from_hidden_tp(params["head"], h, tgt, loss_chunk,
+                                      plan)
+        else:
+            nll = _nll_from_hidden(params["head"], h, tgt, loss_chunk)
+        comm = plan.grad_comm()
+        return _GlobalMean.apply(nll, comm) if comm is not None else nll
+
+    z1 = _Zero1(cfg, plan, specs=param_specs_pp(cfg)) if zero1 else None
+    step4 = _make_step(loss_fn, plan, optimizer, lr, z1)
+    if optimizer is not None:
+        return step4, V
+
+    def step(params: Params, tokens: torch.Tensor, targets: torch.Tensor):
+        params, _, loss = step4(params, None, tokens, targets)
+        return params, loss
+
+    return step, V
+
+
+def make_1f1b_train_step(cfg: Config, mesh: Mesh, n_microbatches: int,
+                         lr: float = 3e-4, attn: str = "full",
+                         remat: str = "none", loss_chunk: int = 0,
+                         stage_tp: str = "auto",
+                         manual_schedule: str = "combined"):
+    """Pipeline-parallel training on the **1F1B / PipeDream-flush**
+    schedule (``parallel/pipeline.py`` ``make_1f1b_step``): the same stage
+    split and stage program as :func:`make_pp_train_step`, with the stash
+    capped at ~S micro-batch inputs instead of GPipe's M.
+
+    The whole model trains: the stage gradients come from the scheduled
+    backward ops, the final norm's and the head's accumulate at the last
+    stage (the loss parameters; the head vocab-sharded over tp through
+    :class:`_TpCE`) and are summed over pp, and the embedding's is a
+    scatter-add of the pipeline-input gradients ``dx`` over the global
+    batch's tokens (``index_put_`` with ``accumulate=True``, the
+    deterministic form of ``index_add_``, so every rank adds in one order
+    and the embedding stays equal on every rank; over dp, ``dx`` is
+    gathered first).  Returns ``(step, V)``; ``step(params, tokens,
+    targets) -> (params, loss)`` (SGD at ``lr``, in place), ``params`` as
+    from :func:`shard_params_pp` with ``cfg``, the global batch on every
+    rank.
+
+    ``stage_tp='manual'`` (needs ``attn='flash'`` and a tp axis) runs the
+    hand-sharded stage on ``manual_schedule``'s ticks: ``"combined"``
+    (default; T ~= M + 2S - 1 ticks, stash <= 2S - 1) or ``"alternating"``
+    (stash <= S + 1).  ``'auto'`` runs the same stage with the given
+    ``attn`` on the alternating schedule, JAX's auto path, and refuses
+    ``manual_schedule``."""
+    from ..parallel import pipeline as _pp
+
+    S = _pp_validate(cfg, mesh, attn, stage_tp, vocab=True)
+    if stage_tp == "auto" and manual_schedule != "combined":
+        # The auto path always runs the alternating schedule; silently
+        # accepting the knob would let a caller believe they selected a
+        # schedule they did not get.
+        raise ValueError("manual_schedule applies to stage_tp='manual' "
+                         "only (the auto path is always cond-gated)")
+    V = cfg.n_layers // S
+    M = n_microbatches
+    plan = _MeshPlan(cfg, mesh)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    stage_fn = _make_pp_stage_fn(cfg, _make_attn_impl(cfg, attn, None, scale),
+                                 remat, plan)
+
+    def loss_fn(lp, h, tgt):
+        h = rms_norm(h, lp["norm"], cfg.norm_eps)
+        if plan.head_sharded:
+            return _nll_from_hidden_tp(lp["head"], h, tgt, loss_chunk, plan)
+        return _nll_from_hidden(lp["head"], h, tgt, loss_chunk)
+
+    manual = tuple(a for a in (AXIS_TP, AXIS_DP) if a in mesh.axis_names)
+    io_batch = AXIS_DP if plan.dp > 1 else None
+    pipe = _pp.make_1f1b_step(
+        mesh, stage_fn, loss_fn, M, loss_params_example={"norm": None,
+                                                         "head": None},
+        return_dx=True, manual_axes=manual or None, io_batch_axis=io_batch,
+        manual_schedule=manual_schedule if stage_tp == "manual"
+        else "alternating")
+
+    def step(params: Params, tokens: torch.Tensor, targets: torch.Tensor):
+        tokens, targets = torch.as_tensor(tokens), torch.as_tensor(targets)
+        B, L = tokens.shape
+        tok = _pp_rows(plan, tokens, M)
+        with torch.no_grad():
+            h = params["embed"][tok.long()]
+        lp = {"norm": params["norm"], "head": params["head"]}
+        loss, g_staged, g_lp, dx = pipe(
+            _staged(params["layers"]), lp, h, _pp_rows(plan, targets, M))
+        if plan.dp > 1:
+            # The global batch's dx (M, B/M, L, D), micro-batch rows in
+            # order, for the global tokens.
+            dx = innerjit.allgather(dx, AXIS_DP, concat_axis=1,
+                                    mesh=plan.mesh)
+        d_embed = torch.zeros(params["embed"].shape, dtype=torch.float32,
+                              device=dx.device)
+        d_embed.index_put_((tokens.reshape(-1).long(),),
+                           dx.reshape(B * L, -1), accumulate=True)
+        del dx
+        grads = {"embed": d_embed,
+                 "layers": {k: g_staged[k][0] for k in params["layers"]},
+                 "norm": g_lp["norm"], "head": g_lp["head"]}
+        grads = {k: grads[k] for k in params}       # the params' order
+        for p, g in zip(_leaves(params), _leaves(grads)):
+            _sgd_update_(p, g, lr)
+        return params, loss
+
+    step.pipe = pipe            # its stash_high_water, after each step
+    return step, V
 
 
 # ---------------------------------------------------------------- inference
