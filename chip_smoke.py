@@ -37,7 +37,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    error is printed beside its tolerance, with the kernel's, the plain
    version's and a PyTorch library call's time (scaled_dot_product_attention
    forward, and its backward; a yardstick only, the port never calls it)
-   beside the card's bound.
+   beside the card's bound.  Both kernel phases also hold B4, B5 and B6
+   at head size 64 (ViT-B/16's) against their plain versions:
+   ``VIT_KERNEL_CASES``, BH = 64 x 12 = 768, L = 256 non-causal, the
+   ragged L = 196 and L = 256 causal, each in bf16 and in f32 (split),
+   every one timed beside its plain version, SDPA and its bound.
 4. generate: make_generate_fn at Llama-3-8B width, bf16 weights from a
    seeded torch.Generator, B=1, a 2048-token prompt, 16 new tokens,
    greedy; the prefill must launch the forward kernel once per layer.  The
@@ -294,6 +298,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    accuracy above 30% (the JAX package's bar), every stage leaf on cuda,
    the ranks' losses equal; step ms.  No plain flash version runs in a
    rank.
+22. vit: ViT-B/16 (``models/vit.py``) at full width (224x224x3, patch
+   16, 1000 classes), random weights from VIT_SEED, images whose labels
+   carry a signal.  (a) bf16 inference at batch 64 through B4 (12
+   launches a forward) with 60 registers (N = 256) and with none (N =
+   196), the logits held against ``attn="full"`` at VIT_LOGITS_RTOL of
+   their norm, both timed.  (b) ``benchmarks/vit_bench.py``'s step: bf16,
+   batch 64, 60 registers, flash, SGD at lr 1e-3, 4 steps on one batch
+   under remat "none" (B4, B5, B6 12 a step each) and again under "dots"
+   (B4 24): losses finite and falling, step 1's loss and the wqkv
+   gradients first held against full attention; step ms and peak GB.
+   (c) f32 (TF32 off) data-parallel training through
+   ``AllReduceSGDEngine`` in ``compiled`` mode with
+   ``use_pallas_collectives`` on, 2 ranks spawned on the card, 32 images a
+   rank, flash, remat "dots", VIT_DP_STEPS steps: B1 as many times a step
+   as ``engine.sgdengine.ring_plan`` plans rings for ViT-B/16's leaves, B2
+   and B3 never, B4 24, B5 12, B6 12 and the split 36 a step on f32
+   inputs; the loss falls, step 1's within 1e-4 of full attention's, and
+   ``check_with_allreduce`` finds the replicas bitwise equal.  (d) the
+   bf16 forward on {tp 2} in the same ranks (wqkv cut by heads), each
+   rank's logits within VIT_TP_RTOL of the one-rank forward's, B4 12
+   launches a rank.
 
 Then a ``timing`` line with each phase's seconds (the build included, the
 imports before it not) and the card memory each left allocated (before
@@ -337,6 +362,25 @@ KERNELS = {
         "torchmpi_tpu/ops/flash_attention.py:183", "_attn_bwd_dkv_kernel",
         SDPA_BWD),
 }
+# B4-B6 at head size 64, ViT-B/16's (d_model 768 over 12 heads), in the
+# kernel phases: (base name, BH, Lq, Lk, causal), each in bf16 and in f32
+# (split), named f"{base}_{dtype}".  BH = 64 images x 12 heads; L = 196
+# patches + 60 registers = 256, the ragged 196 of the 0-register path (one
+# block, the kernels' tail masked), and the causal mask at D = 64.
+VIT_KERNEL_CASES = [("vit", 768, 256, 256, False),
+                    ("vit_ragged", 768, 196, 196, False),
+                    ("vit_causal", 768, 256, 256, True)]
+VIT_BASES = {case[0] for case in VIT_KERNEL_CASES}
+VIT_CASES = tuple(f"{case[0]}_{dt}" for case in VIT_KERNEL_CASES
+                  for dt in ("bfloat16", "float32"))
+VIT_PATHS = ("vit_inference", "vit_train", "vit_dp", "vit_tp")
+
+
+def head_dim(case: str) -> int:
+    """A kernel-phase case's head size: 64 for the ViT cases, else 128."""
+    return 64 if case.startswith("vit") else 128
+
+
 # The training phases: SGD learning rate, and forward launches per layer and
 # step that each remat mode implies (a checkpointed layer runs its forward
 # again in the backward).  At 1.0 plain SGD overshoots at this width: at 8
@@ -751,19 +795,24 @@ def phase_kernel(torch, fa, split):
         ("ragged_f32", 4, 100, 300, False, f32, None, 2e-4, 0.0),
         ("ragged_bf16", 4, 100, 300, False, bf16, None, 1e-2, 1e-2),
         ("ragged_bf16_causal", 4, 100, 300, True, bf16, None, 1e-2, 1e-2),
-    ]
+    ] + [(name, bh, lq, lk, causal, dt, None, *tol)
+         for name, bh, lq, lk, causal in VIT_KERNEL_CASES
+         for dt, tol in ((bf16, (1e-2, 1e-2)), (f32, (2e-4, 0.0)))]
     timed = ("main_bf16", "main_f32", "main_f32_bf16out", "main_bf16_f32out",
-             "lk_ne_lq_f32out", "lk_ne_lq_bf16", "ragged_f32")
+             "lk_ne_lq_f32out", "lk_ne_lq_bf16", "ragged_f32", *VIT_CASES)
     with_library = ("main_bf16", "main_f32", "main_f32_bf16out",
-                    "ragged_f32")
+                    "ragged_f32", *VIT_CASES)
     records = {}
     for name, bh, lq, lk, causal, dt, odt, atol, rtol in cases:
-        q = torch.randn((bh, lq, 128), generator=g, device="cuda").to(dt)
-        k = torch.randn((bh, lk, 128), generator=g, device="cuda").to(dt)
-        v = torch.randn((bh, lk, 128), generator=g, device="cuda").to(dt)
+        if name in VIT_BASES:
+            name = f"{name}_{str(dt).split('.')[-1]}"
+        d = head_dim(name)
+        q = torch.randn((bh, lq, d), generator=g, device="cuda").to(dt)
+        k = torch.randn((bh, lk, d), generator=g, device="cuda").to(dt)
+        v = torch.randn((bh, lk, d), generator=g, device="cuda").to(dt)
         odt = odt or dt
         bq, bk = fa._resolve_blocks(lq, lk, None, None)
-        scale = 1.0 / math.sqrt(128)
+        scale = 1.0 / math.sqrt(d)
 
         def kern():
             return fa._flash_bh_kernel(q, k, v, causal=causal, scale=scale,
@@ -786,7 +835,8 @@ def phase_kernel(torch, fa, split):
         finite = bool(torch.isfinite(o.float()).all()
                       and torch.isfinite(lse).all())
         dtype = str(dt).split(".")[-1]
-        rec = {"case": name, "bh": bh, "lq": lq, "lk": lk, "causal": causal,
+        rec = {"case": name, "bh": bh, "lq": lq, "lk": lk, "d": d,
+               "causal": causal,
                "dtype": dtype, "out_dtype": str(odt).split(".")[-1],
                "o_max_abs_err": o_err, "o_atol": atol, "o_rtol": rtol,
                "lse_max_abs_err": lse_err, "lse_atol": 1e-3,
@@ -797,16 +847,16 @@ def phase_kernel(torch, fa, split):
                   else "")}
         if name in timed:
             rec["kernel_ms"] = cuda_ms(torch, kern)
-            rec["kernel_tflops"] = attention_tflops(bh, lq, lk, 128, causal,
+            rec["kernel_tflops"] = attention_tflops(bh, lq, lk, d, causal,
                                                     rec["kernel_ms"])
             esize = torch.tensor([], dtype=dt).element_size()
             rec["bound_ms"], rec["bound_by"] = attention_bound_ms(
-                bh, lq, lk, 128, causal, rec["dtype"], esize,
+                bh, lq, lk, d, causal, rec["dtype"], esize,
                 torch.tensor([], dtype=odt).element_size())
             rec["bound_rate"] = BOUND_RATE[dtype]
         if name in with_library:
             rec["plain_ms"] = cuda_ms(torch, plain, warmup=1, iters=3)
-            qs, ks, vs = (x.view(1, bh, -1, 128) for x in (q, k, v))
+            qs, ks, vs = (x.view(1, bh, -1, d) for x in (q, k, v))
             rec["library_ms"] = cuda_ms(
                 torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=causal))
@@ -868,17 +918,22 @@ def phase_kernel_bwd(torch, fa, split):
         ("ragged_bf16", 4, 100, 300, False, bf16, None, 1e-2, 1e-2, False),
         ("ragged_bf16_causal", 4, 100, 300, True, bf16, None, 1e-2, 1e-2,
          False),
-    ]
+    ] + [(name, bh, lq, lk, causal, dt, None, *tol, False)
+         for name, bh, lq, lk, causal in VIT_KERNEL_CASES
+         for dt, tol in ((bf16, (1e-2, 1e-2)), (f32, (5e-4, 1e-3)))]
     timed = ("main_bf16", "main_f32", "main_f32_bf16out",
-             "block_lk_ne_lq_f32out", "lk_ne_lq_bf16")
+             "block_lk_ne_lq_f32out", "lk_ne_lq_bf16", *VIT_CASES)
     records = {}
     for name, bh, lq, lk, causal, dt, odt, atol, rtol, block in cases:
-        q, do = (torch.randn((bh, lq, 128), generator=g, device="cuda").to(dt)
+        if name in VIT_BASES:
+            name = f"{name}_{str(dt).split('.')[-1]}"
+        d = head_dim(name)
+        q, do = (torch.randn((bh, lq, d), generator=g, device="cuda").to(dt)
                  for _ in range(2))
-        k, v = (torch.randn((bh, lk, 128), generator=g, device="cuda").to(dt)
+        k, v = (torch.randn((bh, lk, d), generator=g, device="cuda").to(dt)
                 for _ in range(2))
         odt = odt or dt
-        scale = 1.0 / math.sqrt(128)
+        scale = 1.0 / math.sqrt(d)
         o, lse = fa._flash_bh_kernel(q, k, v, causal=causal, scale=scale,
                                      out_dtype=dt)
         if block:
@@ -920,7 +975,8 @@ def phase_kernel_bwd(torch, fa, split):
             ok = ok and bool((diff <= atol + rtol * b.float().abs()).all()) \
                 and bool(torch.isfinite(a.float()).all()) and a.dtype == odt
         dtype = str(dt).split(".")[-1]
-        rec = {"case": name, "bh": bh, "lq": lq, "lk": lk, "causal": causal,
+        rec = {"case": name, "bh": bh, "lq": lq, "lk": lk, "d": d,
+               "causal": causal,
                "dtype": dtype, "out_dtype": str(odt).split(".")[-1],
                "block_op": block,
                **{f"{k}_max_abs_err": e for k, e in errs.items()},
@@ -937,11 +993,11 @@ def phase_kernel_bwd(torch, fa, split):
             osize = torch.tensor([], dtype=odt).element_size()
             for part, (kern, _) in fns.items():
                 b_ms, b_by = attention_bwd_bound_ms(
-                    part, bh, lq, lk, 128, causal, dtype, esize, osize)
+                    part, bh, lq, lk, d, causal, dtype, esize, osize)
                 ms = cuda_ms(torch, kern)
                 rec[part] = {"kernel_ms": ms,
                              "kernel_tflops": attention_bwd_tflops(
-                                 part, bh, lq, lk, 128, causal, ms),
+                                 part, bh, lq, lk, d, causal, ms),
                              "bound_ms": b_ms, "bound_by": b_by,
                              "bound_rate": BOUND_RATE[dtype],
                              "design": rec["design"]}
@@ -962,14 +1018,14 @@ def phase_kernel_bwd(torch, fa, split):
             for part in fns:
                 rec[part].update({k: rec[k] for k in (
                     "bwd_ms", "split_ms", "split_device_ms")})
-        if name.startswith("main"):
+        if name.startswith("main") or name in VIT_CASES:
             # The library yardstick: scaled_dot_product_attention's
             # backward, which computes dq, dk and dv in one call.
-            qs, ks, vs = (x.view(1, bh, -1, 128).detach().requires_grad_()
+            qs, ks, vs = (x.view(1, bh, -1, d).detach().requires_grad_()
                           for x in (q, k, v))
             out = torch.nn.functional.scaled_dot_product_attention(
                 qs, ks, vs, is_causal=causal)
-            dos = do.view(1, bh, lq, 128)
+            dos = do.view(1, bh, lq, d)
             lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
                 out, (qs, ks, vs), dos, retain_graph=True))
             for part, (_, plain) in fns.items():
@@ -4495,9 +4551,381 @@ def phase_pipeline(torch, llama, fa, train_mod):
     return {"launches": launches, "record": rec}
 
 
+# ------------------------------------------------------------------- vit
+# ViT-B/16 (models/vit.py: 224x224x3, patch 16, d_model 768, 12 layers of
+# 12 heads of 64, d_ff 3072, 1000 classes) at full width, random weights
+# from VIT_SEED; benchmarks/vit_bench.py's run: bf16, batch 64, flash with
+# 60 registers (196 + 60 = 256 tokens), an SGD step at lr 1e-3.
+VIT_SEED = 18
+VIT_BATCH = 64
+VIT_REGISTERS = 60
+VIT_LR = 1e-3
+VIT_STEPS = 4
+# (c) data-parallel: f32, 32 images a rank on 2 ranks, 5 steps at lr 5e-3
+# (at 1e-2 the loss read 7.18, 3.32, 2.19, 1.95, 2.55 on an H100: the
+# fifth step overshot).
+VIT_DP_RANKS, VIT_DP_BATCH, VIT_DP_STEPS, VIT_DP_LR = 2, 32, 5, 5e-3
+VIT_DP_REMAT = "dots"
+# Tolerances, each as a share of the reference's norm.  Flash against full
+# attention in bf16: both sides round q, k, v, o and every activation to
+# bf16 (2^-8 relative), in other places (the kernel's P is bf16, full
+# attention's softmax stays f32), and 12 residual layers carry each
+# layer's difference on: the logits within 5e-2 of their norm; step 1's
+# loss (a mean over 64 images) within 1e-2 of itself, as the Llama train
+# phase holds it; the wqkv gradients within 5e-2 of their norm.  {tp 2}
+# against one rank in bf16: the two ranks' bf16 partial sums meet in f32,
+# one rank rounds the whole sum once, the same 2^-8 a layer: 5e-2, as the
+# mesh phase holds Llama's logits.  f32 flash against f32 full attention
+# (the dp run's step-1 check) differs by the three bf16 products' 2^-16:
+# the loss within 1e-4.
+VIT_LOGITS_RTOL = 5e-2
+VIT_LOSS_RTOL = 1e-2
+VIT_GRAD_RTOL = 5e-2
+VIT_TP_RTOL = 5e-2
+VIT_F32_LOSS_RTOL = 1e-4
+VIT_SPLIT = "bf16_split"
+
+
+def _vit_batch(torch, cfg, n: int, seed: int, device):
+    """n images whose labels carry a signal: N(0, 1) pixels plus 0.25
+    times the label (of 10 classes), labels 0..9 in turn."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = torch.arange(n, device=device) % 10
+    x = torch.randn((n, cfg.image, cfg.image, cfg.in_channels), generator=g,
+                    device=device)
+    return x + 0.25 * y[:, None, None, None].float(), y
+
+
+def _vit_counts(fa, split) -> dict:
+    return {**read_counts(fa), VIT_SPLIT: split.bf16_split_launches}
+
+
+def _vit_reset(fa, split) -> None:
+    reset_counts(fa)
+    split.bf16_split_launches = 0
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _vit_inference(torch, vit, fa, split, params, x) -> dict:
+    """(a) The bf16 forward through B4 at 60 registers (N = 256) and at 0
+    (N = 196, the kernels' ragged tail), each held against full attention
+    and timed beside it."""
+    out = {}
+    for regs in (VIT_REGISTERS, 0):
+        cfg = vit.vit_b16(regs)
+        p = params if regs else {k: v for k, v in params.items()
+                                 if k != "registers"}
+        with torch.no_grad():
+            _vit_reset(fa, split)
+            flash = vit.apply(cfg, p, x, attn="flash")
+            torch.cuda.synchronize()
+            launches = _vit_counts(fa, split)
+            full = vit.apply(cfg, p, x, attn="full")
+            rel = _rel(flash, full)
+            rec = {"n_registers": regs, "seq": cfg.seq_len,
+                   "logits_shape": list(flash.shape),
+                   "finite": bool(torch.isfinite(flash).all()),
+                   "logits_rel_err_vs_full": rel,
+                   "rtol": VIT_LOGITS_RTOL, "launches": launches,
+                   "flash_ms": cuda_ms(torch, lambda: vit.apply(
+                       cfg, p, x, attn="flash"), warmup=1, iters=5),
+                   "full_ms": cuda_ms(torch, lambda: vit.apply(
+                       cfg, p, x, attn="full"), warmup=1, iters=5)}
+        rec["images_per_s"] = x.shape[0] / (rec["flash_ms"] / 1e3)
+        emit(phase="vit", part="inference", batch=x.shape[0],
+             dtype="bfloat16", **rec)
+        want = {"flash_attention_fwd": cfg.n_layers,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                VIT_SPLIT: 0}
+        if not (rec["finite"] and rel < VIT_LOGITS_RTOL
+                and launches == want
+                and rec["logits_shape"] == [x.shape[0], cfg.n_classes]):
+            raise AssertionError(f"ViT-B/16 inference at {regs} registers: "
+                                 f"{rec}, expected launches {want}")
+        out[f"regs{regs}"] = rec
+    return out
+
+
+def _vit_train(torch, vit, llama, fa, split, params0, x, y) -> dict:
+    """(b) vit_bench.py's step: 4 SGD steps on one batch, under remat
+    "none" and then "dots", each from the same weights; step 1's loss and
+    the wqkv gradients first held against full attention."""
+    from torchmpi_tpu_torch.utils import tree
+
+    cfg = vit.vit_b16(VIT_REGISTERS)
+    batch = (x, y)
+
+    def loss_and_wqkv_grad(attn):
+        w = params0["layers"]["wqkv"].requires_grad_(True)
+        loss = vit.make_loss_fn(cfg, attn=attn)(params0, batch)
+        g, = torch.autograd.grad(loss, [w])
+        w.requires_grad_(False)
+        return float(loss.detach()), g
+
+    flash_loss, flash_g = loss_and_wqkv_grad("flash")
+    full_loss, full_g = loss_and_wqkv_grad("full")
+    check = {"step1_loss_flash": flash_loss, "step1_loss_full": full_loss,
+             "loss_rel_err": abs(flash_loss - full_loss) / abs(full_loss),
+             "loss_rtol": VIT_LOSS_RTOL,
+             "wqkv_grad_rel_err": _rel(flash_g, full_g),
+             "grad_rtol": VIT_GRAD_RTOL}
+    del flash_g, full_g
+    emit(phase="vit", part="train_check", **check)
+    if not (check["loss_rel_err"] < VIT_LOSS_RTOL
+            and check["wqkv_grad_rel_err"] < VIT_GRAD_RTOL):
+        raise AssertionError(f"ViT-B/16 flash step 1 against full "
+                             f"attention: {check}")
+    out = {"check": check}
+    for remat in ("none", "dots"):
+        params = tree.tree_map(lambda t: t.clone(), params0)
+        leaves = [t.requires_grad_(True) for t in tree.leaves(params)]
+        loss_fn = vit.make_loss_fn(cfg, attn="flash", remat=remat)
+        losses, step_ms, per_step = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(VIT_STEPS):
+            _vit_reset(fa, split)
+            t0 = time.perf_counter()
+            loss = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            for p_, g_ in zip(leaves, grads):
+                llama._sgd_update_(p_.data, g_, VIT_LR)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach()))
+            per_step.append(_vit_counts(fa, split))
+            del grads, loss
+        want = {"flash_attention_fwd": FWD_PER_LAYER[remat] * cfg.n_layers,
+                "flash_attention_bwd_dq": cfg.n_layers,
+                "flash_attention_bwd_dkv": cfg.n_layers, VIT_SPLIT: 0}
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        rec = {"remat": remat, "batch": x.shape[0], "dtype": "bfloat16",
+               "lr": VIT_LR, "losses": losses, "step_ms": step_ms,
+               "steady_step_ms": steady,
+               "images_per_s": x.shape[0] / (steady / 1e3),
+               "launches_per_step": per_step,
+               "expected_launches_per_step": want,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit(phase="vit", part="train", **rec)
+        del params, leaves
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite ViT loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"ViT loss did not fall under remat "
+                                 f"{remat!r}: {losses}")
+        if any(c != want for c in per_step):
+            raise AssertionError(f"ViT launches per step {per_step}, "
+                                 f"expected {want} (remat {remat!r})")
+        out[remat] = rec
+    return out
+
+
+def vit_rank_main() -> dict:
+    """One rank of the vit phase's (c) and (d) (spawned)."""
+    import hashlib
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch import nn as mpinn
+    from torchmpi_tpu_torch.collectives import cuda_ring
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine, sgdengine
+    from torchmpi_tpu_torch.models import vit
+    from torchmpi_tpu_torch.parallel import mesh as mesh_mod
+    from torchmpi_tpu_torch.runtime import config, lifecycle
+    from torchmpi_tpu_torch.utils import tree
+
+    fa = importlib.import_module("torchmpi_tpu_torch.ops.flash_attention")
+    split = importlib.import_module("torchmpi_tpu_torch.ops.bf16_split")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config.set("use_pallas_collectives", True)
+    device = lifecycle.start()
+    try:
+        p, rank = lifecycle.size(), lifecycle.rank()
+        cfg = vit.vit_b16(VIT_REGISTERS)
+        # (c) f32 data-parallel through the engine's B1 rings.
+        params = vit.init(VIT_SEED, cfg, device=device)
+        x, y = _vit_batch(torch, cfg, p * VIT_DP_BATCH, VIT_SEED + 1, device)
+        with torch.no_grad():
+            full_loss = float(vit.make_loss_fn(cfg)(
+                params, (x[rank::p], y[rank::p])))
+        one = (x.view(VIT_DP_BATCH, p, *x.shape[1:]).transpose(0, 1)
+               .cpu().numpy(),
+               y.view(VIT_DP_BATCH, p).t().cpu().numpy())
+        del x, y
+        # The rings of a step, as the engine plans them over the gradient
+        # leaves (the parameters' shapes and dtypes).
+        leaves = tree.leaves(params)
+        plan = sgdengine.ring_plan(leaves,
+                                   int(config.get("small_allreduce_size_gpu")))
+        ring_sizes = [sum(leaves[i].numel() for i in idxs) for idxs in plan]
+        ring_s = [0.0]
+        _ring_timer(torch, cuda_ring, ring_s,
+                    {"on": False, "rings": 0, "unequal": 0,
+                     "max_abs_err": 0.0})
+        losses, step_ms, launches, ring_ms, marks = [], [], [], [], {}
+
+        def counts():
+            return {**_vit_counts(fa, split),
+                    "ring_allreduce": cuda_ring.ring_allreduce_launches,
+                    "ring_reduce_scatter":
+                        cuda_ring.ring_reduce_scatter_launches,
+                    "ring_allgather": cuda_ring.ring_allgather_launches}
+
+        def on_sample(state):
+            torch.cuda.synchronize()
+            marks["t0"], marks["c0"], ring_s[0] = (time.perf_counter(),
+                                                   counts(), 0.0)
+
+        def on_update(state):
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - marks["t0"]) * 1e3)
+            ring_ms.append(ring_s[0])
+            losses.append(float(state["loss"]))
+            c = counts()
+            launches.append({k: c[k] - marks["c0"][k] for k in c})
+
+        engine = AllReduceSGDEngine(
+            vit.make_loss_fn(cfg, attn="flash", remat=VIT_DP_REMAT),
+            lr=VIT_DP_LR, mode="compiled",
+            hooks={"on_sample": on_sample, "on_update": on_update})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = engine.train(params, [one] * VIT_DP_STEPS, epochs=1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params = state["params"]
+        mpinn.check_with_allreduce(params, tol=0.0)
+        digest = hashlib.sha256()
+        for leaf in tree.leaves(params):
+            digest.update(leaf.detach().cpu().numpy().tobytes())
+        digests = [None] * p
+        dist.all_gather_object(digests, digest.hexdigest())
+        first_full = [None] * p
+        dist.all_gather_object(first_full, full_loss)
+        del params, state, engine
+        dp = {"losses": losses, "step_ms": step_ms, "ring_ms": ring_ms,
+              "launches_per_step": launches, "rings_planned": len(plan),
+              "ring_sizes": ring_sizes,
+              "step1_loss_full_attention": sum(first_full) / p,
+              "peak_gb": peak_gb,
+              "replicas_bitwise_equal": len(set(digests)) == 1}
+
+        # (d) the bf16 forward on {tp 2}, against the one-rank forward.
+        cfg_t = vit.vit_b16(VIT_REGISTERS)
+        mesh = mesh_mod.make_mesh({"tp": p})
+        whole = vit.init(VIT_SEED, cfg_t, dtype=torch.bfloat16,
+                         device=device)
+        shard = vit.shard_params(whole, mesh, cfg_t)
+        xb, _ = _vit_batch(torch, cfg_t, VIT_BATCH, VIT_SEED + 2, device)
+        with torch.no_grad():
+            want = vit.apply(cfg_t, whole, xb, attn="flash")
+            del whole
+            _vit_reset(fa, split)
+            got = vit.apply(cfg_t, shard, xb, attn="flash", mesh=mesh)
+            torch.cuda.synchronize()
+            tp_launches = _vit_counts(fa, split)
+            rel = _rel(got, want)
+            ms = []
+            for _ in range(3):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vit.apply(cfg_t, shard, xb, attn="flash", mesh=mesh)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        tp = {"logits_rel_err_vs_one_rank": rel, "launches": tp_launches,
+              "forward_ms": ms, "shape": list(got.shape),
+              "finite": bool(torch.isfinite(got).all()),
+              "wqkv_shard": list(shard["layers"]["wqkv"].shape)}
+        return {"rank": rank, "p": p, "dp": dp, "tp": tp}
+    finally:
+        lifecycle.stop()
+
+
+def phase_vit(torch, vit, llama, fa, split):
+    """ViT-B/16 at full width: (a) bf16 inference and (b) the bf16 train
+    step in this process, then (c) f32 data-parallel training through the
+    engine's B1 rings and (d) the bf16 {tp 2} forward in VIT_DP_RANKS
+    spawned ranks.  Returns the records and each path's launches (summed
+    over the ranks)."""
+    from torchmpi_tpu_torch.runtime import launch
+
+    cfg = vit.vit_b16(VIT_REGISTERS)
+    g = torch.Generator(device="cuda").manual_seed(VIT_SEED)
+    params = vit.init(g, cfg, dtype=torch.bfloat16)
+    x, y = _vit_batch(torch, cfg, VIT_BATCH, VIT_SEED + 3, "cuda")
+    inference = _vit_inference(torch, vit, fa, split, params, x)
+    train = _vit_train(torch, vit, llama, fa, split, params, x, y)
+    del params, x, y
+    torch.cuda.empty_cache()
+    res = launch.spawn(VIT_DP_RANKS, vit_rank_main, (), timeout_s=600)
+    layers = cfg.n_layers
+    want_dp = {"flash_attention_fwd": FWD_PER_LAYER[VIT_DP_REMAT] * layers,
+               "flash_attention_bwd_dq": layers,
+               "flash_attention_bwd_dkv": layers,
+               VIT_SPLIT: (FWD_PER_LAYER[VIT_DP_REMAT] + 1) * layers,
+               "ring_allreduce": res[0]["dp"]["rings_planned"],
+               "ring_reduce_scatter": 0, "ring_allgather": 0}
+    want_tp = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": 0,
+               "flash_attention_bwd_dkv": 0, VIT_SPLIT: 0}
+    for r in res:
+        dp, tp = r["dp"], r["tp"]
+        steady = sorted(dp["step_ms"][1:])
+        emit(phase="vit", part="data_parallel", rank=r["rank"],
+             ranks=r["p"], batch_per_rank=VIT_DP_BATCH, dtype="float32",
+             lr=VIT_DP_LR, remat=VIT_DP_REMAT,
+             steady_step_ms=steady[len(steady) // 2],
+             expected_launches_per_step=want_dp, **dp)
+        emit(phase="vit", part="tp", rank=r["rank"], mesh={"tp": r["p"]},
+             batch=VIT_BATCH, dtype="bfloat16", rtol=VIT_TP_RTOL,
+             expected_launches=want_tp, **tp)
+        losses = dp["losses"]
+        rel = (abs(losses[0] - dp["step1_loss_full_attention"])
+               / abs(dp["step1_loss_full_attention"]))
+        if any(c != want_dp for c in dp["launches_per_step"]):
+            raise AssertionError(f"rank {r['rank']}: ViT data-parallel "
+                                 f"launches {dp['launches_per_step']}, "
+                                 f"expected {want_dp} a step")
+        if not (all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"ViT data-parallel loss did not fall: "
+                                 f"{losses}")
+        if not rel < VIT_F32_LOSS_RTOL:
+            raise AssertionError(f"ViT data-parallel step 1 loss "
+                                 f"{losses[0]} is {rel:.3g} from full "
+                                 f"attention's")
+        if not dp["replicas_bitwise_equal"]:
+            raise AssertionError("ViT replicas differ after the steps")
+        if not (tp["finite"] and tp["shape"] == [VIT_BATCH, cfg.n_classes]
+                and tp["logits_rel_err_vs_one_rank"] < VIT_TP_RTOL
+                and tp["launches"] == want_tp):
+            raise AssertionError(f"ViT {{tp {r['p']}}} forward on rank "
+                                 f"{r['rank']}: {tp}, expected launches "
+                                 f"{want_tp}")
+    launches = {
+        "vit_inference": _sum_counts(rec["launches"]
+                                     for rec in inference.values()),
+        "vit_train": _sum_counts(c for remat in ("none", "dots")
+                                 for c in train[remat]["launches_per_step"]),
+        "vit_dp": _sum_counts(c for r in res
+                              for c in r["dp"]["launches_per_step"]),
+        "vit_tp": _sum_counts(r["tp"]["launches"] for r in res)}
+    rings = sum(c["ring_allreduce"] for r in res
+                for c in r["dp"]["launches_per_step"])
+    emit(phase="vit", part="launches", by_path=launches,
+         ring_allreduce=rings)
+    return {"inference": inference, "train": train, "ranks": res,
+            "launches": launches, "ring_allreduce": rings}
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
                        async_launches, async_rec, mnist_rec, options,
-                       hierarchy):
+                       hierarchy, vit_rings):
     """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
     work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
     an eager_async step beside (times, bound and the largest error over
@@ -4508,7 +4936,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
     runs; train_mnist: the example's three runs; train_mnist_options: its
     five runs, the profiler's window inside the first; tester: the ring
     sweep; hierarchy: the world-level allreduce under the span over both
-    levels of a 2x2 split, B1 only)."""
+    levels of a 2x2 split, B1 only; vit_dp: ViT-B/16's gradient rings on
+    both ranks, B1 only)."""
     replaces, function, kind, library = RING_KERNELS[name]
     big = next(r for r in rings[2]["records"]
                if r["kind"] == kind and "kernel_ms" in r)
@@ -4523,7 +4952,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
                    r["launches_total"][name]
                    for r in options["mnist_options"]["runs"].values()),
                "tester": options["tester"]["ring"]["launches"][name],
-               "hierarchy": hierarchy["launches"][name]}
+               "hierarchy": hierarchy["launches"][name],
+               "vit_dp": vit_rings if name == "ring_allreduce" else 0}
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     err = max(r["max_abs_err"] for p in (2, 4)
               for r in rings[p]["records"] if r["kind"] == kind)
@@ -4615,10 +5045,24 @@ def kernel_record(name, recs, part, err_keys, launches_by_path, blocks):
         "library": library,
         "shape": "B=1 H=32 L=2048 D=128 causal bf16",
         "f32": {**{k: f32[k] for k in timing + extra if k in f32},
-                # f32 inputs on a path: the serve phase's f32 prefill (B4)
-                # and the f32 train phase (B4, B5, B6).
+                # f32 inputs on a path: the serve phase's f32 prefill (B4),
+                # the f32 train phase and ViT's f32 data-parallel run (B4,
+                # B5, B6).
                 "launches": sum(launches_by_path[path][name] for path in
-                                ("serve_f32_prefill", "train_f32"))},
+                                ("serve_f32_prefill", "train_f32",
+                                 "vit_dp"))},
+        # Head size 64, ViT-B/16's: the kernel phases' ViT cases and the
+        # vit phase's launches.
+        "head_dim_64": {
+            "shape": "BH=768 (64 images x 12 heads) D=64, L=256 "
+                     "non-causal; L=196 ragged; L=256 causal",
+            "launches": sum(launches_by_path[path][name]
+                            for path in VIT_PATHS),
+            "cases": {case: {k: r[k] for k in timing + extra
+                             + ("launches", "split_launches") if k in r}
+                      for case in VIT_CASES
+                      for r in [recs[case] if part is None
+                                else {**recs[case], **recs[case][part]}]}},
     }
     keys = ("kernel_ms", "kernel_tflops", "bound_ms", "design")
     if part is None:
@@ -4665,7 +5109,7 @@ def main() -> int:
     import torchmpi_tpu_torch  # noqa: F401
     from torchmpi_tpu_torch import _build, serving
     from torchmpi_tpu_torch.examples import train_llama as train_mod
-    from torchmpi_tpu_torch.models import llama
+    from torchmpi_tpu_torch.models import llama, vit
     from torchmpi_tpu_torch.serving import engine as engine_mod
 
     fa = importlib.import_module("torchmpi_tpu_torch.ops.flash_attention")
@@ -4792,6 +5236,9 @@ def main() -> int:
     pipe = timed("pipeline", phase_pipeline, torch, llama, fa, train_mod)
     launches.update(pipe["launches"])
     torch.cuda.empty_cache()
+    vit_rec = timed("vit", phase_vit, torch, vit, llama, fa, split)
+    launches.update(vit_rec["launches"])
+    torch.cuda.empty_cache()
     timed("parameterserver", phase_parameterserver, torch, fa)
     emit(phase="timing", seconds=took, total_s=time.perf_counter() - start,
          held_gb_after=held)
@@ -4807,7 +5254,8 @@ def main() -> int:
                       mesh["blocks"]),
         *(ring_kernel_record(name, rings, resnet_rec["launches"],
                              resnet_rec, async_launches, async_rec,
-                             mnist_rec, options, hierarchy)
+                             mnist_rec, options, hierarchy,
+                             vit_rec["ring_allreduce"])
           for name in RING_KERNELS),
         conv_kernel_record(conv_recs, conv_launches),
     ])

@@ -123,6 +123,26 @@ def test_flash_attention_shape_errors(shape_k, blocks):
                             block_k=blocks[1])
 
 
+# ViT-B/16's head size: D = 64, non-causal at its 196 patches (one block,
+# as _auto_block gives) and 256 tokens (196 + 60 registers) in blocks; the
+# causal mask at D = 64 too.
+D64_CASES = [(False, 196, (None, None)), (True, 196, (None, None)),
+             (False, 256, (128, 64)), (True, 256, (64, 128))]
+
+
+@pytest.mark.parametrize("causal,L,blocks", D64_CASES)
+def test_flash_attention_matches_jax_at_head_size_64(causal, L, blocks):
+    q, k, v = _qkv(21, (1, L, 2, 64))
+    bq, bk = blocks
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, block_q=bq, block_k=bk)
+    with torch.no_grad():
+        got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                                  block_q=bq, block_k=bk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+
+
 def _port_grads(q, k, v, do, **kw):
     tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
     out = tfa.flash_attention(tq, tk, tv, **kw)
@@ -146,6 +166,37 @@ def test_flash_attention_gradients_match_jax(causal, blocks):
         assert g.shape == r.shape and g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(r),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal,L,blocks", D64_CASES)
+def test_flash_attention_gradients_match_jax_at_head_size_64(causal, L,
+                                                             blocks):
+    q, k, v = _qkv(23, (1, L, 2, 64))
+    do = np.random.RandomState(25).randn(*q.shape).astype(np.float32)
+    bq, bk = blocks
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, causal=causal, block_q=bq, block_k=bk),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    got = _port_grads(q, k, v, do, causal=causal, block_q=bq, block_k=bk)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("D,ok", [(64, True), (128, True), (96, False),
+                                  (32, False)])
+def test_kernel_check_takes_head_sizes_64_and_128(monkeypatch, D, ok):
+    # The kernels are built for D = 64 and 128 only; any other D raises
+    # before a launch, naming both.  (The CPU tensors pass for CUDA ones
+    # here: the device check is the card's business.)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    q = torch.zeros((2, 8, D), dtype=torch.bfloat16)
+    if ok:
+        tfa._check_kernel_inputs(q, q, q, torch.bfloat16)
+        return
+    with pytest.raises(ValueError, match=f"head size 64 or 128, got {D}"):
+        tfa._check_kernel_inputs(q, q, q, torch.bfloat16)
 
 
 @pytest.mark.parametrize("blocks", [(None, None), (16, 32)])

@@ -509,3 +509,32 @@ def test_pipeline_entry_points_raise_without_a_gpu(monkeypatch, capsys):
         train_llama.main(["--pp", "2", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         blocks.BlockSequential([]).init(0)
+
+
+SLICE18_MODULES = ["models/vit.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE18_MODULES)
+def test_slice18_modules_are_checked(rel):
+    """The import check above covers the port's ViT."""
+    assert ROOT / "torchmpi_tpu_torch" / rel in PORT_FILES
+
+
+def test_vit_runs_without_jax_loaded():
+    code = (
+        "import sys, torch\n"
+        "from torchmpi_tpu_torch.models import vit\n"
+        "cfg = vit.tiny()\n"
+        "p = vit.init(0, cfg, device='cpu')\n"
+        "x = torch.randn(2, 32, 32, 3)\n"
+        "loss = vit.make_loss_fn(cfg, attn='flash', remat='dots')(\n"
+        "    p, (x, torch.tensor([1, 2])))\n"
+        "assert torch.isfinite(loss)\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'jaxlib', 'torchmpi_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

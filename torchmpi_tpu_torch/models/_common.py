@@ -1,12 +1,16 @@
 """Shared model helpers: device resolution, init primitives, parameter
-counting."""
+counting, the per-layer remat policy, the stacked layers' views, the global
+mean of a loss over ranks and placement by partition specs."""
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Union
 
+import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -24,9 +28,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def generator(rng: Union[int, torch.Generator],
-              device: torch.device) -> torch.Generator:
+              device: torch.device) -> Optional[torch.Generator]:
     """``rng`` as a ``torch.Generator`` on ``device``: an int seeds a new
-    one; a generator must already live on the device's type."""
+    one; a generator must already live on the device's type.  On the
+    ``meta`` device (shapes only, nothing drawn) there is none: None."""
+    if device.type == "meta":
+        return None
     if isinstance(rng, torch.Generator):
         if rng.device.type != device.type:
             raise ValueError(f"generator on {rng.device}, tensors on {device}")
@@ -58,11 +65,90 @@ def stack_dense(gen: torch.Generator, n: int, d_in: int, d_out: int, dtype,
     return out
 
 
+def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
+    # np.array copies: the port writes caches in place, and a JAX array's
+    # host view is read-only memory that must not be written.
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def from_jax_params(params: Any, device: DeviceLike = None) -> Any:
+    """The JAX package's parameter tree (numpy or JAX array leaves) as the
+    port's: the same tree, each leaf the same values, dtype and layout."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _to_tensor(node, dev)
+
+    return conv(params)
+
+
 def num_params(params: Any) -> int:
     """Total element count of a (nested dict) parameter tree."""
     if isinstance(params, dict):
         return sum(num_params(v) for v in params.values())
     return int(params.numel())
+
+
+def layer_views(params: Any) -> list:
+    """Every layer's weights as views of the stacked leaves of
+    ``params["layers"]``, made by one ``torch.unbind`` per leaf.  Under
+    autograd this matters: the backward of an unbind stacks the n layers'
+    gradients once, where the backward of each ``leaf[i]`` would write a
+    zero tensor the size of the whole stacked leaf and autograd would add n
+    of them (O(n_layers²) bytes; about half of an 8B Llama training step on
+    the card)."""
+    names = list(params["layers"])
+    per_leaf = [torch.unbind(params["layers"][k]) for k in names]
+    return [dict(zip(names, views)) for views in zip(*per_leaf)]
+
+
+def save_mm_outputs(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of ``aten.mm`` — every
+    ``x @ w`` of the layer, which has no batch dimension, as JAX's
+    ``dots_with_no_batch_dims_saveable`` keeps — and recompute everything
+    else, ``bmm`` and every allocation included (a buffer that a kernel
+    writes into must never be served from the cache on recompute)."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def wrap_remat(layer: Callable, remat: str) -> Callable:
+    """THE remat taxonomy ('none'/'dots'/'full'), as in the JAX package.
+    Under ``"dots"`` and ``"full"`` the layer's forward runs again during
+    the backward, flash-attention kernel included."""
+    if remat == "dots":
+        ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                   save_mm_outputs)
+        return lambda *a: ckpt.checkpoint(layer, *a, use_reentrant=False,
+                                          context_fn=ctx_fn)
+    if remat == "full":
+        return lambda *a: ckpt.checkpoint(layer, *a, use_reentrant=False)
+    if remat != "none":
+        raise ValueError("remat must be 'none', 'dots', or 'full'")
+    return layer
+
+
+class GlobalMean(torch.autograd.Function):
+    """The mean over ``comm``'s ranks of each rank's mean loss (the global
+    mean: every rank holds as many examples); its gradient flows to this
+    rank's own mean alone, and the mean of the ranks' gradients is the
+    global one, which the caller forms."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        from ..collectives import eager
+
+        return eager.allreduce(comm, x.reshape(1), op="mean").reshape(())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 # ------------------------------------------------------------ mesh placement

@@ -55,7 +55,6 @@ cache or new parameters, the port writes them in place and returns them.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Any, Callable, Dict, Optional, Union
 
@@ -73,6 +72,8 @@ from ..utils import tree as _tree
 from ._common import DeviceLike, P, dense_init, gather_by_specs, \
     generator as _generator, mesh_spec as _mesh_spec, num_params, \
     resolve_device, shard_by_specs, stack_dense  # noqa: F401
+from ._common import GlobalMean as _GlobalMean, from_jax_params, \
+    layer_views as _layers, wrap_remat as _wrap_remat  # noqa: F401
 
 Params = Dict[str, Any]
 
@@ -203,28 +204,6 @@ def init(rng: Union[int, torch.Generator], cfg: Config,
         "norm": ones(cfg.d_model),
         "head": dense_init(gen, cfg.d_model, cfg.vocab, dtype, dev),
     }
-
-
-def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
-    # np.array copies: the port writes caches in place, and a JAX array's
-    # host view is read-only memory that must not be written.
-    a = np.array(a)
-    if a.dtype.name == "bfloat16":     # ml_dtypes' bf16: carry the bits
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
-def from_jax_params(params: Any, device: DeviceLike = None) -> Params:
-    """The JAX package's parameter tree (numpy or JAX array leaves) as the
-    port's: the same tree, each leaf the same values, dtype and layout."""
-    dev = resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _to_tensor(node, dev)
-
-    return conv(params)
 
 
 # ------------------------------------------------------------------- sharding
@@ -505,18 +484,6 @@ def _make_attn_impl(cfg: Config, attn: str, mesh: Optional[Mesh],
         f"'ring-xla', got {attn!r}")
 
 
-def _layers(params: Params):
-    """Every layer's weights as views of the stacked leaves, made by one
-    ``torch.unbind`` per leaf.  Under autograd this matters: the backward
-    of an unbind stacks the n layers' gradients once, where the backward of
-    each ``leaf[i]`` would write a zero tensor the size of the whole stacked
-    leaf and autograd would add n of them (O(n_layers²) bytes; about half
-    of an 8B training step on the card)."""
-    names = list(params["layers"])
-    per_leaf = [torch.unbind(params["layers"][k]) for k in names]
-    return [dict(zip(names, views)) for views in zip(*per_leaf)]
-
-
 def _moe_group(cfg: Config, n_tokens: int) -> int:
     """Routing-group size: largest divisor of ``n_tokens`` at most
     ``cfg.moe_group_size``.  When only sliver divisors exist below the
@@ -679,33 +646,6 @@ def _decoder_layer(cfg: Config, lp: Params, h: torch.Tensor,
 
 # ----------------------------------------------------------------- training
 
-def _save_mm_outputs(ctx, op, *args, **kwargs):
-    """The ``"dots"`` policy: keep the outputs of ``aten.mm`` — every
-    ``x @ w`` of the layer, which has no batch dimension, as JAX's
-    ``dots_with_no_batch_dims_saveable`` keeps — and recompute everything
-    else, ``bmm`` and every allocation included (a buffer that a kernel
-    writes into must never be served from the cache on recompute)."""
-    if op is torch.ops.aten.mm.default:
-        return ckpt.CheckpointPolicy.MUST_SAVE
-    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _wrap_remat(layer: Callable, remat: str) -> Callable:
-    """THE remat taxonomy ('none'/'dots'/'full'), as in the JAX package.
-    Under ``"dots"`` and ``"full"`` the layer's forward runs again during
-    the backward, flash-attention kernel included."""
-    if remat == "dots":
-        ctx_fn = functools.partial(ckpt.create_selective_checkpoint_contexts,
-                                   _save_mm_outputs)
-        return lambda *a: ckpt.checkpoint(layer, *a, use_reentrant=False,
-                                          context_fn=ctx_fn)
-    if remat == "full":
-        return lambda *a: ckpt.checkpoint(layer, *a, use_reentrant=False)
-    if remat != "none":
-        raise ValueError("remat must be 'none', 'dots', or 'full'")
-    return layer
-
-
 def _chunk_nll(head: torch.Tensor, h_c: torch.Tensor,
                t_c: torch.Tensor) -> torch.Tensor:
     """Summed NLL of one (B, C, D) chunk; the caller checkpoints it so the
@@ -807,21 +747,6 @@ def _nll_from_hidden_tp(head_local: torch.Tensor, h: torch.Tensor,
         total = total + _TpCE.apply(head_local, h[:, start:start + C],
                                     targets[:, start:start + C], plan)
     return total / (B * L)
-
-
-class _GlobalMean(torch.autograd.Function):
-    """The mean over the ranks of each rank's mean loss (the global mean:
-    every rank holds as many tokens); its gradient flows to this rank's
-    own mean alone, and the mean of the ranks' gradients is the global
-    one, which :func:`make_train_step` forms."""
-
-    @staticmethod
-    def forward(ctx, x, comm):
-        return eager.allreduce(comm, x.reshape(1), op="mean").reshape(())
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 def apply(cfg: Config, params: Params, tokens: torch.Tensor,

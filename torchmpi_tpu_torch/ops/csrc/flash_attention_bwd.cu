@@ -51,6 +51,17 @@
 // Every wgmma's descriptors are formed just before it, so none is held in
 // registers across the loop.
 //
+// Head size: a template parameter D of both kernels and their geometry,
+// dispatched on head_dim in the C entry points, 128 (every Llama geometry
+// the repo names) or 64 (ViT-B/16: d_model 768 over 12 heads).  A row of D
+// bf16 is D / 64 swizzled 128-byte panels, so at D = 64 each own tensor
+// and each streamed tile is one panel, S and dP take 4 k16 steps instead
+// of 8, and dQ += dS K, dV += P^T dO and dK += dS^T Q are m64n64k16 from
+// registers into 32 f32 a thread each instead of m64n128k16 into 64.  The
+// tiling (128 own rows, 64- or 32-row streamed tiles, the rings' depths) is
+// the same; shared memory is 66 KB (dq) and 83 KB (dk/dv) for bf16 inputs,
+// 98 KB and 114 KB split.
+//
 // bf16 inputs (SPLIT = false): 64-row streamed tiles, S and dP by
 // m64n64k16; shared memory 133 KB (dq) and 166 KB (dk/dv).  q.k and do.v
 // are exact per product (bf16 x bf16 in f32), so s and dp differ from the
@@ -123,8 +134,6 @@
 
 namespace {
 
-constexpr int D = 128;        // head size: every Llama geometry the repo names
-
 namespace tc {
 
 // Both passes share one shape: a CTA owns ROWS rows of one tensor pair (q
@@ -137,19 +146,23 @@ constexpr int NCONS = 256;            // two consumer warpgroups
 constexpr int DQ_NT = NCONS + 32;     // dq: plus one producer warp
 constexpr int PANEL = 64;             // columns of one swizzled panel
 constexpr int FIX_PANEL = ROWS * 128; // bytes of a 64-column panel, own rows
-constexpr int FIX_BYTES = 2 * FIX_PANEL;   // one part of one own tensor
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The tile geometry of each variant: bf16 inputs in one part with 64-row
 // streamed tiles, f32 inputs in two (hi, lo) with 32-row ones, to fit
-// shared memory (see the header).
-template <bool SPLIT>
+// shared memory (see the header); the head size D (64 or 128) is one or
+// two 64-column panels of every tile.
+template <bool SPLIT, int D>
 struct Geo {
+  static_assert(D == 64 || D == 128, "head size 64 or 128");
   static constexpr int PARTS = SPLIT ? 2 : 1;
+  static constexpr int PANELS = D / PANEL;        // 64-column panels of a row
+  static constexpr int NO = D / 2;                // f32 of a thread's dQ/dK/dV
+  static constexpr int FIX_BYTES = PANELS * FIX_PANEL;  // a part, own rows
   static constexpr int TILE = SPLIT ? 32 : 64;    // rows of a streamed tile
   static constexpr int NS = TILE / 2;             // f32 of a thread's S, dP
   static constexpr int TILE_PANEL = TILE * 128;   // a 64-column panel of it
-  static constexpr int TILE_BYTES = 2 * TILE_PANEL;   // one part of a tensor
+  static constexpr int TILE_BYTES = PANELS * TILE_PANEL;  // a part of a tile
   static constexpr int STAGE_BYTES = PARTS * TILE_BYTES;
   template <int STAGES>
   static constexpr int smem_bytes() {
@@ -157,7 +170,7 @@ struct Geo {
            STAGES * 2 * TILE * 4 + 8 * (1 + 2 * STAGES);
   }
 };
-static_assert(Geo<true>::smem_bytes<DKV_STAGES>() <= 232448,
+static_assert(Geo<true, 128>::smem_bytes<DKV_STAGES>() <= 232448,
               "the split dk/dv ring must fit a block's shared memory");
 
 struct Smem {
@@ -171,13 +184,13 @@ struct Smem {
   uint64_t* empty;   // [STAGES]
 };
 
-template <bool SPLIT, int STAGES>
+template <bool SPLIT, int D, int STAGES>
 __device__ __forceinline__ Smem carve(uint8_t* raw) {
-  using G = Geo<SPLIT>;
+  using G = Geo<SPLIT, D>;
   Smem m;
   m.fa = hopper::align1024(raw);
-  m.fb = m.fa + G::PARTS * FIX_BYTES;
-  m.ta = m.fb + G::PARTS * FIX_BYTES;
+  m.fb = m.fa + G::PARTS * G::FIX_BYTES;
+  m.ta = m.fb + G::PARTS * G::FIX_BYTES;
   m.tb = m.ta + STAGES * G::STAGE_BYTES;
   m.rowv = reinterpret_cast<float*>(m.tb + STAGES * G::STAGE_BYTES);
   m.fix_full = reinterpret_cast<uint64_t*>(m.rowv + STAGES * 2 * G::TILE);
@@ -195,17 +208,17 @@ __device__ __forceinline__ void just_in_time(uint32_t& addr) {
 }
 
 // x (64 x TILE f32 fragment) += A . B^T: A the warpgroup's 64 own rows, B a
-// streamed tile, 8 k16 steps over D, both K-major.  With `first`, the first
-// step overwrites x.
-template <bool SPLIT>
-__device__ __forceinline__ void s_steps(float (&x)[Geo<SPLIT>::NS],
+// streamed tile, D / 16 k16 steps over D (four a panel), both K-major.
+// With `first`, the first step overwrites x.
+template <bool SPLIT, int D>
+__device__ __forceinline__ void s_steps(float (&x)[Geo<SPLIT, D>::NS],
                                         uint32_t a0, uint32_t b0,
                                         bool first) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;   // the k16 step within a panel
     uint32_t a = a0 + (kk / 4) * FIX_PANEL + off;
-    uint32_t b = b0 + (kk / 4) * Geo<SPLIT>::TILE_PANEL + off;
+    uint32_t b = b0 + (kk / 4) * Geo<SPLIT, D>::TILE_PANEL + off;
     just_in_time(a);
     just_in_time(b);
     const uint64_t da = hopper::desc_sw128(a, 16, 1024);
@@ -221,25 +234,25 @@ __device__ __forceinline__ void s_steps(float (&x)[Geo<SPLIT>::NS],
 
 // x = A . B^T: one product for bf16 inputs; for f32 inputs A_hi B_hi^T +
 // A_hi B_lo^T + A_lo B_hi^T, each lo part one part after its hi part.
-template <bool SPLIT>
-__device__ __forceinline__ void s_product(float (&x)[Geo<SPLIT>::NS],
+template <bool SPLIT, int D>
+__device__ __forceinline__ void s_product(float (&x)[Geo<SPLIT, D>::NS],
                                           uint32_t a, uint32_t b) {
-  s_steps<SPLIT>(x, a, b, true);
+  s_steps<SPLIT, D>(x, a, b, true);
   if constexpr (SPLIT) {
-    s_steps<SPLIT>(x, a, b + Geo<SPLIT>::TILE_BYTES, false);
-    s_steps<SPLIT>(x, a + FIX_BYTES, b, false);
+    s_steps<SPLIT, D>(x, a, b + Geo<SPLIT, D>::TILE_BYTES, false);
+    s_steps<SPLIT, D>(x, a + Geo<SPLIT, D>::FIX_BYTES, b, false);
   }
 }
 
 // x = A1 . B1^T and y = A2 . B2^T (S and dP, or S^T and dP^T).
-template <bool SPLIT>
-__device__ __forceinline__ void two_products(float (&x)[Geo<SPLIT>::NS],
-                                             float (&y)[Geo<SPLIT>::NS],
+template <bool SPLIT, int D>
+__device__ __forceinline__ void two_products(float (&x)[Geo<SPLIT, D>::NS],
+                                             float (&y)[Geo<SPLIT, D>::NS],
                                              uint32_t a1, uint32_t b1,
                                              uint32_t a2, uint32_t b2) {
   hopper::wgmma_fence();
-  s_product<SPLIT>(x, a1, b1);
-  s_product<SPLIT>(y, a2, b2);
+  s_product<SPLIT, D>(x, a1, b1);
+  s_product<SPLIT, D>(y, a2, b2);
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
   hopper::fence_regs(x);
@@ -270,33 +283,34 @@ __device__ __forceinline__ void pack_split(const float (&x)[N],
   pack<N>(rest, lo);
 }
 
-// acc (64 x 128 f32) += A (64 x TILE, from registers) . a streamed tile
-// (TILE rows x 128), read MN-major: TILE / 16 k16 steps over its rows.
-template <bool SPLIT>
+// acc (64 x D f32) += A (64 x TILE, from registers) . a streamed tile
+// (TILE rows x D), read MN-major: TILE / 16 k16 steps over its rows, each
+// m64n128k16 at D = 128 and m64n64k16 at D = 64.
+template <bool SPLIT, int D>
 __device__ __forceinline__ void tile_product(
-    float (&acc)[64], const uint32_t (&a)[Geo<SPLIT>::NS / 2],
+    float (&acc)[D / 2], const uint32_t (&a)[Geo<SPLIT, D>::NS / 2],
     uint32_t tile_addr) {
 #pragma unroll
-  for (int u = 0; u < Geo<SPLIT>::TILE / 16; ++u) {
+  for (int u = 0; u < Geo<SPLIT, D>::TILE / 16; ++u) {
     const uint32_t frag[4] = {a[4 * u], a[4 * u + 1], a[4 * u + 2],
                               a[4 * u + 3]};
     uint32_t b = tile_addr + u * 16 * 128;
     just_in_time(b);
-    hopper::wgmma_m64n128k16_rs<1>(
-        acc, frag, hopper::desc_sw128(b, Geo<SPLIT>::TILE_PANEL, 1024));
+    hopper::wgmma_m64nNk16_rs<D, 1>(
+        acc, frag, hopper::desc_sw128(b, Geo<SPLIT, D>::TILE_PANEL, 1024));
   }
 }
 
 // acc += X . T with X given as its bf16 hi and lo fragments: X_hi T + X_lo T
 // for a bf16 tile; X_hi T_hi + X_hi T_lo + X_lo T_hi for a split one.
-template <bool SPLIT>
+template <bool SPLIT, int D>
 __device__ __forceinline__ void split_tile_product(
-    float (&acc)[64], const uint32_t (&hi)[Geo<SPLIT>::NS / 2],
-    const uint32_t (&lo)[Geo<SPLIT>::NS / 2], uint32_t tile_addr) {
-  tile_product<SPLIT>(acc, hi, tile_addr);
+    float (&acc)[D / 2], const uint32_t (&hi)[Geo<SPLIT, D>::NS / 2],
+    const uint32_t (&lo)[Geo<SPLIT, D>::NS / 2], uint32_t tile_addr) {
+  tile_product<SPLIT, D>(acc, hi, tile_addr);
   if constexpr (SPLIT)
-    tile_product<SPLIT>(acc, hi, tile_addr + Geo<SPLIT>::TILE_BYTES);
-  tile_product<SPLIT>(acc, lo, tile_addr);
+    tile_product<SPLIT, D>(acc, hi, tile_addr + Geo<SPLIT, D>::TILE_BYTES);
+  tile_product<SPLIT, D>(acc, lo, tile_addr);
 }
 
 template <int STAGES>
@@ -310,18 +324,19 @@ __device__ __forceinline__ void init_barriers(const Smem& m, int full_count) {
 }
 
 // The loads of one tensor's rows [row, row + box) of head bh, each of its
-// PARTS parts (the lo part of head bh lies at bh + n_bh) 2 `panel_bytes`
-// after the one before: two panels a part.
-template <int PARTS>
+// PARTS parts (the lo part of head bh lies at bh + n_bh) one part after the
+// one before: PANELS panels of `panel_bytes` a part.
+template <int PARTS, int PANELS>
 __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* t,
                                           uint64_t* bar, int panel_bytes,
                                           int row, int bh, int n_bh) {
 #pragma unroll
   for (int p = 0; p < PARTS; ++p) {
-    uint8_t* part = dst + p * 2 * panel_bytes;
-    hopper::tma_load_3d(part, t, bar, 0, row, bh + p * n_bh);
-    hopper::tma_load_3d(part + panel_bytes, t, bar, PANEL, row,
-                        bh + p * n_bh);
+    uint8_t* part = dst + p * PANELS * panel_bytes;
+#pragma unroll
+    for (int c = 0; c < PANELS; ++c)
+      hopper::tma_load_3d(part + c * panel_bytes, t, bar, c * PANEL, row,
+                          bh + p * n_bh);
   }
 }
 
@@ -331,20 +346,20 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
   if (lane == 0) hopper::mbar_arrive(empty);
 }
 
-// Rows of a 64 x 128 f32 accumulator fragment to memory: d[4j + 2h + e] is
+// Rows of a 64 x D f32 accumulator fragment to memory: d[4j + 2h + e] is
 // row row0 + 8h, column 8j + col0 + e; rows at or past `len` are not
 // written.
-template <bool F32_OUT>
+template <bool F32_OUT, int D>
 __device__ __forceinline__ void store_rows(void* out, size_t base, int row0,
                                            int col0, int len,
-                                           const float (&d)[64]) {
+                                           const float (&d)[D / 2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 8 * h;
     if (row >= len) continue;
     const size_t off = (base + row) * D + col0;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const float a = d[4 * j + 2 * h], b = d[4 * j + 2 * h + 1];
       if constexpr (F32_OUT) {
         *reinterpret_cast<float2*>(static_cast<float*>(out) + off + 8 * j) =
@@ -360,7 +375,7 @@ __device__ __forceinline__ void store_rows(void* out, size_t base, int row0,
 
 // dq: a CTA owns 128 q rows (with their do rows, lse and delta) and
 // streams K/V tiles up to the diagonal.
-template <bool F32_OUT, bool SPLIT>
+template <bool F32_OUT, bool SPLIT, int D>
 __global__ void __launch_bounds__(DQ_NT, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -370,12 +385,13 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const float* __restrict__ delta, void* __restrict__ dq,
                    int Lq, int Lk, float scale, float scale_log2,
                    int causal) {
-  using G = Geo<SPLIT>;
+  using G = Geo<SPLIT, D>;
   constexpr int TILE = G::TILE;
   constexpr int NS = G::NS;
+  constexpr int NO = G::NO;
   constexpr int STAGES = DQ_STAGES;
   extern __shared__ uint8_t smem_raw[];
-  const Smem m = carve<SPLIT, STAGES>(smem_raw);
+  const Smem m = carve<SPLIT, D, STAGES>(smem_raw);
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int n_bh = gridDim.x;
@@ -389,17 +405,21 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 
   if (tid >= NCONS) {               // the producer warp; one lane issues
     if (tid == NCONS) {
-      hopper::mbar_expect_tx(m.fix_full, 2 * G::PARTS * FIX_BYTES);
-      load_rows<G::PARTS>(m.fa, &tq, m.fix_full, FIX_PANEL, q0, bh, n_bh);
-      load_rows<G::PARTS>(m.fb, &tdo, m.fix_full, FIX_PANEL, q0, bh, n_bh);
+      hopper::mbar_expect_tx(m.fix_full, 2 * G::PARTS * G::FIX_BYTES);
+      load_rows<G::PARTS, G::PANELS>(m.fa, &tq, m.fix_full, FIX_PANEL, q0,
+                                     bh, n_bh);
+      load_rows<G::PARTS, G::PANELS>(m.fb, &tdo, m.fix_full, FIX_PANEL, q0,
+                                     bh, n_bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES;
         if (t >= STAGES) hopper::mbar_wait(&m.empty[s], (t / STAGES - 1) & 1);
         hopper::mbar_expect_tx(&m.full[s], 2 * G::STAGE_BYTES);
-        load_rows<G::PARTS>(m.ta + s * G::STAGE_BYTES, &tk, &m.full[s],
-                            G::TILE_PANEL, t * TILE, bh, n_bh);
-        load_rows<G::PARTS>(m.tb + s * G::STAGE_BYTES, &tv, &m.full[s],
-                            G::TILE_PANEL, t * TILE, bh, n_bh);
+        load_rows<G::PARTS, G::PANELS>(m.ta + s * G::STAGE_BYTES, &tk,
+                                       &m.full[s], G::TILE_PANEL, t * TILE,
+                                       bh, n_bh);
+        load_rows<G::PARTS, G::PANELS>(m.tb + s * G::STAGE_BYTES, &tv,
+                                       &m.full[s], G::TILE_PANEL, t * TILE,
+                                       bh, n_bh);
       }
     }
     return;
@@ -425,9 +445,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     lse2[h] = row < Lq ? lse[base + row] * LOG2E : INFINITY;
     dlt[h] = row < Lq ? delta[base + row] : 0.f;
   }
-  float acc[64];
+  float acc[NO];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
 
   hopper::mbar_wait(m.fix_full, 0);
   const uint32_t q_addr = hopper::smem_u32(m.fa) + wg * 64 * 128;
@@ -441,7 +461,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       const uint32_t k_addr = hopper::smem_u32(m.ta + s * G::STAGE_BYTES);
       const uint32_t v_addr = hopper::smem_u32(m.tb + s * G::STAGE_BYTES);
       float sc[NS], dp[NS];
-      two_products<SPLIT>(sc, dp, q_addr, k_addr, do_addr, v_addr);  // S, dP
+      two_products<SPLIT, D>(sc, dp, q_addr, k_addr, do_addr,
+                             v_addr);                       // S, dP
       // Mask only where the tile reaches this warpgroup's diagonal or the
       // end of K; ds overwrites s.
       const bool mask =
@@ -462,14 +483,14 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         uint32_t lo[NS / 2];
         pack_split<NS>(sc, hi, lo);
         hopper::wgmma_fence();
-        split_tile_product<SPLIT>(acc, hi, lo, k_addr);  // dq += dS K
+        split_tile_product<SPLIT, D>(acc, hi, lo, k_addr);  // dq += dS K
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(lo);
       } else {
         pack<NS>(sc, hi);
         hopper::wgmma_fence();
-        tile_product<SPLIT>(acc, hi, k_addr);   // K MN-major
+        tile_product<SPLIT, D>(acc, hi, k_addr);   // K MN-major
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
       }
@@ -478,7 +499,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     release(&m.empty[s], lane);
   }
-  store_rows<F32_OUT>(dq, base, row0, col0, Lq, acc);
+  store_rows<F32_OUT, D>(dq, base, row0, col0, Lq, acc);
 }
 
 // dk/dv: a CTA owns 128 k rows (with their v rows) and streams Q/dO tiles,
@@ -486,7 +507,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 // 0 stages each tile (TMA for Q and dO, 4-byte cp.async for lse and delta,
 // all completing on the stage's full barrier) two tiles ahead, so every
 // consumer thread keeps the 255 registers of a 256-thread CTA.
-template <bool F32_OUT, bool SPLIT>
+template <bool F32_OUT, bool SPLIT, int D>
 __global__ void __launch_bounds__(NCONS, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -496,12 +517,13 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                     const float* __restrict__ delta, void* __restrict__ dk,
                     void* __restrict__ dv, int Lq, int Lk, float scale,
                     float scale_log2, int causal) {
-  using G = Geo<SPLIT>;
+  using G = Geo<SPLIT, D>;
   constexpr int TILE = G::TILE;
   constexpr int NS = G::NS;
+  constexpr int NO = G::NO;
   constexpr int STAGES = DKV_STAGES;
   extern __shared__ uint8_t smem_raw[];
-  const Smem m = carve<SPLIT, STAGES>(smem_raw);
+  const Smem m = carve<SPLIT, D, STAGES>(smem_raw);
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int n_bh = gridDim.x;
@@ -540,18 +562,22 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
     hopper::cp_async_mbar_arrive(&m.full[s]);
     if (lane == 0) {
       hopper::mbar_expect_tx(&m.full[s], 2 * G::STAGE_BYTES);
-      load_rows<G::PARTS>(m.ta + s * G::STAGE_BYTES, &tq, &m.full[s],
-                          G::TILE_PANEL, qs0, bh, n_bh);
-      load_rows<G::PARTS>(m.tb + s * G::STAGE_BYTES, &tdo, &m.full[s],
-                          G::TILE_PANEL, qs0, bh, n_bh);
+      load_rows<G::PARTS, G::PANELS>(m.ta + s * G::STAGE_BYTES, &tq,
+                                     &m.full[s], G::TILE_PANEL, qs0, bh,
+                                     n_bh);
+      load_rows<G::PARTS, G::PANELS>(m.tb + s * G::STAGE_BYTES, &tdo,
+                                     &m.full[s], G::TILE_PANEL, qs0, bh,
+                                     n_bh);
     }
   };
 
   if (stager) {
     if (lane == 0) {
-      hopper::mbar_expect_tx(m.fix_full, 2 * G::PARTS * FIX_BYTES);
-      load_rows<G::PARTS>(m.fa, &tk, m.fix_full, FIX_PANEL, k0, bh, n_bh);
-      load_rows<G::PARTS>(m.fb, &tv, m.fix_full, FIX_PANEL, k0, bh, n_bh);
+      hopper::mbar_expect_tx(m.fix_full, 2 * G::PARTS * G::FIX_BYTES);
+      load_rows<G::PARTS, G::PANELS>(m.fa, &tk, m.fix_full, FIX_PANEL, k0,
+                                     bh, n_bh);
+      load_rows<G::PARTS, G::PANELS>(m.fb, &tv, m.fix_full, FIX_PANEL, k0,
+                                     bh, n_bh);
     }
     for (int i = 0; i < min(STAGES - 1, n_tiles); ++i) stage_tile(i);
   }
@@ -561,9 +587,9 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
   const int col0 = 2 * (lane % 4);                 // + 8 j + e % 2
   const bool wg_live = wg_k0 < Lk;
 
-  float dk_acc[64], dv_acc[64];
+  float dk_acc[NO], dv_acc[NO];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < NO; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   hopper::mbar_wait(m.fix_full, 0);
   const uint32_t k_addr = hopper::smem_u32(m.fa) + wg * 64 * 128;
@@ -587,8 +613,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
       const uint32_t q_addr = hopper::smem_u32(m.ta + s * G::STAGE_BYTES);
       const uint32_t do_addr = hopper::smem_u32(m.tb + s * G::STAGE_BYTES);
       float st[NS], dpt[NS];
-      two_products<SPLIT>(st, dpt, k_addr, q_addr, v_addr,
-                          do_addr);                          // S^T, dP^T
+      two_products<SPLIT, D>(st, dpt, k_addr, q_addr, v_addr,
+                             do_addr);                       // S^T, dP^T
       // The fragment's column is the q row: its lse and delta come from
       // shared memory, two neighbouring columns at a time.  Mask where the
       // tile's first q row lies above the warpgroup's last k row.
@@ -616,8 +642,10 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
         pack_split<NS>(st, p_hi, p_lo);
         pack_split<NS>(dpt, ds_hi, ds_lo);
         hopper::wgmma_fence();
-        split_tile_product<SPLIT>(dv_acc, p_hi, p_lo, do_addr);  // P^T dO
-        split_tile_product<SPLIT>(dk_acc, ds_hi, ds_lo, q_addr); // dS^T Q
+        split_tile_product<SPLIT, D>(dv_acc, p_hi, p_lo,
+                                     do_addr);               // P^T dO
+        split_tile_product<SPLIT, D>(dk_acc, ds_hi, ds_lo,
+                                     q_addr);                // dS^T Q
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(p_lo);
@@ -626,8 +654,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
         pack<NS>(st, p_hi);
         pack<NS>(dpt, ds_hi);
         hopper::wgmma_fence();
-        tile_product<SPLIT>(dv_acc, p_hi, do_addr);   // dv += P^T dO
-        tile_product<SPLIT>(dk_acc, ds_hi, q_addr);   // dk += dS^T Q
+        tile_product<SPLIT, D>(dv_acc, p_hi, do_addr);   // dv += P^T dO
+        tile_product<SPLIT, D>(dk_acc, ds_hi, q_addr);   // dk += dS^T Q
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
       }
@@ -639,18 +667,18 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
     release(&m.empty[s], lane);
   }
   const size_t kbase = (size_t)bh * Lk;
-  store_rows<F32_OUT>(dk, kbase, krow0, col0, Lk, dk_acc);
-  store_rows<F32_OUT>(dv, kbase, krow0, col0, Lk, dv_acc);
+  store_rows<F32_OUT, D>(dk, kbase, krow0, col0, Lk, dk_acc);
+  store_rows<F32_OUT, D>(dv, kbase, krow0, col0, Lk, dv_acc);
 }
 
-// The launches.  bf16 inputs: q, k, v, do (bh, L, 128) bf16.  f32 inputs
-// (SPLIT): their (2, bh, L, 128) bf16 splits, read through maps of depth
+// The launches.  bf16 inputs: q, k, v, do (bh, L, D) bf16.  f32 inputs
+// (SPLIT): their (2, bh, L, D) bf16 splits, read through maps of depth
 // 2 bh (hi heads, then lo heads).
-template <bool F32_OUT, bool SPLIT>
+template <bool F32_OUT, bool SPLIT, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int lq,
               int lk, float scale, int causal, cudaStream_t stream) {
-  using G = Geo<SPLIT>;
+  using G = Geo<SPLIT, D>;
   const int depth = G::PARTS * bh;
   CUtensorMap tq, tk, tv, tdo;
   int e = hopper::bf16_map_3d(&tq, q, D, lq, depth, ROWS);
@@ -658,7 +686,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (!e) e = hopper::bf16_map_3d(&tk, k, D, lk, depth, G::TILE);
   if (!e) e = hopper::bf16_map_3d(&tv, v, D, lk, depth, G::TILE);
   if (e) return e;
-  auto kern = flash_bwd_dq_wgmma<F32_OUT, SPLIT>;
+  auto kern = flash_bwd_dq_wgmma<F32_OUT, SPLIT, D>;
   constexpr int smem = G::template smem_bytes<DQ_STAGES>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -671,11 +699,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <bool F32_OUT, bool SPLIT>
+template <bool F32_OUT, bool SPLIT, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int lq, int lk, float scale, int causal, cudaStream_t stream) {
-  using G = Geo<SPLIT>;
+  using G = Geo<SPLIT, D>;
   const int depth = G::PARTS * bh;
   CUtensorMap tq, tk, tv, tdo;
   int e = hopper::bf16_map_3d(&tk, k, D, lk, depth, ROWS);
@@ -683,7 +711,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (!e) e = hopper::bf16_map_3d(&tq, q, D, lq, depth, G::TILE);
   if (!e) e = hopper::bf16_map_3d(&tdo, dout, D, lq, depth, G::TILE);
   if (e) return e;
-  auto kern = flash_bwd_dkv_wgmma<F32_OUT, SPLIT>;
+  auto kern = flash_bwd_dkv_wgmma<F32_OUT, SPLIT, D>;
   constexpr int smem = G::template smem_bytes<DKV_STAGES>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -696,22 +724,65 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// The explicit dispatch of each pass on the input and output types at
+// head size D.
+template <int D>
+int dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dq, int bh, int lq,
+                int lk, float scale, int causal, int in_dtype, int out_dtype,
+                cudaStream_t s) {
+  if (in_dtype == 1 && out_dtype == 1)
+    return launch_dq<false, false, D>(q, k, v, dout, lse, delta, dq, bh, lq,
+                                      lk, scale, causal, s);
+  if (in_dtype == 1 && out_dtype == 0)
+    return launch_dq<true, false, D>(q, k, v, dout, lse, delta, dq, bh, lq,
+                                     lk, scale, causal, s);
+  if (in_dtype == 0 && out_dtype == 0)
+    return launch_dq<true, true, D>(q, k, v, dout, lse, delta, dq, bh, lq,
+                                    lk, scale, causal, s);
+  if (in_dtype == 0 && out_dtype == 1)
+    return launch_dq<false, true, D>(q, k, v, dout, lse, delta, dq, bh, lq,
+                                     lk, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int dispatch_dkv(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, int bh, int lq, int lk, float scale,
+                 int causal, int in_dtype, int out_dtype, cudaStream_t s) {
+  if (in_dtype == 1 && out_dtype == 1)
+    return launch_dkv<false, false, D>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                       lq, lk, scale, causal, s);
+  if (in_dtype == 1 && out_dtype == 0)
+    return launch_dkv<true, false, D>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      lq, lk, scale, causal, s);
+  if (in_dtype == 0 && out_dtype == 0)
+    return launch_dkv<true, true, D>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                     lq, lk, scale, causal, s);
+  if (in_dtype == 0 && out_dtype == 1)
+    return launch_dkv<false, true, D>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      lq, lk, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace tc
 
 bool bad_args(int bh, int lq, int lk, int head_dim) {
-  return head_dim != D || bh < 1 || bh > 65535 || lq < 1 || lk < 1;
+  return (head_dim != 64 && head_dim != 128) || bh < 1 || bh > 65535 ||
+         lq < 1 || lk < 1;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  lse and delta (bh, lq) float32;
-// dq (bh, lq, 128) of the output type.  bf16 inputs: q and do (bh, lq,
-// 128), k and v (bh, lk, 128).  f32 inputs reach this function as their
-// bf16 hi + lo split (tmpi_bf16_split): q and do (2, bh, lq, 128), k and v
-// (2, bh, lk, 128) bf16, hi first.  All contiguous and 16-byte aligned
-// (TMA, vector stores).  Both run the wgmma kernel: bf16 in one product, f32
-// in three bf16 products.  Returns the cudaError_t of the launch (0 =
-// launched).
+// dtype codes: 0 = float32, 1 = bfloat16; head_dim D is 64 or 128.  lse
+// and delta (bh, lq) float32; dq (bh, lq, D) of the output type.  bf16
+// inputs: q and do (bh, lq, D), k and v (bh, lk, D).  f32 inputs reach
+// this function as their bf16 hi + lo split (tmpi_bf16_split): q and do
+// (2, bh, lq, D), k and v (2, bh, lk, D) bf16, hi first.  All contiguous
+// and 16-byte aligned (TMA, vector stores).  Both run the wgmma kernel:
+// bf16 in one product, f32 in three bf16 products.  Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int tmpi_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int bh, int lq,
@@ -719,22 +790,14 @@ extern "C" int tmpi_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  int in_dtype, int out_dtype, void* stream) {
   if (bad_args(bh, lq, lk, head_dim)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 1 && out_dtype == 1)
-    return tc::launch_dq<false, false>(q, k, v, dout, lse, delta, dq, bh, lq,
-                                       lk, scale, causal, s);
-  if (in_dtype == 1 && out_dtype == 0)
-    return tc::launch_dq<true, false>(q, k, v, dout, lse, delta, dq, bh, lq,
-                                      lk, scale, causal, s);
-  if (in_dtype == 0 && out_dtype == 0)
-    return tc::launch_dq<true, true>(q, k, v, dout, lse, delta, dq, bh, lq,
-                                     lk, scale, causal, s);
-  if (in_dtype == 0 && out_dtype == 1)
-    return tc::launch_dq<false, true>(q, k, v, dout, lse, delta, dq, bh, lq,
-                                      lk, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (head_dim == 64)
+    return tc::dispatch_dq<64>(q, k, v, dout, lse, delta, dq, bh, lq, lk,
+                               scale, causal, in_dtype, out_dtype, s);
+  return tc::dispatch_dq<128>(q, k, v, dout, lse, delta, dq, bh, lq, lk,
+                              scale, causal, in_dtype, out_dtype, s);
 }
 
-// As tmpi_flash_bwd_dq; dk and dv (bh, lk, 128) of the output type.
+// As tmpi_flash_bwd_dq; dk and dv (bh, lk, D) of the output type.
 extern "C" int tmpi_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv,
@@ -743,17 +806,9 @@ extern "C" int tmpi_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   int out_dtype, void* stream) {
   if (bad_args(bh, lq, lk, head_dim)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 1 && out_dtype == 1)
-    return tc::launch_dkv<false, false>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                        lq, lk, scale, causal, s);
-  if (in_dtype == 1 && out_dtype == 0)
-    return tc::launch_dkv<true, false>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                       lq, lk, scale, causal, s);
-  if (in_dtype == 0 && out_dtype == 0)
-    return tc::launch_dkv<true, true>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                      lq, lk, scale, causal, s);
-  if (in_dtype == 0 && out_dtype == 1)
-    return tc::launch_dkv<false, true>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                       lq, lk, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (head_dim == 64)
+    return tc::dispatch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, lq, lk,
+                                scale, causal, in_dtype, out_dtype, s);
+  return tc::dispatch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, lq, lk,
+                               scale, causal, in_dtype, out_dtype, s);
 }

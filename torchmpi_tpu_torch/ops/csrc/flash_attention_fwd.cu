@@ -21,8 +21,17 @@
 // with scale * log2(e) folded in), masks only the tiles that reach the
 // diagonal or the end of K, and feeds P from registers straight into the A
 // operand of the second wgmma, O += P V, with V read MN-major through the
-// transpose bit.  O stays in registers (64 x 128 f32 a warpgroup) and is
+// transpose bit.  O stays in registers (64 x D f32 a warpgroup) and is
 // written once, with lse.  l is summed from the f32 p.
+//
+// Head size: a template parameter D of every kernel and its geometry,
+// dispatched on head_dim in tmpi_flash_fwd, 128 (every Llama geometry the
+// repo names) or 64 (ViT-B/16: d_model 768 over 12 heads).  A row of D
+// bf16 is D / 64 swizzled 128-byte panels, so at D = 64 Q, K and V are one
+// panel each, S = Q K^T takes 4 k16 steps instead of 8, O += P V is
+// m64n64k16 from registers into 32 f32 a thread instead of m64n128k16 into
+// 64, and shared memory halves (81 KB bf16, 97 KB split); the tiling
+// (128 q rows, 128- or 64-row K/V tiles) is the same.
 //
 // bf16 inputs (SPLIT = false): 128-row K/V tiles, S by m64n128k16; 161 KB
 // of shared memory.  A bf16 P rounds each p by at most 2^-9 relative, so o
@@ -79,7 +88,6 @@
 
 namespace {
 
-constexpr int D = 128;        // head size: every Llama geometry the repo names
 constexpr float NEG_INF = -1e30f;
 
 namespace tc {
@@ -90,19 +98,23 @@ constexpr int NCONS = 256;          // two consumer warpgroups
 constexpr int NT = NCONS + 32;      // plus one producer warp
 constexpr int PANEL = 64;           // columns of one swizzled panel
 constexpr int Q_PANEL = BQ * 128;   // bytes of a 64-column panel of Q
-constexpr int Q_BYTES = 2 * Q_PANEL;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // The tile geometry of each variant: bf16 inputs in one part, f32 inputs
-// in two (hi, lo), with K/V tiles half as long to fit shared memory.
-template <bool SPLIT>
+// in two (hi, lo), with K/V tiles half as long to fit shared memory; the
+// head size D (64 or 128) is one or two 64-column panels of every tile.
+template <bool SPLIT, int D>
 struct Geo {
+  static_assert(D == 64 || D == 128, "head size 64 or 128");
   static constexpr int PARTS = SPLIT ? 2 : 1;
+  static constexpr int PANELS = D / PANEL;       // 64-column panels of a row
   static constexpr int BKV = SPLIT ? 64 : 128;   // k/v rows per tile
   static constexpr int NS = BKV / 2;             // f32 of a thread's S
+  static constexpr int NO = D / 2;               // f32 of a thread's O
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;   // one part of Q
   static constexpr int KV_PANEL = BKV * 128;     // a 64-column panel of K or V
-  static constexpr int KV_BYTES = 2 * KV_PANEL;  // one part of a K or V tile
+  static constexpr int KV_BYTES = PANELS * KV_PANEL;  // one part of a tile
   static constexpr int SMEM_BYTES =
       1024 + PARTS * Q_BYTES + STAGES * 2 * PARTS * KV_BYTES + 64;
 };
@@ -114,18 +126,18 @@ __device__ __forceinline__ void just_in_time(uint32_t& addr) {
   if constexpr (OPAQUE) asm volatile("" : "+r"(addr));
 }
 
-// s (64 x BKV f32 fragment) += Q rows [64 of q_addr] . K tile^T: 8 k16
-// steps over D, two 64-column panels each of Q and K, both K-major.  With
-// `first`, the first step overwrites s.
-template <bool SPLIT>
-__device__ __forceinline__ void s_issue(float (&s)[Geo<SPLIT>::NS],
+// s (64 x BKV f32 fragment) += Q rows [64 of q_addr] . K tile^T: D / 16
+// k16 steps over D, four in each 64-column panel of Q and K, both K-major.
+// With `first`, the first step overwrites s.
+template <bool SPLIT, int D>
+__device__ __forceinline__ void s_issue(float (&s)[Geo<SPLIT, D>::NS],
                                         uint32_t q_addr, uint32_t k_addr,
                                         bool first) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;   // the k16 step within a panel
     uint32_t a = q_addr + (kk / 4) * Q_PANEL + off;
-    uint32_t b = k_addr + (kk / 4) * Geo<SPLIT>::KV_PANEL + off;
+    uint32_t b = k_addr + (kk / 4) * Geo<SPLIT, D>::KV_PANEL + off;
     just_in_time<SPLIT>(a);
     just_in_time<SPLIT>(b);
     const uint64_t da = hopper::desc_sw128(a, 16, 1024);
@@ -142,15 +154,15 @@ __device__ __forceinline__ void s_issue(float (&s)[Geo<SPLIT>::NS],
 // S = Q K^T: one product for bf16 inputs; for f32 inputs Q_hi K_hi^T +
 // Q_hi K_lo^T + Q_lo K_hi^T, each part `q_part` / `k_part` bytes after the
 // one before it.
-template <bool SPLIT>
-__device__ __forceinline__ void s_product(float (&s)[Geo<SPLIT>::NS],
+template <bool SPLIT, int D>
+__device__ __forceinline__ void s_product(float (&s)[Geo<SPLIT, D>::NS],
                                           uint32_t q_addr, uint32_t k_addr,
                                           uint32_t q_part, uint32_t k_part) {
   hopper::wgmma_fence();
-  s_issue<SPLIT>(s, q_addr, k_addr, true);
+  s_issue<SPLIT, D>(s, q_addr, k_addr, true);
   if constexpr (SPLIT) {
-    s_issue<SPLIT>(s, q_addr, k_addr + k_part, false);
-    s_issue<SPLIT>(s, q_addr + q_part, k_addr, false);
+    s_issue<SPLIT, D>(s, q_addr, k_addr + k_part, false);
+    s_issue<SPLIT, D>(s, q_addr + q_part, k_addr, false);
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
@@ -182,49 +194,54 @@ __device__ __forceinline__ void pack_rest(const float (&p)[NS],
   pack_p<NS>(rest, lo);
 }
 
-// o (64 x 128 f32) += P . V tile: BKV/16 k16 steps over the tile's rows,
-// V MN-major (its two 64-column panels KV_PANEL bytes apart).
-template <bool SPLIT>
+// o (64 x D f32) += P . V tile: BKV/16 k16 steps over the tile's rows,
+// V MN-major (its 64-column panels KV_PANEL bytes apart): m64n128k16 at
+// D = 128, m64n64k16 at D = 64.
+template <bool SPLIT, int D>
 __device__ __forceinline__ void pv_issue(
-    float (&o)[64], const uint32_t (&a)[Geo<SPLIT>::NS / 2], uint32_t v_addr) {
+    float (&o)[D / 2], const uint32_t (&a)[Geo<SPLIT, D>::NS / 2],
+    uint32_t v_addr) {
 #pragma unroll
-  for (int t = 0; t < Geo<SPLIT>::BKV / 16; ++t) {
+  for (int t = 0; t < Geo<SPLIT, D>::BKV / 16; ++t) {
     const uint32_t frag[4] = {a[4 * t], a[4 * t + 1], a[4 * t + 2],
                               a[4 * t + 3]};
     uint32_t b = v_addr + t * 16 * 128;
     just_in_time<SPLIT>(b);
     const uint64_t db =
-        hopper::desc_sw128(b, Geo<SPLIT>::KV_PANEL, 1024);
-    hopper::wgmma_m64n128k16_rs<1>(o, frag, db);
+        hopper::desc_sw128(b, Geo<SPLIT, D>::KV_PANEL, 1024);
+    hopper::wgmma_m64nNk16_rs<D, 1>(o, frag, db);
   }
 }
 
-// The producer's loads of `rows` rows of one tensor from row `row` of head
-// bh, each of its PARTS parts (the lo part of head bh lies at bh + n_bh)
-// `part_bytes` after the one before: two panels a part.
-template <int PARTS>
+// The producer's loads of one tensor's rows from row `row` of head bh,
+// each of its PARTS parts (the lo part of head bh lies at bh + n_bh) one
+// part after the one before: PANELS panels of `panel_bytes` a part.
+template <int PARTS, int PANELS>
 __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* t,
                                           uint64_t* bar, int panel_bytes,
                                           int row, int bh, int n_bh) {
 #pragma unroll
   for (int p = 0; p < PARTS; ++p) {
-    uint8_t* part = dst + p * 2 * panel_bytes;
-    hopper::tma_load_3d(part, t, bar, 0, row, bh + p * n_bh);
-    hopper::tma_load_3d(part + panel_bytes, t, bar, PANEL, row,
-                        bh + p * n_bh);
+    uint8_t* part = dst + p * PANELS * panel_bytes;
+#pragma unroll
+    for (int c = 0; c < PANELS; ++c)
+      hopper::tma_load_3d(part + c * panel_bytes, t, bar, c * PANEL, row,
+                          bh + p * n_bh);
   }
 }
 
-template <bool F32_OUT, bool SPLIT>
+template <bool F32_OUT, bool SPLIT, int D>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, void* __restrict__ o,
                 float* __restrict__ lse, int Lq, int Lk, float scale_log2,
                 int causal) {
-  using G = Geo<SPLIT>;
+  using G = Geo<SPLIT, D>;
   constexpr int BKV = G::BKV;
   constexpr int NS = G::NS;
+  constexpr int NO = G::NO;
+  constexpr int Q_BYTES = G::Q_BYTES;
   constexpr int STAGE_BYTES = G::PARTS * G::KV_BYTES;   // K (or V) of a stage
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = hopper::align1024(smem_raw);          // [PARTS][Q_BYTES]
@@ -255,15 +272,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   if (tid >= NCONS) {               // the producer warp; one lane issues
     if (tid == NCONS) {
       hopper::mbar_expect_tx(q_full, G::PARTS * Q_BYTES);
-      load_rows<G::PARTS>(q_s, &tq, q_full, Q_PANEL, q0, bh, n_bh);
+      load_rows<G::PARTS, G::PANELS>(q_s, &tq, q_full, Q_PANEL, q0, bh,
+                                     n_bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES;
         if (t >= STAGES) hopper::mbar_wait(&empty[s], (t / STAGES - 1) & 1);
         hopper::mbar_expect_tx(&full[s], 2 * STAGE_BYTES);
-        load_rows<G::PARTS>(k_s + s * STAGE_BYTES, &tk, &full[s],
-                            G::KV_PANEL, t * BKV, bh, n_bh);
-        load_rows<G::PARTS>(v_s + s * STAGE_BYTES, &tv, &full[s],
-                            G::KV_PANEL, t * BKV, bh, n_bh);
+        load_rows<G::PARTS, G::PANELS>(k_s + s * STAGE_BYTES, &tk, &full[s],
+                                       G::KV_PANEL, t * BKV, bh, n_bh);
+        load_rows<G::PARTS, G::PANELS>(v_s + s * STAGE_BYTES, &tv, &full[s],
+                                       G::KV_PANEL, t * BKV, bh, n_bh);
       }
     }
     return;
@@ -281,9 +299,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int wg_k_end = causal ? min(Lk, min(wg_row0 + 64, Lq)) : Lk;
   const int wg_tiles = wg_row0 < Lq ? (wg_k_end + BKV - 1) / BKV : 0;
 
-  float acc[64];
+  float acc[NO];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};   // this thread's share; the quad's sum at the end
 
@@ -302,8 +320,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       }
     }
     float sc[NS];
-    s_product<SPLIT>(sc, q_addr, hopper::smem_u32(k_s + s * STAGE_BYTES),
-                     Q_BYTES, G::KV_BYTES);
+    s_product<SPLIT, D>(sc, q_addr,
+                        hopper::smem_u32(k_s + s * STAGE_BYTES), Q_BYTES,
+                        G::KV_BYTES);
 
     // Scale into log2 units; mask only where the tile reaches this
     // warpgroup's diagonal or the end of K.
@@ -344,7 +363,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + ls[h];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < NO; ++i) acc[i] *= corr[(i / 2) % 2];
 
     const uint32_t v_addr = hopper::smem_u32(v_s + s * STAGE_BYTES);
     uint32_t p_hi[NS / 2];
@@ -355,15 +374,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       uint32_t p_lo[NS / 2];
       pack_rest<NS>(sc, p_hi, p_lo);
       hopper::wgmma_fence();
-      pv_issue<SPLIT>(acc, p_hi, v_addr);
-      if constexpr (SPLIT) pv_issue<SPLIT>(acc, p_hi, v_addr + G::KV_BYTES);
-      pv_issue<SPLIT>(acc, p_lo, v_addr);
+      pv_issue<SPLIT, D>(acc, p_hi, v_addr);
+      if constexpr (SPLIT)
+        pv_issue<SPLIT, D>(acc, p_hi, v_addr + G::KV_BYTES);
+      pv_issue<SPLIT, D>(acc, p_lo, v_addr);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(p_lo);
     } else {
       hopper::wgmma_fence();
-      pv_issue<SPLIT>(acc, p_hi, v_addr);
+      pv_issue<SPLIT, D>(acc, p_hi, v_addr);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
     }
@@ -385,7 +405,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     if (row >= Lq) continue;
     const size_t off = (base + row) * D + col0;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const float a = acc[4 * j + 2 * h] / l[h];
       const float b = acc[4 * j + 2 * h + 1] / l[h];
       if constexpr (F32_OUT) {
@@ -401,18 +421,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <bool F32_OUT, bool SPLIT>
+template <bool F32_OUT, bool SPLIT, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int lq, int lk, float scale, int causal,
            cudaStream_t stream) {
-  using G = Geo<SPLIT>;
+  using G = Geo<SPLIT, D>;
   CUtensorMap tq, tk, tv;
   const int depth = G::PARTS * bh;   // hi heads, then lo heads
   int e = hopper::bf16_map_3d(&tq, q, D, lq, depth, BQ);
   if (!e) e = hopper::bf16_map_3d(&tk, k, D, lk, depth, G::BKV);
   if (!e) e = hopper::bf16_map_3d(&tv, v, D, lk, depth, G::BKV);
   if (e) return e;
-  auto kern = flash_fwd_wgmma<F32_OUT, SPLIT>;
+  auto kern = flash_fwd_wgmma<F32_OUT, SPLIT, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -423,35 +443,50 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+// The explicit dispatch on the input and output types at head size D.
+template <int D>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int bh, int lq, int lk, float scale, int causal, int in_dtype,
+             int out_dtype, cudaStream_t s) {
+  if (in_dtype == 1 && out_dtype == 1)
+    return launch<false, false, D>(q, k, v, o, lse, bh, lq, lk, scale, causal,
+                                   s);
+  if (in_dtype == 1 && out_dtype == 0)
+    return launch<true, false, D>(q, k, v, o, lse, bh, lq, lk, scale, causal,
+                                  s);
+  if (in_dtype == 0 && out_dtype == 0)
+    return launch<true, true, D>(q, k, v, o, lse, bh, lq, lk, scale, causal,
+                                 s);
+  if (in_dtype == 0 && out_dtype == 1)
+    return launch<false, true, D>(q, k, v, o, lse, bh, lq, lk, scale, causal,
+                                  s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace tc
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  o (bh, lq, 128) in the output
-// type, lse (bh, lq) float32.  bf16 inputs: q (bh, lq, 128), k and v
-// (bh, lk, 128).  f32 inputs reach this function as their bf16 hi + lo
-// split (tmpi_bf16_split): q (2, bh, lq, 128), k and v (2, bh, lk, 128)
-// bf16, hi first.  All contiguous and 16-byte aligned (TMA, vector
-// stores).  Both run the wgmma kernel: bf16 in one product, f32 in three
-// bf16 products.  Returns the cudaError_t of the launch (0 = launched).
+// dtype codes: 0 = float32, 1 = bfloat16; head_dim D is 64 or 128.  o
+// (bh, lq, D) in the output type, lse (bh, lq) float32.  bf16 inputs: q
+// (bh, lq, D), k and v (bh, lk, D).  f32 inputs reach this function as
+// their bf16 hi + lo split (tmpi_bf16_split): q (2, bh, lq, D), k and v
+// (2, bh, lk, D) bf16, hi first.  All contiguous and 16-byte aligned (TMA,
+// vector stores).  Both run the wgmma kernel: bf16 in one product, f32 in
+// three bf16 products.  Returns the cudaError_t of the launch (0 =
+// launched).
 extern "C" int tmpi_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int lq, int lk,
                               int head_dim, float scale, int causal,
                               int in_dtype, int out_dtype, void* stream) {
-  if (head_dim != D || bh < 1 || bh > 65535 || lq < 1 || lk < 1)
+  if (bh < 1 || bh > 65535 || lq < 1 || lk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 1 && out_dtype == 1)
-    return tc::launch<false, false>(q, k, v, o, lse, bh, lq, lk, scale,
-                                    causal, s);
-  if (in_dtype == 1 && out_dtype == 0)
-    return tc::launch<true, false>(q, k, v, o, lse, bh, lq, lk, scale,
-                                   causal, s);
-  if (in_dtype == 0 && out_dtype == 0)
-    return tc::launch<true, true>(q, k, v, o, lse, bh, lq, lk, scale,
-                                  causal, s);
-  if (in_dtype == 0 && out_dtype == 1)
-    return tc::launch<false, true>(q, k, v, o, lse, bh, lq, lk, scale,
-                                   causal, s);
+  if (head_dim == 128)
+    return tc::dispatch<128>(q, k, v, o, lse, bh, lq, lk, scale, causal,
+                             in_dtype, out_dtype, s);
+  if (head_dim == 64)
+    return tc::dispatch<64>(q, k, v, o, lse, bh, lq, lk, scale, causal,
+                            in_dtype, out_dtype, s);
   return (int)cudaErrorInvalidValue;
 }

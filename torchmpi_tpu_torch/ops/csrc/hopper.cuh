@@ -151,6 +151,36 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// The same with A from registers, in m64n128k16_rs's A layout: d (64 x 64,
+// f32) += A (64 x 16) * B (16 x 64).  The head-size-64 flash kernels take
+// O += P V and the backward's second-stage products in this form.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_STR
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : HOPPER_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// d (64 x N, f32) += A (64 x 16, from registers) * B (16 x N) for the head
+// sizes the flash kernels take, N = 64 or 128.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[N / 2],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  if constexpr (N == 128) {
+    wgmma_m64n128k16_rs<TRANS_B>(d, a, desc_b);
+  } else {
+    wgmma_m64n64k16_rs<TRANS_B>(d, a, desc_b);
+  }
+}
+
 #define HOPPER_D16 HOPPER_D8(0), HOPPER_D8(8)
 #define HOPPER_D16_STR                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"

@@ -19,6 +19,10 @@ with a plain PyTorch version of the same algebra beside it:
   inputs, split by one launch of :mod:`.bf16_split` for q, k, v and do that
   both passes read, in three bf16 products.
 
+The kernels take head size 128 (every Llama geometry the repo names) and
+64 (ViT-B/16's), :data:`KERNEL_HEAD_DIMS`: each is a template instance of
+every kernel; the plain versions take any head size.
+
 A CPU tensor takes the plain version; a CUDA tensor goes to the kernel or
 raises, never falling back.  :func:`flash_attention` is differentiable
 through :class:`_FlashCore`, the counterpart of the JAX ``custom_vjp``;
@@ -41,7 +45,10 @@ import torch
 from .bf16_split import bf16_split
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 128
+# The head sizes the CUDA kernels are built for: 128, every Llama geometry
+# the repo names, and 64, ViT-B/16's (d_model 768 over 12 heads).  Each is
+# a template instance of every kernel; any other D raises.
+KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each CUDA kernel in this process (the plain versions do not
@@ -221,9 +228,10 @@ def _check_kernel_inputs(qbh, kbh, vbh, out_dtype) -> None:
     if kbh.shape != vbh.shape or kbh.shape[0] != BH or kbh.shape[2] != D:
         raise ValueError(f"k/v shape {tuple(kbh.shape)}/{tuple(vbh.shape)} "
                          f"does not match q {tuple(qbh.shape)}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head size "
-                         f"{KERNEL_HEAD_DIM}, got {D}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take head size "
+                         f"{' or '.join(map(str, KERNEL_HEAD_DIMS))}, "
+                         f"got {D}")
     if not (1 <= BH <= 65535):
         raise ValueError(f"batch*heads {BH} outside the kernel's grid "
                          f"[1, 65535]")
