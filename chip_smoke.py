@@ -55,6 +55,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    split must launch once per layer each (every B4 launch on f32 inputs),
    and its last-row logits are held against the same prefill through full
    attention (F32_PREFILL_RTOL of their norm); both prefills are timed.
+5a. frontend: the serve phase's runner (same width, depth and weights, 4
+   slots, max_len 2048) behind HTTP on loopback: a ``ServeEngine`` on its
+   own scheduler thread with a private metrics ``Registry`` and
+   ``HealthState``, an ``ObsHTTPServer`` and a ``ServeFrontend``.  The
+   serve phase's four prompts (37, 300, 700, 1500 tokens, 16 new tokens)
+   go in as concurrent ``POST /generate`` calls from client threads: every
+   call 200 with 16 tokens, the shortest and the longest equal token for
+   token to ``make_generate_fn`` on the runner's parameters, no kernel
+   launched (the runner prefills with full attention, as JAX's).  ``GET
+   /metrics`` must parse and count as many ``outcome="done"`` requests as
+   there were 200s; ``/healthz`` answers 200 ``healthy``; a request over a
+   full queue (a second engine, not started, ``max_queue`` 1) answers 503
+   ``queue_full`` with ``Retry-After``; ``POST /drain`` makes ``/healthz``
+   answer 503 ``draining`` and ``{"resume": true}`` brings back 200.  TTFT
+   and latency per request (server side, and the client's wall) are
+   printed beside the serve phase's direct-engine numbers.
+5b. router: two replicas at full width, ROUTER_LAYERS layers each in f32
+   (the cut is printed), each with its own runner (the same seed),
+   ``Registry``, ``HealthState``, ``ObsHTTPServer`` and ``ServeFrontend``,
+   behind one ``ServeRouter`` that probes their ``/healthz``: 16 keyed
+   requests through ``dispatch``, each answered by ``route(key)``'s
+   replica, both replicas used and one prompt giving the same tokens on
+   either; ``POST /drain`` to replica 1 and a probe send every key to
+   replica 0, each answered; a resume and a probe bring the first
+   assignment back exactly.  The router's overhead (client wall minus the
+   replica's own latency) is printed.  Every server and thread is closed
+   at the end of the phase, and the card memory that each of 5a and 5b
+   leaves allocated may shrink by no more than SERVE_CYCLE_GB in a
+   collection of cyclic garbage: a closed replica frees its weights and KV
+   when it is dropped.
 6. train: make_train_step at Llama-3-8B width, bf16 weights from a seeded
    torch.Generator, B=1, L=2048, attn="flash", remat="dots",
    loss_chunk=512, plain SGD for 4 steps on one repeated batch of the
@@ -1334,7 +1364,296 @@ def phase_serve(torch, llama, fa, split, engine_mod, serving, cfg):
     if counts["flash_attention_bwd_dq"] or counts["flash_attention_bwd_dkv"]:
         raise AssertionError(f"serving launched a backward kernel: {counts}")
     torch.cuda.empty_cache()
-    return counts, f32_prefill(torch, llama, fa, split, cfg, runner.params)
+    return counts, f32_prefill(torch, llama, fa, split, cfg, runner.params), \
+        runner, rec
+
+
+def _http(method: str, url: str, body=None, timeout: float = 120.0):
+    """(status, JSON body or text, headers) of one request."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, text, headers = r.status, r.read().decode(), r.headers
+    except urllib.error.HTTPError as e:
+        status, text, headers = e.code, e.read().decode(), e.headers
+    try:
+        return status, json.loads(text), headers
+    except ValueError:
+        return status, text, headers
+
+
+def parse_prometheus(text: str) -> dict:
+    """``name{labels}`` -> value of every sample line of a Prometheus text
+    exposition; raises on a line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        if not key or " " in key.split("{")[0]:
+            raise ValueError(f"bad exposition line {line!r}")
+        out[key] = float(value)
+    return out
+
+
+def phase_frontend(torch, llama, fa, engine_mod, serving, cfg, runner,
+                   serve_rec):
+    """The serve phase's runner behind HTTP: concurrent POST /generate,
+    the shortest and longest held against make_generate_fn, /metrics,
+    /healthz, a queue_full 503, drain and resume."""
+    import threading
+
+    from torchmpi_tpu_torch.obs import metrics as obs_metrics
+    from torchmpi_tpu_torch.obs import serve as obs_serve
+    from torchmpi_tpu_torch.serving import ServeFrontend
+
+    g = torch.Generator().manual_seed(3)     # the serve phase's prompts
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in (37, 300, 700, 1500)]
+    reg = obs_metrics.Registry()
+    health = obs_serve.HealthState()
+    ecfg = serving.serve_config()
+    ecfg["max_batch"] = 4
+    eng = engine_mod.ServeEngine(runner=runner, registry=reg, cfg=ecfg)
+    obs = front = full = None
+    fails, oks = [], 0
+    try:
+        eng.start()
+        obs = obs_serve.ObsHTTPServer(registry=reg, health=health)
+        front = ServeFrontend(eng, health=health, replica="frontend")
+        code, doc, _ = _http("POST", front.url + "/generate",
+                             {"prompt": prompts[0][:8], "max_new": 2,
+                              "deadline_ms": 120000})
+        oks += code == 200
+        if code != 200:
+            fails.append(f"warm-up request answered {code}: {doc}")
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        results = [None] * len(prompts)
+
+        def client(i):
+            t = time.perf_counter()
+            try:
+                res = _http("POST", front.url + "/generate",
+                            {"prompt": prompts[i], "max_new": 16,
+                             "deadline_ms": 120000})
+            except Exception as e:  # noqa: BLE001 - reported as a failure
+                res = (None, {"error": repr(e)})
+            results[i] = (*res[:2], (time.perf_counter() - t) * 1e3)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = read_counts(fa)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("an HTTP client did not return in 300 s")
+        for i, (code, doc, _) in enumerate(results):
+            oks += code == 200
+            if code != 200 or len(doc.get("tokens", ())) != 16:
+                fails.append(f"request {i} ({len(prompts[i])} tokens) "
+                             f"answered {code}: {doc}")
+        refs = {}
+        for i in (0, len(prompts) - 1):
+            refs[i] = llama.make_generate_fn(cfg, len(prompts[i]), 16)(
+                runner.params, [prompts[i]])[0].tolist()
+            got = results[i][1].get("tokens") if results[i][0] == 200 \
+                else None
+            if got != refs[i]:
+                fails.append(f"request {i} tokens {got} differ from "
+                             f"make_generate_fn's {refs[i]}")
+        if any(counts.values()):
+            fails.append(f"the HTTP path launched kernels: {counts}")
+        code, text, _ = _http("GET", obs.url + "/metrics")
+        samples = parse_prometheus(text)
+        done = samples.get('tmpi_serve_requests_total{outcome="done"}')
+        if code != 200 or done != oks:
+            fails.append(f"/metrics: {code}, outcome=done {done} against "
+                         f"{oks} answers of 200")
+        hz = _http("GET", obs.url + "/healthz")
+        if (hz[0], hz[1].get("state")) != (200, "healthy"):
+            fails.append(f"/healthz answered {hz[0]} {hz[1].get('state')}")
+        # A full queue: a second engine over the same runner, never
+        # started, its one queue place taken.
+        qcfg = dict(ecfg, max_queue=1)
+        full_eng = engine_mod.ServeEngine(runner=runner, cfg=qcfg)
+        full_eng.submit(prompts[0][:4], max_new=1)
+        full = ServeFrontend(full_eng, health=obs_serve.HealthState(),
+                             replica="full")
+        qf = _http("POST", full.url + "/generate",
+                   {"prompt": prompts[0][:4], "max_new": 1})
+        if (qf[0], qf[1].get("reason")) != (503, "queue_full") or \
+                not qf[2].get("Retry-After"):
+            fails.append(f"over a full queue: {qf[0]} {qf[1]}")
+        drain = [_http("POST", front.url + "/drain", {})[0],
+                 _http("GET", obs.url + "/healthz")]
+        resume = [_http("POST", front.url + "/drain", {"resume": True})[0],
+                  _http("GET", obs.url + "/healthz")]
+        if (drain[0], drain[1][0], drain[1][1].get("state")) != \
+                (200, 503, "draining"):
+            fails.append(f"drain: {drain[0]}, /healthz {drain[1][0]} "
+                         f"{drain[1][1].get('state')}")
+        if (resume[0], resume[1][0], resume[1][1].get("state")) != \
+                (200, 200, "healthy"):
+            fails.append(f"resume: {resume[0]}, /healthz {resume[1][0]} "
+                         f"{resume[1][1].get('state')}")
+    finally:
+        for srv in (full, front, obs):
+            if srv is not None:
+                srv.close()
+        eng.stop()
+    direct = {r["prompt"]: r for r in serve_rec["requests"]}
+    rec = {"phase": "frontend", "n_layers": cfg.n_layers, "dtype": "float32",
+           "slots": 4, "max_len": 2048, "wall_ms": wall_s * 1e3,
+           "tokens_per_s": 16 * len(prompts) / wall_s,
+           "serve_wall_ms": serve_rec["wall_ms"], "launches": counts,
+           "requests": [
+               {"prompt": len(p), "status": results[i][0],
+                "ttft_ms": results[i][1].get("ttft_ms"),
+                "latency_ms": results[i][1].get("latency_ms"),
+                "client_ms": results[i][2],
+                "serve_ttft_ms": direct[len(p)]["ttft_ms"],
+                "serve_latency_ms": direct[len(p)]["latency_ms"]}
+               for i, p in enumerate(prompts)],
+           "shortest_matches_generate": results[0][1].get("tokens")
+           == refs[0],
+           "longest_matches_generate": results[-1][1].get("tokens")
+           == refs[len(prompts) - 1],
+           "metrics_done": done, "answers_200": oks,
+           "queue_full": [qf[0], qf[1].get("reason"),
+                          qf[2].get("Retry-After")],
+           "drain_healthz": [drain[1][0], drain[1][1].get("state")],
+           "resume_healthz": [resume[1][0], resume[1][1].get("state")]}
+    print(json.dumps(rec), flush=True)
+    if fails:
+        raise AssertionError("frontend: " + "; ".join(fails))
+    return counts
+
+
+ROUTER_LAYERS = 8
+ROUTER_KEYS = 16
+# Card memory (GB) that a serving phase may leave to the cyclic collector:
+# a closed replica frees its weights and KV when it is dropped.
+SERVE_CYCLE_GB = 0.25
+
+
+def phase_router(torch, llama, fa, engine_mod, serving):
+    """Two replicas behind ServeRouter: keyed dispatch, drain cutover,
+    resume."""
+    from torchmpi_tpu_torch.obs import metrics as obs_metrics
+    from torchmpi_tpu_torch.obs import serve as obs_serve
+    from torchmpi_tpu_torch.serving import ServeFrontend, ServeRouter
+
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=ROUTER_LAYERS)
+    emit(phase="cut", path="router", n_layers=ROUTER_LAYERS, of=32,
+         replicas=2, why="two f32 replicas side by side, each with its own "
+                         "weights, in one phase of the run")
+    g = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (37,), generator=g).tolist()
+    reg = obs_metrics.Registry()
+    reps, fails = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(2):
+            runner = engine_mod.LlamaRunner(4, cfg=cfg, rng_seed=2,
+                                            max_len=2048)
+            rreg, health = obs_metrics.Registry(), obs_serve.HealthState()
+            ecfg = serving.serve_config()
+            ecfg["max_batch"] = 4
+            eng = engine_mod.ServeEngine(runner=runner, registry=rreg,
+                                         cfg=ecfg).start()
+            reps.append([eng, None, None])
+            reps[-1][1] = obs_serve.ObsHTTPServer(registry=rreg,
+                                                  health=health, rank=r)
+            reps[-1][2] = ServeFrontend(eng, health=health,
+                                        replica=f"r{r}")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        router = ServeRouter({r: rep[2].url for r, rep in enumerate(reps)},
+                             probe_urls={r: rep[1].url
+                                         for r, rep in enumerate(reps)},
+                             registry=reg, timeout=120.0)
+        body = {"prompt": prompt, "max_new": 8, "deadline_ms": 120000}
+        for rep in reps:                     # warm each replica once
+            _http("POST", rep[2].url + "/generate", body)
+        reset_counts(fa)
+        keys = [f"user-{i}" for i in range(ROUTER_KEYS)]
+        first = {k: router.route(k) for k in keys}
+        answers, overhead, latency = {}, [], []
+        for k in keys:
+            t = time.perf_counter()
+            code, doc = router.dispatch(k, body)
+            client_ms = (time.perf_counter() - t) * 1e3
+            if code != 200 or doc.get("replica") != f"r{first[k]}":
+                fails.append(f"key {k}: {code} from {doc.get('replica')}, "
+                             f"routed to r{first[k]}")
+                continue
+            answers.setdefault(doc["replica"], []).append(doc["tokens"])
+            overhead.append(client_ms - doc["latency_ms"])
+            latency.append(doc["latency_ms"])
+        if set(answers) != {"r0", "r1"}:
+            fails.append(f"replicas used: {sorted(answers)}")
+        distinct = {json.dumps(t) for ts in answers.values() for t in ts}
+        if len(distinct) != 1:
+            fails.append(f"one prompt gave {len(distinct)} token lists")
+        d = _http("POST", reps[1][2].url + "/drain", {})[0]
+        drained = router.probe()
+        moved = []
+        for k in keys:
+            code, doc = router.dispatch(k, dict(body, max_new=2))
+            moved.append((code, doc.get("replica")))
+        if d != 200 or drained != {0: "healthy", 1: "draining"} or \
+                any(m != (200, "r0") for m in moved):
+            fails.append(f"drain: {d}, probe {drained}, answers "
+                         f"{sorted(set(moved))}")
+        _http("POST", reps[1][2].url + "/drain", {"resume": True})
+        resumed = router.probe()
+        back = {k: router.route(k) for k in keys}
+        if resumed != {0: "healthy", 1: "healthy"} or back != first:
+            fails.append(f"resume: probe {resumed}, assignment back "
+                         f"{back == first}")
+        counts = read_counts(fa)
+        if any(counts.values()):
+            fails.append(f"the HTTP path launched kernels: {counts}")
+        samples = parse_prometheus(reg.to_prometheus())
+    finally:
+        for eng, obs, front in reps:
+            for srv in (front, obs):
+                if srv is not None:
+                    srv.close()
+            eng.stop()
+    overhead.sort()
+    latency.sort()
+    rec = {"phase": "router", "n_layers": ROUTER_LAYERS, "dtype": "float32",
+           "replicas": 2, "keys": ROUTER_KEYS, "init_s": init_s,
+           "assignment": {str(s): sum(1 for v in first.values() if v == s)
+                          for s in (0, 1)},
+           "router_overhead_ms": {
+               "median": overhead[len(overhead) // 2] if overhead else None,
+               "max": overhead[-1] if overhead else None},
+           "replica_latency_ms": {
+               "median": latency[len(latency) // 2] if latency else None,
+               "max": latency[-1] if latency else None},
+           "probe_drained": {str(k): v for k, v in drained.items()},
+           "probe_resumed": {str(k): v for k, v in resumed.items()},
+           "assignment_restored": back == first,
+           "dispatched": {k: v for k, v in samples.items()
+                          if k.startswith("tmpi_serve_router")},
+           "launches": counts}
+    print(json.dumps(rec), flush=True)
+    if fails:
+        raise AssertionError("router: " + "; ".join(fails))
+    return counts
 
 
 def phase_ring_kernels():
@@ -5172,10 +5491,23 @@ def main() -> int:
     emit(phase="prefill_breakdown", prefill_ms=gen["prefill_ms"],
          flash_kernel_ms=attn_ms, flash_kernel_share=attn_ms / gen["prefill_ms"])
     torch.cuda.empty_cache()
-    serve_counts, prefill_rec = timed("serve", phase_serve, torch, llama,
-                                      fa, split, engine_mod, serving, cfg)
+    serve_counts, prefill_rec, runner, serve_rec = timed(
+        "serve", phase_serve, torch, llama, fa, split, engine_mod, serving,
+        cfg)
     launches = {"generate": gen["launches"], "serve": serve_counts,
                 "serve_f32_prefill": prefill_rec["launches"]}
+    launches["frontend"] = timed("frontend", phase_frontend, torch, llama,
+                                 fa, engine_mod, serving, cfg, runner,
+                                 serve_rec)
+    del runner
+    torch.cuda.empty_cache()
+    launches["router"] = timed("router", phase_router, torch, llama, fa,
+                               engine_mod, serving)
+    for name in ("frontend", "router"):
+        if held[name][0] - held[name][1] > SERVE_CYCLE_GB:
+            raise AssertionError(
+                f"{name}: cyclic garbage held {held[name][0]:.2f} GB on the "
+                f"card until a collection ({held[name][1]:.2f} GB after)")
     # B4's share of the f32 prefill: its f32 time at this very shape, times
     # its launches, over the measured prefill.
     attn_ms = (kernel_recs["main_f32"]["kernel_ms"]

@@ -538,3 +538,54 @@ def test_vit_runs_without_jax_loaded():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+SLICE19_MODULES = ["obs/metrics.py", "obs/serve.py", "obs/export.py",
+                   "obs/clocksync.py", "obs/aggregate.py", "obs/history.py",
+                   "obs/alerts.py", "serving/frontend.py",
+                   "serving/router.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE19_MODULES)
+def test_slice19_modules_are_checked(rel):
+    """The import check above covers the telemetry plane and the serving
+    frontend and router of the port."""
+    assert ROOT / "torchmpi_tpu_torch" / rel in PORT_FILES
+
+
+def test_serving_http_runs_without_jax_loaded():
+    """A port replica behind its frontend and obs endpoint, and a router
+    over it, answer over loopback in a process that never loads JAX or
+    the JAX package."""
+    code = (
+        "import json, sys, urllib.request\n"
+        "from torchmpi_tpu_torch.obs import metrics, serve\n"
+        "from torchmpi_tpu_torch.serving import (ServeFrontend, "
+        "ServeRouter, engine)\n"
+        "reg = metrics.Registry()\n"
+        "health = serve.HealthState()\n"
+        "eng = engine.ServeEngine(runner=engine.StubRunner(2),\n"
+        "                         registry=reg).start()\n"
+        "obs = serve.ObsHTTPServer(registry=reg, health=health)\n"
+        "front = ServeFrontend(eng, health=health)\n"
+        "try:\n"
+        "    router = ServeRouter({0: front.url}, {0: obs.url}, timeout=10)\n"
+        "    assert router.probe() == {0: 'healthy'}\n"
+        "    code, doc = router.dispatch('k', {'prompt': [1, 2],\n"
+        "                                      'max_new': 3})\n"
+        "    assert code == 200 and len(doc['tokens']) == 3, doc\n"
+        "    with urllib.request.urlopen(obs.url + '/metrics',\n"
+        "                                timeout=10) as r:\n"
+        "        assert b'tmpi_serve_requests_total' in r.read()\n"
+        "finally:\n"
+        "    front.close()\n"
+        "    obs.close()\n"
+        "    eng.stop()\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'jaxlib', 'torchmpi_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

@@ -18,8 +18,12 @@ the pair.  Producer exceptions surface on the consumer, an abandoned
 iterator releases its thread promptly, and the bounded queue means a slow
 consumer holds at most ``depth + 2`` staged batches (queue, producer's
 hand, consumer's hand) of device memory.  The per-batch numbers accumulate
-in :class:`StageStats`; the JAX package's live metrics feed comes with the
-observability plane (ROADMAP.md item 17).
+in :class:`StageStats`, and under the live-feed gate
+(``obs/serve.metrics_feed``) every consumed batch publishes
+``tmpi_data_staged_bytes_total``, ``tmpi_data_batches_total``,
+``tmpi_data_wait_seconds_total``, the ``tmpi_data_stage_seconds``
+histogram and the ``tmpi_data_input_overlap_fraction`` gauge through
+``obs/serve.publish_input``, as the JAX package's stage does.
 """
 
 from __future__ import annotations
@@ -108,16 +112,20 @@ class DeviceStage:
 
     ``cast`` converts the images to another dtype on the host, into the
     pinned buffer.  ``reuse_host_buffers`` takes the pinned buffers from a
-    :class:`HostScratchPool` (the pipeline turns it off on the CPU)."""
+    :class:`HostScratchPool` (the pipeline turns it off on the CPU).
+    ``publish`` (default: the live-feed gate) controls the per-batch
+    registry feed."""
 
     def __init__(self, it, device, rank: int, depth: int = 2, cast=None,
-                 reuse_host_buffers: bool = False):
+                 reuse_host_buffers: bool = False,
+                 publish: Optional[bool] = None):
         self.it = it
         self.device = torch.device(device)
         self.rank = int(rank)
         self.depth = max(1, int(depth))
         self.cast = cast
         self.reuse_host_buffers = bool(reuse_host_buffers)
+        self.publish = publish
         self.stats = StageStats()
 
     def __len__(self):
@@ -135,6 +143,7 @@ class DeviceStageIterator:
     def __init__(self, stage: DeviceStage):
         self._device = stage.device
         self._stats = stage.stats
+        self._publish = stage.publish
         self._stop = threading.Event()
         # maxsize=depth staged pairs queued; with the pair in the
         # producer's hand and the one the consumer holds, in-flight device
@@ -191,6 +200,15 @@ class DeviceStageIterator:
             # as free overlap.
             stats.interval_s += wait_s
         self._last_fetch = now
+        publish = self._publish
+        if publish is None:
+            from ..obs import serve as _serve
+            publish = _serve.metrics_feed()
+        if publish:
+            from ..obs import serve as _serve
+            _serve.publish_input(
+                staged_bytes=nbytes, stage_s=stage_s, wait_s=wait_s,
+                overlap_fraction=stats.overlap_fraction())
         return (Staged(sx.array, wait_s=wait_s), sy)
 
     def close(self) -> None:

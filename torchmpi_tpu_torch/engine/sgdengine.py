@@ -8,7 +8,7 @@ of that shard, syncs the gradients and applies SGD (``p - lr * g``) or, in
 ``torchmpi_tpu_torch.optim``: ``update`` then ``p + u``).  Three modes:
 
 * ``compiled`` with ``use_pallas_collectives`` on: the JAX ring-synced
-  step (``ring_synced_grads``).  Every gradient leaf of at least
+  step (``local_grads`` then ``ring_sync``).  Every gradient leaf of at least
   ``small_allreduce_size_gpu`` elements rings on its own (flattened, no
   concatenate); the smaller leaves pack into one flat tail bucket per
   dtype, in tree order; each ring is an ``inner_ring_allreduce`` with
@@ -63,11 +63,20 @@ through ``data.stage_rank_major``, so the values are the same bit for bit.
 
 Hooks (``on_start, on_start_epoch, on_sample, on_forward, on_backward,
 on_update, on_end_epoch, on_end``) are called with the mutable ``state``.
+
+The live feed (``obs/serve.py``), as in JAX: under the
+``obs/serve.metrics_feed`` gate every step publishes its time, examples/s,
+staged bytes, overlap fraction and phase decomposition
+(``tmpi_step_phase_seconds{phase=data_wait|dispatch|collective|optimizer|ps}``)
+through ``obs/serve.publish_step``, which beats the ``engine_step`` health
+mark; with the gate shut a step only beats the mark.  ``train`` clears the
+mark when it returns, so a loop that ended does not read as stalled.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -77,6 +86,8 @@ from .. import optim
 from ..collectives import cuda_ring, eager, gspmd
 from ..data.pipeline import engine_wrap
 from ..data.staging import Staged, stage_rank_major
+from ..obs import native as _obs_native
+from ..obs import serve as _obs_serve
 from ..runtime import communicator as _comm_mod
 from ..runtime import config
 from ..utils import tree as _tree
@@ -173,13 +184,12 @@ def ring_plan(leaves, cutoff: int):
     return big + list(small_by_dtype.values())
 
 
-def ring_synced_grads(loss_fn: LossFn, params, batch, comm,
-                      accum_steps: int = 1):
-    """This rank's loss and gradients, the gradients ring-allreduced to the
-    replica mean and the loss averaged over ranks (the JAX engine's ring
-    path, leaf for leaf)."""
+def ring_sync(loss, grads, comm):
+    """This rank's gradients ring-allreduced to the replica mean by
+    :func:`ring_plan` and its loss averaged over ranks: after
+    :func:`local_grads`, the JAX engine's ring path (``ring_synced_grads``),
+    leaf for leaf."""
     p = comm.size
-    loss, grads = local_grads(loss_fn, params, batch, accum_steps)
     leaves, treedef = _tree.flatten(grads)
     synced = list(leaves)
     plan = ring_plan(leaves, int(config.get("small_allreduce_size_gpu")))
@@ -197,6 +207,29 @@ def ring_synced_grads(loss_fn: LossFn, params, batch, comm,
             off += sz
     return eager.allreduce(comm, loss, op="mean"), _tree.unflatten(treedef,
                                                                    synced)
+
+
+class _StepClock:
+    """Wall seconds of one step by phase (``obs/alerts.PHASES``): each
+    :meth:`mark` charges the time since the last mark to a phase.  Made
+    only under the live-feed gate."""
+
+    __slots__ = ("t0", "last", "phases")
+
+    def __init__(self) -> None:
+        self.t0 = self.last = time.monotonic_ns()
+        self.phases = {"data_wait": 0.0, "dispatch": 0.0, "collective": 0.0,
+                       "optimizer": 0.0, "ps": 0.0, "hooks": 0.0}
+
+    def mark(self, phase: str) -> None:
+        now = time.monotonic_ns()
+        self.phases[phase] += (now - self.last) / 1e9
+        self.last = now
+
+
+def _mark(clock: Optional[_StepClock], phase: str) -> None:
+    if clock is not None:
+        clock.mark(phase)
 
 
 # ------------------------------------------------------------------ zero1
@@ -398,44 +431,83 @@ class AllReduceSGDEngine:
             # through sample_array.
             iterator = engine_wrap(iterator, comm, device)
         self._hook("on_start", state)
-        for epoch in range(epochs):
-            state["epoch"] = epoch
-            state["loss_meter"].reset()
-            self._hook("on_start_epoch", state)
-            for batch in iterator:
-                state["sample"] = batch
-                self._hook("on_sample", state)
-                local = self._local(batch, comm.rank, device)
-                if self.mode == "compiled":
-                    self._compiled_step(state, local)
-                else:
-                    self._eager_step(state, local)
-                state["t"] += 1
-                if (self.check_frequency and self.mode != "compiled"
-                        and state["t"] % self.check_frequency == 0):
-                    mpinn.check_with_allreduce(state["params"], comm)
-                self._hook("on_update", state)
-            self._hook("on_end_epoch", state)
-        self._hook("on_end", state)
+        try:
+            for epoch in range(epochs):
+                state["epoch"] = epoch
+                state["loss_meter"].reset()
+                self._hook("on_start_epoch", state)
+                for batch in iterator:
+                    state["sample"] = batch
+                    self._hook("on_sample", state)
+                    self._step(state, batch, comm, device)
+                    state["t"] += 1
+                    if (self.check_frequency and self.mode != "compiled"
+                            and state["t"] % self.check_frequency == 0):
+                        mpinn.check_with_allreduce(state["params"], comm)
+                    self._hook("on_update", state)
+                self._hook("on_end_epoch", state)
+            self._hook("on_end", state)
+        finally:
+            # A loop that ended must not leave a stale engine_step mark
+            # reading as stalled on /healthz.
+            _obs_serve.health.clear("engine_step")
         return state
 
-    def _compiled_step(self, state, local) -> None:
+    def _step(self, state, batch, comm, device) -> None:
+        """One step, and the live feed of it (JAX's per-step
+        ``publish_step`` call, under the same gate)."""
+        clock = _StepClock() if _obs_serve.metrics_feed() else None
+        local = self._local(batch, comm.rank, device)
+        _mark(clock, "data_wait")
+        if self.mode == "compiled":
+            self._compiled_step(state, local, clock)
+        else:
+            self._eager_step(state, local, clock)
+        if clock is None:
+            _obs_serve.note("engine_step")
+            return
+        clock.mark("optimizer")
+        ph = clock.phases
+        # A pre-staged pair carries the pipeline's measured consumer wait
+        # (data/device.py): input-blocked time outside this window.
+        pipe_wait_s = batch[0].wait_s if isinstance(batch[0], Staged) \
+            else 0.0
+        step_s = (clock.last - clock.t0) / 1e9 + pipe_wait_s
+        ph["data_wait"] += pipe_wait_s
+        hooks_s = ph.pop("hooks")
+        # Hook time is the user's; as in JAX it is the ps phase when the
+        # parameter server is loaded (its traffic goes out from hooks).
+        if _obs_native.loaded("ps"):
+            ph["ps"] = hooks_s
+        blocked_s = ph["data_wait"] + ph["collective"]
+        x, y = local
+        _obs_serve.publish_step(
+            step_s=step_s, examples=int(x.shape[0]),
+            staged_bytes=int(x.nbytes) + int(y.nbytes),
+            overlap_fraction=1.0 - blocked_s / max(step_s, 1e-12),
+            step=state["t"], phases=ph)
+
+    def _compiled_step(self, state, local, clock=None) -> None:
         comm = state["comm"]
         params = state["params"]
         A = self.accum_steps
         if self._rings():
-            loss, grads = ring_synced_grads(self.loss_fn, params, local,
-                                            comm, A)
+            loss, grads = local_grads(self.loss_fn, params, local, A)
+            _mark(clock, "dispatch")
+            loss, grads = ring_sync(loss, grads, comm)
         else:
             with gspmd.global_batch(comm):
                 loss, grads = local_grads(self.loss_fn, params, local, A,
                                           replicas=comm.size)
+            _mark(clock, "dispatch")
             loss = eager.allreduce(comm, loss, op="mean")
             if not self.zero1:
                 grads = gspmd.sync_grads(grads, comm)
+        _mark(clock, "collective")
         state["loss"] = loss
         self._hook("on_forward", state)
         self._hook("on_backward", state)
+        _mark(clock, "hooks")
         state["loss_meter"].add(loss)
         if self.zero1:
             state["params"], state["opt_state"] = self._zero1_update(
@@ -473,26 +545,34 @@ class AllReduceSGDEngine:
         new = [gathered.get(i, t) for i, t in enumerate(new)]
         return _tree.unflatten(treedef, new), opt_state
 
-    def _eager_step(self, state, local) -> None:
+    def _eager_step(self, state, local, clock=None) -> None:
         comm = state["comm"]
         loss, grads = value_and_grad(self.loss_fn, state["params"], local)
         state["loss"] = eager.allreduce(comm, loss, op="mean")
+        _mark(clock, "dispatch")
         self._hook("on_forward", state)
+        _mark(clock, "hooks")
         if self.mode == "eager_async":
             state["loss_meter"].add(state["loss"])
-            self._async_sync_and_update(state, grads, comm)
+            self._async_sync_and_update(state, grads, comm, clock)
             return
         grads = mpinn.synchronize_gradients(grads, comm)
+        _mark(clock, "collective")
         self._hook("on_backward", state)
+        _mark(clock, "hooks")
         state["loss_meter"].add(state["loss"])
         state["params"] = sgd_update(state["params"], grads, self.lr)
 
-    def _async_sync_and_update(self, state, grads, comm) -> None:
+    def _async_sync_and_update(self, state, grads, comm, clock=None) -> None:
         """eager_async: dispatch the buckets, then drain them as
-        ``engine_async_drain`` says (the JAX engine's branch)."""
+        ``engine_async_drain`` says (the JAX engine's branch).  For the
+        feed, the drain's time in handle waits is ``collective`` and the
+        rest of it (the ready-order updates) ``optimizer``."""
         reg = mpinn.async_.register_async_backward(grads, comm,
                                                    step=state["t"])
+        _mark(clock, "dispatch")
         self._hook("on_backward", state)
+        _mark(clock, "hooks")
         if config.get("engine_async_drain") == "barrier":
             grads = mpinn.async_.synchronize_gradients(reg)
             state["params"] = sgd_update(state["params"], grads, self.lr)
@@ -502,6 +582,11 @@ class AllReduceSGDEngine:
                 state["params"] = mpinn.async_.drain_at_optimizer(
                     reg, state["params"], lambda p, g: p - lr * g)
         state["blocked_s"] = reg.blocked_s
+        if clock is not None:
+            clock.mark("optimizer")
+            clock.phases["collective"] += reg.blocked_s
+            clock.phases["optimizer"] -= min(reg.blocked_s,
+                                             clock.phases["optimizer"])
 
     def test(self, params: Any, iterator, metric_fn: LossFn) -> float:
         """Mean of ``metric_fn`` over the iterator: each rank on its row,

@@ -7,8 +7,9 @@ a promotion), :func:`on_failure` snapshots
 * the finished spans (**peeked**, not drained),
 * the native trace-ring tails of every loaded plane (**drained** — the
   tail around the trip is exactly the evidence),
-* the parameter server's counters (native and client side),
-* the knobs and the triggering exception,
+* the parameter server's counters (native and client side) and a fresh
+  metrics-registry snapshot (native counters scraped),
+* the knobs, the triggering exception and the active journal segment,
 
 into ``flight-<pid>-<seq>-<reason>.json`` under ``obs_flight_dir``,
 written tmp -> fsync -> atomic rename, so a process that dies mid-dump
@@ -89,6 +90,8 @@ def dump(reason: str, exc: Optional[BaseException] = None,
     global _last_path
     from ..runtime import config
 
+    from .metrics import registry
+
     cfg = obs_native.cluster_config()
     directory = directory or cfg["flight_dir"] or "."
     os.makedirs(directory, exist_ok=True)
@@ -98,12 +101,17 @@ def dump(reason: str, exc: Optional[BaseException] = None,
         if obs_native.loaded(plane):
             events[plane] = obs_native.events_to_rows(
                 obs_native.drain_events(plane))
+    try:
+        registry.scrape_native()
+    except Exception:
+        pass  # half a panel beats no bundle
     bundle: Dict[str, Any] = {
         "schema": SCHEMA,
         "reason": str(reason),
         "pid": os.getpid(),
         "wall_time": time.time(),
         "monotonic_ns": tracer.now_ns(),
+        "clock_offset_ns": tracer.clock_offset(),
         "context": obs_journal._jsonable(context),
         "exception": None if exc is None else {
             "type": type(exc).__name__,
@@ -113,10 +121,14 @@ def dump(reason: str, exc: Optional[BaseException] = None,
         },
         "spans": obs_journal._jsonable(tracer.peek()),
         "events": events,
-        "dropped": {"hostcomm": obs_native.dropped("hostcomm"),
+        "dropped": {"spans": tracer.dropped(),
+                    "hostcomm": obs_native.dropped("hostcomm"),
                     "ps": obs_native.dropped("ps")},
         "counters": _counters(),
+        "metrics": registry.snapshot(),
         "config": obs_journal._jsonable(config.snapshot()),
+        # Joins the bundle to the journal record that brackets it.
+        "journal_segment": obs_journal.active_segment(),
     }
     path = os.path.join(
         directory, f"flight-{os.getpid()}-{next(_seq):04d}-{reason}.json")

@@ -1,8 +1,8 @@
 """Persistent per-rank event journal: append-only JSONL of state changes.
 
-The port's copy of the JAX package's ``obs/journal.py``, cut to the write
-side the serving engine uses (``serve.drain``, ``serve.shed``,
-``serve.evict``, ``serve.scheduler_error``).  Each record is ONE JSON
+The port's copy of the JAX package's ``obs/journal.py``, cut to its
+write side and the in-memory tail the live endpoint serves
+(``GET /journal``).  Each record is ONE JSON
 line::
 
     {"v": 1, "t_ns": ..., "wall": ..., "rank": r, "pid": ..., "seq": n,
@@ -43,6 +43,7 @@ def _env_rank() -> int:
 _rank = _env_rank()
 _seq = 0                    # per-process record counter
 _file = None                # the open active segment
+_file_path: Optional[str] = None
 _file_bytes = 0
 _segment_seq = 0
 _tail: List[Dict[str, Any]] = []   # bounded in-memory tail
@@ -65,6 +66,22 @@ def enabled() -> bool:
     return bool(config.get("journal_enabled"))
 
 
+def set_rank(rank: int) -> None:
+    """Stamp later records with ``rank`` (``runtime/lifecycle.start``
+    calls it once the world is up); an open segment keeps its name."""
+    global _rank
+    _rank = int(rank)
+
+
+def rank() -> int:
+    return _rank
+
+
+def active_segment() -> Optional[str]:
+    """Path of the open segment (None before the first append)."""
+    return _file_path
+
+
 def errors() -> int:
     """Suppressed append failures so far: emit() never raises into the
     failure path it records, so this is the only trace a failed write
@@ -74,7 +91,7 @@ def errors() -> int:
 
 def _roll_locked(cfg: dict) -> None:
     """Open the next segment (and prune) — caller holds ``_lock``."""
-    global _file, _file_bytes, _segment_seq
+    global _file, _file_bytes, _segment_seq, _file_path
     if _file is not None:
         try:
             _file.close()
@@ -87,6 +104,7 @@ def _roll_locked(cfg: dict) -> None:
     path = os.path.join(
         directory, f"journal-r{_rank}-p{os.getpid()}-{_segment_seq:04d}.jsonl")
     _file = open(path, "a", encoding="utf-8")
+    _file_path = path
     _file_bytes = _file.tell()
     prune_files(directory, f"journal-r{_rank}-*.jsonl",
                 keep=max(1, cfg["keep"]))
@@ -157,7 +175,7 @@ def tail(limit: int = 64) -> List[Dict[str, Any]]:
 def reset() -> None:
     """Close the active segment and forget in-memory state (tests; the
     on-disk segments stay)."""
-    global _file, _file_bytes, _segment_seq, _seq, _errors
+    global _file, _file_bytes, _segment_seq, _seq, _errors, _file_path
     with _lock:
         if _file is not None:
             try:
@@ -165,6 +183,7 @@ def reset() -> None:
             except OSError:
                 pass
         _file = None
+        _file_path = None
         _file_bytes = 0
         _segment_seq = 0
         _seq = 0

@@ -88,13 +88,31 @@ def apply_config() -> None:
 
 
 def cluster_config() -> dict:
-    """The flight recorder's knobs in one read (``obs_flight*``)."""
+    """The cluster plane's knobs in one read: clock alignment
+    (``obs/clocksync.py``), obsdumps (``obs/aggregate.py``) and the flight
+    recorder (``obs/flight.py``)."""
     from ..runtime import config
 
     return {
+        "clocksync_rounds": int(config.get("obs_clocksync_rounds")),
+        "clocksync_sample_peers": int(
+            config.get("obs_clocksync_sample_peers")),
+        "dump_dir": str(config.get("obs_dump_dir")),
         "flight": bool(config.get("obs_flight")),
         "flight_dir": str(config.get("obs_flight_dir")),
         "flight_keep": int(config.get("obs_flight_keep")),
+    }
+
+
+def serve_config() -> dict:
+    """The live endpoint's knobs in one read (``obs_http*``), the one
+    config touchpoint of ``obs/serve.py``."""
+    from ..runtime import config
+
+    return {
+        "http": bool(config.get("obs_http")),
+        "port": int(config.get("obs_http_port")),
+        "bind": str(config.get("obs_http_bind")),
     }
 
 

@@ -1,7 +1,6 @@
 """Span tracer: thread-safe, contextvar-correlated, bounded.
 
-The port's copy of the JAX package's ``obs/tracer.py``, cut to what the
-serving engine uses.  A *span* is a named [t0, t1) interval on the
+The port's copy of the JAX package's ``obs/tracer.py``.  A *span* is a named [t0, t1) interval on the
 CLOCK_MONOTONIC timeline carrying a 64-bit **correlation id**.  The id
 lives in a :mod:`contextvars` variable: the first span on a context
 allocates a fresh id and nested spans inherit it.
@@ -37,9 +36,38 @@ def new_correlation() -> int:
     return ((os.getpid() & 0xFFFF) << 40) | next(_counter)
 
 
+def cluster_correlation(*parts: Any) -> int:
+    """Deterministic correlation id from ``parts`` alone: the same id on
+    every rank that derives it from the same parts (an engine step's
+    number), with the top bit set so it never collides with a
+    :func:`new_correlation` id.  ``obs/export.merge_ranks`` draws such ids
+    as cross-rank flows and ``obs/aggregate.collective_skew`` matches
+    collectives by them."""
+    import hashlib
+
+    h = hashlib.blake2b("/".join(str(p) for p in parts).encode(),
+                        digest_size=8).digest()
+    return int.from_bytes(h, "big") | (1 << 63)
+
+
+# Cross-rank clock alignment (obs/clocksync.apply): spans are stamped
+# ``monotonic - offset``, as the native rings are.
+_clock_offset_ns = 0
+
+
+def set_clock_offset(offset_ns: int) -> None:
+    global _clock_offset_ns
+    _clock_offset_ns = int(offset_ns)
+
+
+def clock_offset() -> int:
+    return _clock_offset_ns
+
+
 def now_ns() -> int:
-    """The tracer's clock: CLOCK_MONOTONIC."""
-    return time.monotonic_ns()
+    """The tracer's clock: CLOCK_MONOTONIC minus the applied alignment
+    offset (0 unless :func:`obs.clocksync.apply` ran)."""
+    return time.monotonic_ns() - _clock_offset_ns
 
 
 def current_correlation() -> int:
@@ -55,6 +83,7 @@ def enabled() -> bool:
 
 _lock = threading.Lock()
 _spans: Deque[Dict[str, Any]] = collections.deque(maxlen=4096)
+_dropped = 0
 
 
 def _resize_locked() -> None:
@@ -66,7 +95,9 @@ def _resize_locked() -> None:
 
 def record(name: str, t0_ns: int, t1_ns: int, correlation: int = 0,
            **attrs: Any) -> None:
-    """Append a finished span (drop-oldest when the buffer is full)."""
+    """Append a finished span (drop-oldest when the buffer is full, the
+    loss counted in :func:`dropped`)."""
+    global _dropped
     span_rec = {
         "name": name,
         "correlation": int(correlation),
@@ -77,6 +108,8 @@ def record(name: str, t0_ns: int, t1_ns: int, correlation: int = 0,
     }
     with _lock:
         _resize_locked()
+        if len(_spans) == _spans.maxlen:
+            _dropped += 1
         _spans.append(span_rec)
 
 
@@ -92,6 +125,11 @@ def peek() -> List[Dict[str, Any]]:
     """All finished spans, oldest first, without draining them."""
     with _lock:
         return list(_spans)
+
+
+def dropped() -> int:
+    """Monotonic count of spans lost to the bounded buffer."""
+    return _dropped
 
 
 # ------------------------------------------------------------------- spans

@@ -321,30 +321,26 @@ def _owner_backup(c: _Cluster, instance: int, k: int,
 # Every client derives the identical post-failure map from membership
 # alone — no coordinator anywhere.
 
-class _Counter:
-    __slots__ = ("name", "value")
-
-    def __init__(self, name: str) -> None:
-        self.name, self.value = name, 0
-
-    def inc(self) -> None:
-        self.value += 1
+_counter_names: Dict[str, None] = {}
 
 
-_counters: Dict[str, _Counter] = {}
+def _metric(name: str, help_: str = ""):
+    """A monotonic client-side counter of this process, in the metrics
+    registry (``obs/metrics.py``) as the JAX package keeps it; the names
+    touched are remembered for :func:`client_counters`."""
+    from ..obs.metrics import registry
 
-
-def _metric(name: str, help_: str = "") -> _Counter:
-    """A monotonic client-side counter of this process (the JAX package
-    keeps them in its metrics registry; the port, which has none yet,
-    keeps them here: :func:`client_counters`)."""
-    return _counters.setdefault(name, _Counter(name))
+    _counter_names.setdefault(name, None)
+    return registry.counter(name, help_)
 
 
 def client_counters() -> Dict[str, int]:
     """The client's failover counters by name (``tmpi_ps_failover_total``,
-    ``tmpi_ps_reseed_total``, ``tmpi_ps_promote_total``, ...)."""
-    return {n: c.value for n, c in _counters.items()}
+    ``tmpi_ps_reseed_total``, ``tmpi_ps_promote_total``, ...), read from
+    the registry."""
+    from ..obs.metrics import registry
+
+    return {n: int(registry.counter(n).value()) for n in _counter_names}
 
 
 def _reconnect_slot(c: _Cluster, i: int, attempts: int,

@@ -18,7 +18,10 @@ wire (``manual_wire_dtype``), the input data plane
 (``data_*``, read only by ``data/pipeline.py:knob_defaults``), the
 parameter server (``parameterserver_offload_pool_size``, ``ps_*``), the
 native trace rings and the flight recorder (``obs_trace_ring_capacity``,
-``obs_flight*``) and the logger's level (``verbose``).
+``obs_flight*``), clock alignment and obsdumps (``obs_clocksync_*``,
+``obs_dump_dir``), the live endpoint (``obs_http*``), the metrics history
+(``history_*``), the alert plane (``alert_*``) and the logger's level
+(``verbose``).
 """
 
 from __future__ import annotations
@@ -211,6 +214,64 @@ class Constants:
     obs_flight: bool = _env_bool("TORCHMPI_TPU_OBS_FLIGHT", False)
     obs_flight_dir: str = _env("TORCHMPI_TPU_OBS_FLIGHT_DIR", "", str)
     obs_flight_keep: int = _env("TORCHMPI_TPU_OBS_FLIGHT_KEEP", 8, int)
+    # Ping-pong rounds per peer in the clock-alignment exchange
+    # (obs/clocksync.py); the min-RTT round's midpoint estimate wins.
+    obs_clocksync_rounds: int = _env(
+        "TORCHMPI_TPU_OBS_CLOCKSYNC_ROUNDS", 8, int)
+    # Bounded-sample clock alignment: only this many evenly spaced peers
+    # are measured, the rest inherit the sampled median offset with a
+    # widened uncertainty (0 = measure every peer).
+    obs_clocksync_sample_peers: int = _env(
+        "TORCHMPI_TPU_OBS_CLOCKSYNC_SAMPLE_PEERS", 0, int)
+    # Directory each rank writes its obsdump-<rank>.json bundle into at
+    # shutdown ("" = no shutdown dump; obs/aggregate.py).
+    obs_dump_dir: str = _env("TORCHMPI_TPU_OBS_DUMP_DIR", "", str)
+    # --- live telemetry & health plane (obs/serve.py; all reads funnel
+    # through obs/native.serve_config) ---
+    # Serve /metrics, /healthz, /spans, /journal, /history, /alerts and
+    # POST /flight on a daemon thread of this process, started by
+    # runtime/lifecycle.start.  Off by default: no socket, no thread.
+    obs_http: bool = _env_bool("TORCHMPI_TPU_OBS_HTTP", False)
+    # Listen port; 0 picks an ephemeral one (read back by obs.serve.url()).
+    obs_http_port: int = _env("TORCHMPI_TPU_OBS_HTTP_PORT", 0, int)
+    # Bind address, loopback by default: the endpoint has no auth.
+    obs_http_bind: str = _env("TORCHMPI_TPU_OBS_HTTP_BIND",
+                              "127.0.0.1", str)
+
+    # --- on-disk metrics history (obs/history.py; all reads funnel
+    # through history.history_config) ---
+    # Background sampler of the metrics registry, started by
+    # runtime/lifecycle.start when on.
+    history_enabled: bool = _env_bool("TORCHMPI_TPU_HISTORY_ENABLED", False)
+    # Seconds between registry snapshots in the finest tier.
+    history_interval_s: float = _env(
+        "TORCHMPI_TPU_HISTORY_INTERVAL_S", 1.0, float)
+    # Directory of the persisted history-<rank>.json ("" = in memory only).
+    history_dir: str = _env("TORCHMPI_TPU_HISTORY_DIR", "", str)
+    # Rows per tier ring.
+    history_tier_len: int = _env("TORCHMPI_TPU_HISTORY_TIER_LEN", 512, int)
+    # Fine rows aggregated into one coarse row between tiers.
+    history_downsample: int = _env("TORCHMPI_TPU_HISTORY_DOWNSAMPLE",
+                                   30, int)
+
+    # --- alerting plane (obs/alerts.py; all reads funnel through
+    # alerts.alerts_config) ---
+    # Arm the rules engine on the history sampler's cadence (needs
+    # history_enabled).
+    alert_enabled: bool = _env_bool("TORCHMPI_TPU_ALERT_ENABLED", False)
+    # Ship the default rule pack.
+    alert_default_pack: bool = _env_bool(
+        "TORCHMPI_TPU_ALERT_DEFAULT_PACK", True)
+    # JSON file of author-supplied rule specs ("" = none); a same-named
+    # rule replaces the default pack's.
+    alert_rules_path: str = _env("TORCHMPI_TPU_ALERT_RULES_PATH", "", str)
+    # Sampler ticks between rule evaluations.
+    alert_eval_every: int = _env("TORCHMPI_TPU_ALERT_EVAL_EVERY", 1, int)
+    # Default hold (seconds) before a pending rule fires.
+    alert_for_s: float = _env("TORCHMPI_TPU_ALERT_FOR_S", 3.0, float)
+    # Dump a flight bundle when a critical rule fires (still gated by
+    # obs_flight).
+    alert_flight: bool = _env_bool("TORCHMPI_TPU_ALERT_FLIGHT", True)
 
     # --- job history plane: persistent event journal (obs/journal.py) ---
     # Master switch: append-only JSONL journal of discrete state changes.

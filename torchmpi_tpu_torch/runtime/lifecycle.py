@@ -21,6 +21,14 @@ After the world communicator, :func:`start` splits the world by host
 gathered over the world group, and on more than one host a level keyed by
 hostname is pushed and the collective span widened over both levels.  On
 one machine nothing is pushed.
+
+The observability planes follow the runtime, as in JAX, each gated by
+its knob and off by default: :func:`start` clears the drain flag, starts
+the live endpoint (``obs/serve.maybe_start``, ``obs_http``), stamps the
+journal's rank and starts the metrics-history sampler
+(``obs/history.maybe_start``, ``history_enabled``, which arms the alert
+plane); :func:`stop` sets the drain flag first, stops the sampler, writes
+the shutdown obsdump (``obs_dump_dir``) and closes the endpoint last.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ _device: Optional[torch.device] = None
 _hostname: Optional[str] = None
 _hostnames: Optional[Tuple[str, ...]] = None
 _need_inter_node = False
+_rank = 0
 
 
 def started() -> bool:
@@ -81,7 +90,7 @@ def start(device: Union[str, torch.device, None] = None) -> torch.device:
     ``device="cpu"`` runs on the CPU (gloo); otherwise a GPU is required.
     The split mode is read from the ``use_tree_communicators`` and
     ``use_cartesian_communicators`` knobs."""
-    global _started, _owns_group, _device, _hostnames
+    global _started, _owns_group, _device, _hostnames, _rank
     import torch.distributed as dist
 
     with _lock:
@@ -123,7 +132,23 @@ def start(device: Union[str, torch.device, None] = None) -> torch.device:
         selector.configure()
         _started = True
         _device = dev
-        return dev
+        _rank = world_comm.rank
+    _start_obs(_rank)
+    return dev
+
+
+def _start_obs(rank: int) -> None:
+    """The live endpoint and the history sampler, each knob-gated (off =
+    one config read).  A fresh world is not draining, whatever an earlier
+    stop() left behind."""
+    from ..obs import history as _obs_history
+    from ..obs import journal as _obs_journal
+    from ..obs import serve as _obs_serve
+
+    _obs_serve.health.set_draining(False)
+    _obs_serve.maybe_start(rank=rank)
+    _obs_journal.set_rank(rank)
+    _obs_history.maybe_start(rank=rank)
 
 
 def _init_per_node_communicators(world: Communicator) -> None:
@@ -165,6 +190,11 @@ def stop() -> None:
     with _lock:
         if not _started:
             return
+        # /healthz reads "leaving on purpose", not "wedged", for the
+        # duration of the teardown.
+        from ..obs import serve as _obs_serve
+
+        _obs_serve.health.set_draining(True)
         cuda_ring.release_all()
         ps = sys.modules.get("torchmpi_tpu_torch.parameterserver")
         if ps is not None:
@@ -178,6 +208,36 @@ def stop() -> None:
         _owns_group = False
         _started = False
         _device = None
+    _stop_obs()
+
+
+def _stop_obs() -> None:
+    """The history sampler stops first (its final persist covers the
+    teardown), then the shutdown obsdump, then the endpoint, last, so a
+    poller can watch the teardown.  Best-effort: a failed dump must not
+    turn a clean stop into a crash."""
+    from ..obs import aggregate as _obs_aggregate
+    from ..obs import history as _obs_history
+    from ..obs import native as _obs_native
+    from ..obs import serve as _obs_serve
+
+    try:
+        _obs_history.stop()
+    except Exception:  # noqa: BLE001
+        pass
+    dump_dir = _obs_native.cluster_config()["dump_dir"]
+    if dump_dir:
+        try:
+            _obs_aggregate.write_obsdump(dump_dir, rank=_rank)
+        except Exception:  # noqa: BLE001
+            from ..utils.logging import get_logger
+
+            get_logger("torchmpi_tpu_torch.lifecycle").exception(
+                "shutdown obsdump to %s failed (suppressed)", dump_dir)
+    try:
+        _obs_serve.stop()
+    except Exception:  # noqa: BLE001
+        pass
 
 
 def device() -> torch.device:

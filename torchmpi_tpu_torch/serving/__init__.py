@@ -4,9 +4,14 @@
   (fixed-size blocks, per-request block lists, deadline-aware eviction).
 - :mod:`torchmpi_tpu_torch.serving.engine` — Orca-style iteration-level
   scheduler over a prefill/decode split runner.
+- :mod:`torchmpi_tpu_torch.serving.frontend` — the HTTP request plane
+  (:class:`ServeFrontend`): admission control, deadlines with typed
+  shed responses, correlation ids into the span tracer, drain/resume.
+- :mod:`torchmpi_tpu_torch.serving.router` — placement-ring request
+  routing across replicas (:class:`ServeRouter`, :class:`NoReplicas`)
+  with drain cutover and failover.
 
-All ``serve_*`` knob reads funnel through :func:`serve_config`.  This
-module imports no torch: the engine's stub runner serves without it.
+All ``serve_*`` knob reads funnel through :func:`serve_config`.
 """
 from __future__ import annotations
 
@@ -29,3 +34,8 @@ def serve_config() -> Dict[str, Any]:
         "stub_token_s": float(config.get("serve_stub_token_s")),
         "drain_timeout_s": float(config.get("serve_drain_timeout_s")),
     }
+
+
+# After serve_config: the engine, which the frontend imports, reads it.
+from .frontend import ServeFrontend  # noqa: E402,F401
+from .router import NoReplicas, ServeRouter  # noqa: E402,F401
