@@ -105,9 +105,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    F32_TRAIN_GRAD_RTOL of their norm; peak memory is printed.
 
 7. ring_kernels: the ring allreduce (B1), reduce-scatter (B2) and
-   allgather (B3) kernels with p = 2 and p = 4 ranks spawned on the one
-   card (``tools/ring_bench.py``): f32 and bf16 (and int32 for B1 and B3)
-   at n = 25,557,032, 3,000 and 5, the small sizes again with 64 KiB
+   allgather (B3) kernels with p = 2, 3 and 4 ranks spawned on the one
+   card (``tools/ring_bench.py``; p = 3, the elastic phase's odd ring,
+   without the cases at n = 25,557,032): f32 and bf16 (and int32 for B1
+   and B3) at n = 25,557,032, 3,000 and 5 (the reduce-scatter's small n a
+   multiple of p), the small sizes again with 64 KiB
    sub-chunks and one staging slot, B1 once more at the 43 ring sizes of a
    ResNet-50 compiled training step (f32, mean, the engine's collective
    ids) and at the 4 bucket sizes of an eager_async step (f32, mean, in
@@ -125,7 +127,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    reused; one input an offset view), each bit for bit; for B1 and for B3
    two forced stalls (a rank that never enters, and one that enters after
    its neighbour gave up) that must raise within their deadline without
-   lowering the aborted rank's READY word.
+   lowering the aborted rank's READY word; last, B1's late stall with the
+   rank that gave up tearing down locally first (``release_local``, as a
+   survivor of a lost peer does), where the late rank must raise
+   ``RingTimeout`` and no ring state may be left after the blocks kept
+   for it are freed.
 8. train_resnet: ResNet-50 at full width (224x224x3, 1000 classes, f32, TF32
    off) trained data-parallel by AllReduceSGDEngine in ``compiled`` mode
    with ``use_pallas_collectives`` on, 2 ranks spawned on the one card, 32
@@ -349,6 +355,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    bf16 forward on {tp 2} in the same ranks (wqkv cut by heads), each
    rank's logits within VIT_TP_RTOL of the one-rank forward's, B4 12
    launches a rank.
+23. elastic: failure and membership (``tools/elastic_drill.py``): six
+   processes spawned on the card run config 1 (the MLP at full width,
+   f32, global batch 128, 126 at p = 3, ``compiled``,
+   ``use_pallas_collectives`` on, so three B1 rings a step) through four
+   legs.  (a) ``mnist_elastic``'s
+   flow on 4 ranks, a checkpoint every 10 steps, an injected fault at
+   step 20 on every rank, restored and re-formed on 2: resumed at step
+   11, the loss finite and falling, the replicas bit-equal and equal to a
+   2-rank run started alone from the same checkpoint.  (b) 4 ranks under
+   ``run_elastic`` with heartbeat monitors; one non-leader SIGKILLs itself
+   mid-training: the survivors' B1 rings give up (``RingTimeout``,
+   recoverable) within ``RING_TIMEOUT_S`` plus 5 s, they tear down with no
+   barrier on the dead, re-form at p = 3 from the agreed checkpoint (the
+   first step's three rings bit-equal to B1's plain version over the
+   three ranks' gradients), the loss finite and falling, and end
+   bit-equal, each one's card memory within 0.25 GB of before.  (c) a
+   2-rank loop under ``ResizeController`` and the engine's step boundary:
+   a grow whose ship crosses a blackholing ``ChaosProxy`` aborts (epoch
+   unchanged, the old ring training on), a retry grows to 4 (two joiners
+   put the shipped parameters on their cards), a drain leaves 3; the
+   probe loss of the parameters equal to the bit before and after each
+   commit on every member.  (d) a planned ``handoff`` evicts rank 0; the
+   new leader grows a rank in, then dies by SIGKILL inside a drain's
+   window: the two survivors fail over over ``/healthz`` (one epoch claim,
+   one resolved verdict, "aborted") and train on at p = 2; ``POST
+   /resize`` to the non-leader answers a 307 naming the new leader.  B1
+   runs 3 times a step at p = 4, 3 and 2; ``obs/rca.analyze`` over the
+   journals names ``aborted_resize`` and ``leader_failover``.  The kill
+   seconds, restart seconds and ``scale.pause_ms`` are printed.
 
 Then a ``timing`` line with each phase's seconds (the build included, the
 imports before it not) and the card memory each left allocated (before
@@ -1657,14 +1692,15 @@ def phase_router(torch, llama, fa, engine_mod, serving):
 
 
 def phase_ring_kernels():
-    """B1-B3 against their plain versions at p = 2 and 4 on the one card;
-    returns the p = 2 and p = 4 results of rank 0."""
+    """B1-B3 against their plain versions at p = 2, 3 and 4 on the one
+    card (p = 3, which the elastic phase re-forms to, without the cases
+    at n = 25,557,032); returns the results of rank 0 by p."""
     from torchmpi_tpu_torch.tools import ring_bench
 
     out = {}
-    for p in (2, 4):
+    for p in (2, 3, 4):
         t0 = time.perf_counter()
-        results = ring_bench.run(p)
+        results = ring_bench.run(p, quick=p == 3)
         bad = [r for res in results for r in res["records"]
                if not r["bitwise_equal"]]
         r0 = results[0]
@@ -1699,7 +1735,8 @@ def phase_ring_kernels():
              all_bitwise_equal=not bad,
              collectives_launches=r0["collectives_launches"],
              collectives_ok=all(r["collectives_ok"] for r in results),
-             stalls=r0["stalls"], seconds=time.perf_counter() - t0)
+             stalls=r0["stalls"], teardown=r0["teardown"],
+             seconds=time.perf_counter() - t0)
         if bad:
             raise AssertionError(f"ring kernels disagree with the plain "
                                  f"schedule at p={p}: {bad[:3]}")
@@ -1712,6 +1749,9 @@ def phase_ring_kernels():
             raise AssertionError(f"a stalled ring did not raise in time or "
                                  f"lost its aborted flag words: "
                                  f"{r0['stalls']}")
+        if not ring_bench.teardown_ok(r0["teardown"]):
+            raise AssertionError(f"a late ring after its peer's local "
+                                 f"teardown: {r0['teardown']}")
         out[p] = r0
     return out
 
@@ -5242,9 +5282,27 @@ def phase_vit(torch, vit, llama, fa, split):
             "launches": launches, "ring_allreduce": rings}
 
 
+def phase_elastic():
+    """Failure and membership on the card (``tools/elastic_drill.py``):
+    every check of the drill must hold.  Its ranks' B1 counts start at 0
+    in each spawned process and are read from their step records."""
+    import tempfile
+
+    from torchmpi_tpu_torch.tools import elastic_drill
+
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".elastic_") as d:
+        out = elastic_drill.run("cuda", d)
+    summary = elastic_drill.summary(out)
+    failed = elastic_drill.checks(out)
+    emit(phase="elastic", **summary, failed=failed)
+    if failed:
+        raise AssertionError(f"elastic: {failed}")
+    return summary
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
                        async_launches, async_rec, mnist_rec, options,
-                       hierarchy, vit_rings):
+                       hierarchy, vit_rings, elastic):
     """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
     work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
     an eager_async step beside (times, bound and the largest error over
@@ -5256,7 +5314,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
     five runs, the profiler's window inside the first; tester: the ring
     sweep; hierarchy: the world-level allreduce under the span over both
     levels of a 2x2 split, B1 only; vit_dp: ViT-B/16's gradient rings on
-    both ranks, B1 only)."""
+    both ranks, B1 only; elastic: config 1's rings in the worlds the
+    elastic drill re-forms, B1 only)."""
     replaces, function, kind, library = RING_KERNELS[name]
     big = next(r for r in rings[2]["records"]
                if r["kind"] == kind and "kernel_ms" in r)
@@ -5272,7 +5331,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
                    for r in options["mnist_options"]["runs"].values()),
                "tester": options["tester"]["ring"]["launches"][name],
                "hierarchy": hierarchy["launches"][name],
-               "vit_dp": vit_rings if name == "ring_allreduce" else 0}
+               "vit_dp": vit_rings if name == "ring_allreduce" else 0,
+               "elastic": elastic if name == "ring_allreduce" else 0}
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     err = max(r["max_abs_err"] for p in (2, 4)
               for r in rings[p]["records"] if r["kind"] == kind)
@@ -5572,6 +5632,7 @@ def main() -> int:
     launches.update(vit_rec["launches"])
     torch.cuda.empty_cache()
     timed("parameterserver", phase_parameterserver, torch, fa)
+    elastic = timed("elastic", phase_elastic)
     emit(phase="timing", seconds=took, total_s=time.perf_counter() - start,
          held_gb_after=held)
 
@@ -5587,7 +5648,8 @@ def main() -> int:
         *(ring_kernel_record(name, rings, resnet_rec["launches"],
                              resnet_rec, async_launches, async_rec,
                              mnist_rec, options, hierarchy,
-                             vit_rec["ring_allreduce"])
+                             vit_rec["ring_allreduce"],
+                             elastic["ring_allreduce_launches"])
           for name in RING_KERNELS),
         conv_kernel_record(conv_recs, conv_launches),
     ])

@@ -589,3 +589,45 @@ def test_serving_http_runs_without_jax_loaded():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+SLICE20_MODULES = ["runtime/failure.py", "runtime/chaos.py",
+                   "runtime/resize.py", "runtime/election.py", "obs/rca.py",
+                   "examples/mnist_elastic.py", "tools/elastic_drill.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE20_MODULES)
+def test_slice20_modules_are_checked(rel):
+    """The import check above covers failure and membership, the
+    root-cause reader and the elastic example and drill."""
+    assert ROOT / "torchmpi_tpu_torch" / rel in PORT_FILES
+
+
+def test_failure_and_membership_load_without_jax():
+    """Importing the slice's modules in a fresh interpreter loads neither
+    JAX nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import torchmpi_tpu_torch.runtime.failure\n"
+        "import torchmpi_tpu_torch.runtime.chaos\n"
+        "import torchmpi_tpu_torch.runtime.resize\n"
+        "import torchmpi_tpu_torch.runtime.election\n"
+        "import torchmpi_tpu_torch.obs.rca\n"
+        "import torchmpi_tpu_torch.examples.mnist_elastic\n"
+        "import torchmpi_tpu_torch.tools.elastic_drill\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'jaxlib', 'torchmpi_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_elastic_example_refuses_the_cpu_unless_asked(monkeypatch, capsys):
+    from torchmpi_tpu_torch.examples import mnist_elastic
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mnist_elastic.main(["--nproc", "4"]) == 2
+    assert "--device cpu" in capsys.readouterr().err

@@ -5,8 +5,8 @@ Both packages' ``ObsHTTPServer`` and ``ServeFrontend`` run the same
 request script over a ``StubRunner`` engine with a private registry and
 health state: every status code, ``Retry-After`` header and JSON body must
 be equal, ports, paths and timings aside (the typed 503s, the 404 route
-lists, ``/retune``'s and ``/resize``'s answers at default knobs, whose
-409 names what the port still lacks).  ``ServeRouter.route`` must give
+lists, ``/retune``'s and ``/resize``'s answers at default knobs: the
+unarmed resize inbox's 409 in the same words).  ``ServeRouter.route`` must give
 the same slot for 1,000 keys, with and without a draining slot.  The
 slice as a whole: the JAX frontend over a tiny JAX ``LlamaRunner`` and
 the port's over the port's runner on the CPU (weights through
@@ -198,11 +198,8 @@ def test_obs_endpoint_answers_as_jax(tmp_path):
     for (kind, path, (code, doc, hdr)), (_, _, (_, rdoc, rhdr)) in zip(
             got, ref):
         if kind == "POST" and path == "/resize" and code == 409:
-            # JAX: its unarmed resize plane; the port: none yet (item 16).
+            # Both packages' unarmed resize plane, in the same words.
             assert rdoc["error"].startswith("resize_enabled is off")
-            assert doc["reason"] == "resize_not_ported"
-            assert "item 16" in doc["error"]
-            continue
         if kind == "POST" and path == "/flight":
             assert code == 200 and doc["path"].endswith(".json")
             continue

@@ -77,6 +77,16 @@ class RingError(RuntimeError):
     deadline, or a CUDA call failed."""
 
 
+class RingTimeout(RingError):
+    """A ring gave up on a peer: a neighbour never staged within
+    ``RING_TIMEOUT_S``, or a peer had given up on the call first.  This
+    rank's stream drained after the abort, so the process can tear its
+    ring states down (:func:`release_local`) and re-form without the
+    peer; ``runtime/failure.is_device_failure`` counts it recoverable.  A
+    plain :class:`RingError` (a failed CUDA call, a stream that did not
+    drain) is not."""
+
+
 # --------------------------------------------------------------- geometry
 
 def _geometry(n: int, p: int, itemsize: int) -> Tuple[int, int, int]:
@@ -418,6 +428,39 @@ def release_all() -> None:
     _states.clear()
 
 
+# States that release_local took down: their peers' mappings closed, this
+# rank's own block and status word kept until free_retired.
+_retired: List[_RingState] = []
+
+
+def release_local() -> None:
+    """Take every ring state of this process down without meeting any
+    peer: drain this rank's device and close its mappings of the peers'
+    blocks.  For a world that lost a rank (``lifecycle.stop(
+    peers_lost=True)``), where the collective :func:`release_all` would
+    wait on the dead forever.
+
+    This rank's own blocks stay allocated until :func:`free_retired`: a
+    slower survivor may still be inside the aborted call, whose REDUCE or
+    GATHER reads every rank's error word through its mapping of that
+    rank's block.  A dead peer's block is the driver's to keep or drop."""
+    if _states:
+        torch.cuda.synchronize()
+        for st in _states.values():
+            st.unmap()
+        _retired.extend(_states.values())
+    _states.clear()
+
+
+def free_retired() -> None:
+    """Free the blocks :func:`release_local` kept.  Call it once every rank
+    that mapped them has left the old world's calls: ``lifecycle.start``
+    does, after the barrier of the world that follows."""
+    for st in _retired:
+        st.free()
+    _retired.clear()
+
+
 def _usable(st: _RingState) -> None:
     if st.broken:
         raise RingError(f"ring state of collective id {st.cid:#x} was given "
@@ -453,9 +496,9 @@ def _run_oneshot(kind: str, comm: Communicator, cid: int, x: torch.Tensor,
         if not st.peer_gave_up():
             return
         st.broken = True
-        raise RingError(f"{where} raised: a peer had given up on call {k}")
+        raise RingTimeout(f"{where} raised: a peer had given up on call {k}")
     words, drained = late
-    raise RingError(
+    raise (RingTimeout if drained else RingError)(
         f"{where} gave up at call {k}: {max(words[1] - (p - 1) * k, 0)} of "
         f"{p - 1} peers had staged within {RING_TIMEOUT_S} s"
         + _undrained(drained))

@@ -309,6 +309,15 @@ class AllReduceSGDEngine:
         self.check_frequency = check_frequency
         self.zero1 = zero1
         self.accum_steps = accum_steps
+        # Elastic resize (runtime/resize.py): an installed
+        # ResizeController is consulted once per step at the boundary.
+        # DEPARTED ends train() with state["departed"]; COMMITTED ends it
+        # with state["resized"] = the new epoch, for the caller to rebuild
+        # the engine over the re-formed world.  A transport fault there
+        # with an installed ElectionCoordinator (runtime/election.py) runs
+        # its on_boundary_fault (a dead leader fails over, as a commit).
+        self.resize_controller = None
+        self.election_coordinator = None
 
     @property
     def comm(self):
@@ -445,13 +454,37 @@ class AllReduceSGDEngine:
                             and state["t"] % self.check_frequency == 0):
                         mpinn.check_with_allreduce(state["params"], comm)
                     self._hook("on_update", state)
+                    if self.resize_controller is not None and \
+                            self._resize_boundary(state):
+                        break
+                if state.get("departed") or state.get("resized"):
+                    break
                 self._hook("on_end_epoch", state)
-            self._hook("on_end", state)
+            if not (state.get("departed") or state.get("resized")):
+                self._hook("on_end", state)
         finally:
             # A loop that ended must not leave a stale engine_step mark
             # reading as stalled on /healthz.
             _obs_serve.health.clear("engine_step")
         return state
+
+    def _resize_boundary(self, state) -> bool:
+        """The step boundary, the one place membership may change (no
+        collective is in flight): True when the loop must end."""
+        from ..runtime import resize as _resize_mod
+        from ..runtime.failure import TransportFailure
+
+        try:
+            out = self.resize_controller.step_boundary()
+        except TransportFailure as e:
+            if self.election_coordinator is None:
+                raise
+            out = self.election_coordinator.on_boundary_fault(e)
+        if out == _resize_mod.DEPARTED:
+            state["departed"] = True
+        elif out == _resize_mod.COMMITTED:
+            state["resized"] = self.resize_controller.membership.epoch
+        return out in (_resize_mod.DEPARTED, _resize_mod.COMMITTED)
 
     def _step(self, state, batch, comm, device) -> None:
         """One step, and the live feed of it (JAX's per-step

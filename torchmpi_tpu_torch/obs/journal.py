@@ -1,8 +1,9 @@
 """Persistent per-rank event journal: append-only JSONL of state changes.
 
-The port's copy of the JAX package's ``obs/journal.py``, cut to its
-write side and the in-memory tail the live endpoint serves
-(``GET /journal``).  Each record is ONE JSON
+The port's copy of the JAX package's ``obs/journal.py``: its write side,
+the in-memory tail the live endpoint serves (``GET /journal``) and the
+reading side ``obs/rca.py`` builds its timeline from (:func:`segments`,
+:func:`merge_segments`, :func:`load_dir`).  Each record is ONE JSON
 line::
 
     {"v": 1, "t_ns": ..., "wall": ..., "rank": r, "pid": ..., "seq": n,
@@ -18,16 +19,19 @@ raises into the code path it observes.
 from __future__ import annotations
 
 import glob
+import heapq
 import json
 import os
+import re
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 from ..runtime import config
 from . import tracer
 
 VERSION = 1
+_SEGMENT_RE = re.compile(r"journal-r(-?\d+)-p(\d+)-(\d+)\.jsonl$")
 
 _lock = threading.Lock()
 
@@ -203,3 +207,101 @@ def prune_files(directory: str, pattern: str, keep: int) -> List[str]:
         except OSError:
             pass
     return doomed
+
+
+# --------------------------------------------------------------- reading
+
+def segments(directory: str, rank: Optional[int] = None) -> List[str]:
+    """Journal segment paths under ``directory`` (every rank, or one),
+    ordered (rank, pid, segment seq) so concatenated reads replay each
+    process's stream in order."""
+    out: List[Tuple[int, int, int, str]] = []
+    for p in glob.glob(os.path.join(directory, "journal-r*-p*-*.jsonl")):
+        m = _SEGMENT_RE.search(os.path.basename(p))
+        if not m:
+            continue
+        r = int(m.group(1))
+        if rank is not None and r != rank:
+            continue
+        out.append((r, int(m.group(2)), int(m.group(3)), p))
+    return [p for *_key, p in sorted(out)]
+
+
+def read_records(path: str) -> Iterator[Dict[str, Any]]:
+    """Records of one segment, torn/garbled lines skipped.  A crash mid-
+    append leaves at most one partial LAST line — skipping it can never
+    poison the records before it, which is the crash-safety contract the
+    tests pin (they truncate mid-line and mid-record)."""
+    try:
+        with open(path, encoding="utf-8", errors="replace") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue  # torn append / partial writeback
+                if isinstance(rec, dict) and "kind" in rec:
+                    yield rec
+    except OSError:
+        return
+
+
+def _merge_key(rec: Dict[str, Any]) -> Tuple[float, int, int]:
+    """The cross-process ordering: wall time (the only clock comparable
+    across processes), then (rank, seq) as the stable tiebreak."""
+    return (rec.get("wall", 0.0), rec.get("rank", 0), rec.get("seq", 0))
+
+
+def _stream(paths: Sequence[str]) -> Iterator[Dict[str, Any]]:
+    """One process's record stream: its segments chained in rotation
+    order (each process appends under a lock, so a stream is already
+    wall-ordered unless the system clock stepped backwards mid-run)."""
+    for p in paths:
+        yield from read_records(p)
+
+
+def merge_segments(paths: Sequence[str]) -> Iterator[Dict[str, Any]]:
+    """Streaming k-way merge of journal segment files in global
+    :func:`_merge_key` order with BOUNDED memory: one open segment and
+    one buffered record per (rank, pid) stream, however many hundreds of
+    segments a 256-rank run left behind — where the old read path
+    materialized every record before sorting.  Segments are grouped into
+    per-process streams by their ``journal-r<rank>-p<pid>-<seq>`` names
+    (rotation order within a stream); unparseable names are treated as
+    one single-segment stream each rather than dropped."""
+    streams: Dict[Tuple[int, int, str], List[Tuple[int, str]]] = {}
+    for p in paths:
+        m = _SEGMENT_RE.search(os.path.basename(p))
+        if m:
+            key = (int(m.group(1)), int(m.group(2)), "")
+            streams.setdefault(key, []).append((int(m.group(3)), p))
+        else:
+            streams.setdefault((0, 0, p), []).append((0, p))
+    its = [_stream([p for _seg, p in sorted(chunks)])
+           for _key, chunks in sorted(streams.items())]
+    return heapq.merge(*its, key=_merge_key)
+
+
+def iter_dir(directory: str, rank: Optional[int] = None,
+             ) -> Iterator[Dict[str, Any]]:
+    """Every record in ``directory``'s segments as a streaming merge in
+    global ``(wall, rank, seq)`` order — :func:`merge_segments` over the
+    directory's segment files.  The bounded-memory read surface
+    (``obs/rca.py`` loads its evidence through it); :func:`load_dir` is
+    this plus materialization."""
+    return merge_segments(segments(directory, rank=rank))
+
+
+def load_dir(directory: str, rank: Optional[int] = None,
+             ) -> List[Dict[str, Any]]:
+    """Every record in ``directory``'s segments, merged and sorted by
+    wall time (the only clock comparable across processes), stable on
+    (rank, seq) — the input ``obs/rca.py`` builds its timeline from.
+    Rides the streaming merge; the final sort only reorders across a
+    backwards system-clock step inside one stream (timsort on the
+    already-merged runs is near-linear)."""
+    recs = list(iter_dir(directory, rank=rank))
+    recs.sort(key=_merge_key)
+    return recs

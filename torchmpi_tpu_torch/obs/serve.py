@@ -30,16 +30,16 @@ on a daemon thread, loopback-bound by default, gated by the ``obs_http``
   lifecycle state and the currently-firing list.
 * ``POST /flight``  — trigger an on-demand flight-recorder dump
   (``obs/flight.py``); returns the bundle path.
+* ``POST /resize``  — queue a resize request for the leader
+  (``runtime/resize.enqueue_request``; 409 while ``resize_enabled`` is
+  off); a non-leader answers a typed 307 naming the leader
+  (``runtime/election.leader_info``).
 
-Three routes wait for modules the port does not have yet, and answer as
+Two routes wait for modules the port does not have yet, and answer as
 the JAX package answers when nothing is armed (ROADMAP.md §C):
 
 * ``GET /retune`` answers ``{"enabled": false}``: there is no retune
   controller until ``collectives/retune.py`` (item 18).
-* ``POST /resize`` still answers the 307 redirect when a ``leader=``
-  provider names another rank; otherwise a JSON object body answers 409
-  (``reason: "resize_not_ported"``): there is no resize plane until
-  ``runtime/resize.py`` (item 16).
 * ``publish_step(numerics=...)`` raises :class:`NumericsNotPorted`: the
   in-step sentinels are ``obs/numerics.py`` (item 17), and
   :func:`metrics_feed` has no numerics clause until then.
@@ -600,16 +600,25 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._send_json(200, {"path": path})
         elif parsed.path == "/resize":
-            # Elastic-resize request inbox.  A NON-leader answers a typed
-            # 307 carrying the leader's endpoint, as in JAX.  The port
-            # has no election plane yet (runtime/election.py, ROADMAP.md
-            # item 16): with no ``leader=`` provider the view is "this
-            # rank leads", JAX's default when nothing elects.
+            # Elastic-resize request inbox (runtime/resize.py): the body
+            # queues for the LEADER rank's controller, which shapes and
+            # validates it at the next step boundary.  Gated by
+            # resize_enabled: an unarmed endpoint must not make
+            # membership mutable from the network.  A NON-leader answers
+            # a typed 307 carrying the current leader's endpoint
+            # (runtime/election.leader_info, or the server's ``leader=``
+            # provider) instead of queueing into an inbox nobody pops.
+            from ..runtime import resize as resize_mod
+
             info = None
             provider = getattr(self.server, "tmpi_leader", None)
             try:
                 if callable(provider):
                     info = provider()
+                else:
+                    from ..runtime import election as election_mod
+
+                    info = election_mod.leader_info()
             except Exception:  # noqa: BLE001 — an unresolvable leader
                 info = None    # view must not 500 the inbox
             if isinstance(info, dict) and not info.get("is_self", True):
@@ -630,18 +639,17 @@ class _Handler(BaseHTTPRequestHandler):
                 doc = None
             if not isinstance(doc, dict):
                 # 400 = fix your payload; 409 below is reserved for the
-                # inbox that cannot queue, so clients can tell the two
-                # apart.
+                # unarmed endpoint (resize_enabled off) so clients can
+                # tell the two apart.
                 self._send_json(400, {"error": "body must be a JSON "
                                                "object resize request"})
                 return
-            # 409, the code JAX gives an unarmed inbox: there is no
-            # resize plane to queue into until runtime/resize.py (ROADMAP.md
-            # item 16), and a request must not vanish into nothing.
-            self._send_json(409, {
-                "error": "no resize plane: runtime/resize.py is not ported "
-                         "yet (ROADMAP.md item 16)",
-                "reason": "resize_not_ported"})
+            try:
+                queued = resize_mod.enqueue_request(doc)
+            except resize_mod.ResizeRejected as e:
+                self._send_json(409, {"error": str(e)})
+                return
+            self._send_json(200, {"queued": queued})
         else:
             self._send_json(404, {"error": f"no route POST {parsed.path}"})
 
@@ -676,8 +684,8 @@ class ObsHTTPServer:
         # resolve the process engine per request.
         self._httpd.tmpi_alerts = alerts
         # Leader view for POST /resize's 307 redirect: a callable
-        # returning {"rank", "is_self", "endpoint"} (JAX's
-        # election.leader_info() shape).  None = this rank leads.
+        # returning runtime/election.leader_info()'s shape.  None =
+        # resolve the process's election view per request.
         self._httpd.tmpi_leader = leader
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, kwargs={"poll_interval": 0.2},

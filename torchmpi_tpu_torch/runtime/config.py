@@ -20,7 +20,8 @@ parameter server (``parameterserver_offload_pool_size``, ``ps_*``), the
 native trace rings and the flight recorder (``obs_trace_ring_capacity``,
 ``obs_flight*``), clock alignment and obsdumps (``obs_clocksync_*``,
 ``obs_dump_dir``), the live endpoint (``obs_http*``), the metrics history
-(``history_*``), the alert plane (``alert_*``) and the logger's level
+(``history_*``), the alert plane (``alert_*``), transport chaos
+(``chaos_*``), elastic resize (``resize_*``) and the logger's level
 (``verbose``).
 """
 
@@ -314,6 +315,36 @@ class Constants:
     # Max seconds a drain waits for in-flight requests before shedding.
     serve_drain_timeout_s: float = _env(
         "TORCHMPI_TPU_SERVE_DRAIN_TIMEOUT_S", 5.0, float)
+
+    # --- transport chaos (runtime/chaos.py: a seeded in-process TCP fault
+    # proxy between ring neighbours; wired by endpoint rewriting, so
+    # nothing on the fast path reads these) ---
+    chaos_enabled: bool = False
+    chaos_seed: int = 0
+    # Added latency per forwarded chunk (plus uniform jitter).
+    chaos_delay_ms: float = 0.0
+    chaos_jitter_ms: float = 0.0
+    # Throughput cap in bytes/second; 0 = unlimited.
+    chaos_bandwidth_bytes_per_s: int = 0
+    # Per-forwarded-chunk probabilities of flipping one byte, RST-closing
+    # the connection, or black-holing it (stop forwarding, keep it open).
+    chaos_corrupt_prob: float = 0.0
+    chaos_reset_prob: float = 0.0
+    chaos_blackhole_prob: float = 0.0
+
+    # --- elastic resize (runtime/resize.py; all reads funnel through
+    # resize.resize_config()) ---
+    # Arms the resize request queue and the live endpoint's POST /resize:
+    # with this off, enqueue_request raises.
+    resize_enabled: bool = _env_bool("TORCHMPI_TPU_RESIZE_ENABLED", False)
+    # Socket deadline (ms) on every out-of-band resize wait: the state
+    # ship to a joiner, the joiner's verdict wait, the rejoin state pull.
+    resize_io_deadline_ms: int = _env(
+        "TORCHMPI_TPU_RESIZE_IO_DEADLINE_MS", 10000, int)
+    # Step boundaries between proposal polls (each poll is one small
+    # broadcast on the control ring); identical on every rank.
+    resize_poll_interval_steps: int = _env(
+        "TORCHMPI_TPU_RESIZE_POLL_INTERVAL_STEPS", 1, int)
 
 
 _constants = Constants()

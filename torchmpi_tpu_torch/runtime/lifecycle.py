@@ -8,6 +8,16 @@ Counterpart of ``torchmpi_tpu/runtime/lifecycle.py``.  :func:`start` joins
 none of them is a world of one), binds the device and pushes the world
 communicator.
 
+A re-formed world (elastic recovery, a resize commit) is started with an
+explicit ``rank``, ``world_size`` and ``init_method``: a fresh rendezvous
+(``file://`` on a filesystem every member sees, or ``tcp://``) that names
+no dead process's store.  ``stop(peers_lost=True)`` tears a world down
+that lost a rank: the ring states are taken down locally
+(``cuda_ring.release_local``), with no barrier that would wait on the
+dead; the fresh world's start frees their blocks after its first
+collective (the hostname exchange), when no survivor is left inside the
+old world's calls.
+
 The device is ``cuda:LOCAL_RANK % device_count``.  Without a GPU,
 :func:`start` raises unless the caller asks for the CPU with
 ``device="cpu"``.  The backend is NCCL only when every rank of the host has
@@ -33,6 +43,8 @@ the shutdown obsdump (``obs_dump_dir``) and closes the endpoint last.
 
 from __future__ import annotations
 
+import datetime
+import gc
 import os
 import socket
 import threading
@@ -84,14 +96,29 @@ def hostnames() -> Optional[Tuple[str, ...]]:
     return _hostnames
 
 
-def start(device: Union[str, torch.device, None] = None) -> torch.device:
+def start(device: Union[str, torch.device, None] = None, *,
+          rank: Optional[int] = None, world_size: Optional[int] = None,
+          init_method: Optional[str] = None,
+          timeout_s: Optional[float] = None) -> torch.device:
     """Join the process group, bind this rank's device, push the world
     communicator and split it by host; returns the device.
     ``device="cpu"`` runs on the CPU (gloo); otherwise a GPU is required.
     The split mode is read from the ``use_tree_communicators`` and
-    ``use_cartesian_communicators`` knobs."""
+    ``use_cartesian_communicators`` knobs.
+
+    ``rank``, ``world_size`` and ``init_method`` (all three together)
+    join a fresh world instead of the environment's: the re-form of an
+    elastic recovery or of a resize commit.  ``timeout_s`` bounds every
+    operation of the new group (a wait on a lost peer then raises instead
+    of hanging for the backend's default half hour)."""
     global _started, _owns_group, _device, _hostnames, _rank
     import torch.distributed as dist
+
+    explicit = (rank, world_size, init_method)
+    if any(v is not None for v in explicit) and None in explicit:
+        raise ValueError("rank, world_size and init_method go together")
+    kw = ({} if timeout_s is None
+          else {"timeout": datetime.timedelta(seconds=timeout_s)})
 
     with _lock:
         if _started:
@@ -106,19 +133,28 @@ def start(device: Union[str, torch.device, None] = None) -> torch.device:
                    torch.device("cuda", _env_int("LOCAL_RANK", 0)
                                 % torch.cuda.device_count()))
             torch.cuda.set_device(dev)
-        world = _env_int("WORLD_SIZE", 1)
+        world = _env_int("WORLD_SIZE", 1) if world_size is None \
+            else world_size
+        if init_method is not None and dist.is_initialized():
+            raise RuntimeError("a fresh world needs the old one torn down "
+                               "first (stop())")
         if not dist.is_initialized():
+            # The ranks of this host share its cards as at the first
+            # start, a re-form included: a shared card is gloo.
             be = choose_backend(dev, _env_int("LOCAL_WORLD_SIZE", world))
-            if "MASTER_ADDR" in os.environ:
+            if init_method is not None:
+                dist.init_process_group(be, init_method=init_method,
+                                        rank=rank, world_size=world, **kw)
+            elif "MASTER_ADDR" in os.environ:
                 dist.init_process_group(be, init_method="env://",
                                         rank=_env_int("RANK", 0),
-                                        world_size=world)
+                                        world_size=world, **kw)
             else:
                 if world != 1:
                     raise RuntimeError(f"WORLD_SIZE={world} without "
                                        f"MASTER_ADDR/MASTER_PORT")
                 dist.init_process_group(be, store=dist.HashStore(), rank=0,
-                                        world_size=1)
+                                        world_size=1, **kw)
             _owns_group = True
         world_comm = Communicator(range(dist.get_world_size()),
                                   my_rank=dist.get_rank())
@@ -126,6 +162,12 @@ def start(device: Union[str, torch.device, None] = None) -> torch.device:
         names = [None] * world_comm.size
         dist.all_gather_object(names, hostname())
         _hostnames = tuple(names)
+        # Every member has reached this start, so no survivor of an old
+        # world is still inside its calls: free the ring blocks that
+        # stop(peers_lost=True) kept for them.
+        from ..collectives import cuda_ring
+
+        cuda_ring.free_retired()
         _init_per_node_communicators(world_comm)
         from ..collectives import selector
 
@@ -175,11 +217,15 @@ def communicator_names() -> str:
     return stack.names()
 
 
-def stop() -> None:
+def stop(peers_lost: bool = False) -> None:
     """Free the ring collectives' staging memory, tear down the
     parameter-server client (when this process used one), drop the
     communicator stack and leave the process group if :func:`start`
-    joined it."""
+    joined it.
+
+    The ring states are freed together with every rank (a collective over
+    the world) unless ``peers_lost``: a world that lost a rank frees them
+    locally, meeting no peer."""
     global _started, _owns_group, _device, _hostnames, _need_inter_node
     import sys
 
@@ -195,7 +241,10 @@ def stop() -> None:
         from ..obs import serve as _obs_serve
 
         _obs_serve.health.set_draining(True)
-        cuda_ring.release_all()
+        if peers_lost:
+            cuda_ring.release_local()
+        else:
+            cuda_ring.release_all()
         ps = sys.modules.get("torchmpi_tpu_torch.parameterserver")
         if ps is not None:
             ps.shutdown()
@@ -205,6 +254,11 @@ def stop() -> None:
         _need_inter_node = False
         if _owns_group and dist.is_initialized():
             dist.destroy_process_group()
+            if peers_lost:
+                # The group closes its connections when its last reference
+                # goes: the survivors still blocked on this rank then fail
+                # at once instead of at the backend's timeout.
+                gc.collect()
         _owns_group = False
         _started = False
         _device = None

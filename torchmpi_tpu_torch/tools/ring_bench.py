@@ -10,7 +10,8 @@ and checks its result against the kernel's plain version over all inputs
 ``_oneshot_allgather_plain``), **bit for bit**.  Cases: allreduce and
 allgather in f32, bf16 and int32, reduce-scatter in f32 and bf16, each at
 n = 25,557,032 (ResNet-50's parameter count), 3,000 (not lane-aligned) and
-5 (8 for the reduce-scatter, which needs p | n); the small sizes once more
+5 (for the reduce-scatter, which needs p | n, the least common multiple of
+8 and p); the small sizes once more
 with ``max_buffer_size`` cut to 64 KiB (sub-chunks) and one staging slot.
 
 Then the rings of one ResNet-50 training step as ``AllReduceSGDEngine``
@@ -39,14 +40,17 @@ must be zeroed before a peer can signal into it), bit for bit against
 the plain version, then for the allreduce and for the allgather three
 calls back to back on one collective id (both staging slots, then the
 first again; the second input an offset view, which takes the kernels'
-unaligned path), each bit for bit, and last, for each of the two, two
+unaligned path), each bit for bit, then, for each of the two, two
 forced stalls: rank 1 skips a ring, and rank 0 must raise ``RingError``
 within the deadline; then rank 1 runs that ring late, after rank 0 gave
 up on it, and must raise in turn without lowering rank 0's released
-READY word.
+READY word.  Last, the same stall of B1 with rank 0 tearing its ring
+states down (``release_local``) before rank 1 enters: rank 1's late call
+must raise ``RingTimeout``, reading rank 0's error word in the block rank
+0 keeps until every rank has left the call.
 
 Prints one JSON line per case and a summary; ``chip_smoke.py`` calls
-:func:`run` for p = 2 and p = 4.
+:func:`run` for p = 2 and p = 4, and with ``quick`` for p = 3.
 
     python -m torchmpi_tpu_torch.tools.ring_bench --breakdown
 
@@ -74,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import sys
 import time
@@ -92,20 +97,23 @@ FRESH_SLEEP_CYCLES = 400_000_000
 # their size.
 BACK_TO_BACK_COLLECTIVE_IDS = {"allreduce": 0x7D, "allgather": 0x7C}
 BACK_TO_BACK_N = 1_000_003
-# The stalls: a collective id of its own for each kind.
+# The stalls: a collective id of its own for each kind, and one for the
+# stall whose first rank tears down before the late one enters.
 STALL_COLLECTIVE_IDS = {"allreduce": 0x7F, "allgather": 0x7B}
+TEARDOWN_COLLECTIVE_ID = 0x7A
 # The breakdown: unprofiled rounds (host clock) and profiled rounds.
 BREAKDOWN_ROUNDS = 5
 PROFILED_ROUNDS = 3
 
 
-def _cases(quick: bool):
+def _cases(quick: bool, p: int):
     out = []
     for kind in KINDS:
         dtypes = ("float32", "bfloat16") + (("int32",)
                                             if kind != "reduce_scatter"
                                             else ())
-        small = 8 if kind == "reduce_scatter" else 5
+        # A reduce-scatter's n is a multiple of p: 8 at p = 2 and 4.
+        small = math.lcm(8, p) if kind == "reduce_scatter" else 5
         for dt in dtypes:
             sizes = (3000, small) if quick else (BIG_N, 3000, small)
             for n in sizes:
@@ -174,7 +182,7 @@ def rank_main(quick: bool, seed: int) -> dict:
                   "reduce_scatter": cr._oneshot_reduce_scatter_plain,
                   "allgather": cr._oneshot_allgather_plain}
         records = []
-        for i, case in enumerate(_cases(quick)):
+        for i, case in enumerate(_cases(quick, p)):
             config.reset(**case["knobs"])
             xs = _inputs(torch, case, p, seed + i)
             got = kernels[case["kind"]](xs[me])
@@ -225,7 +233,10 @@ def rank_main(quick: bool, seed: int) -> dict:
                 "back_to_back": {k: _back_to_back(torch, cr, comm, k, seed)
                                  for k in BACK_TO_BACK_COLLECTIVE_IDS},
                 "stalls": {k: _stalls(torch, dist, cr, comm, k, x[:4096])
-                           for k in STALL_COLLECTIVE_IDS}}
+                           for k in STALL_COLLECTIVE_IDS},
+                # Last: it takes every ring state of the world down.
+                "teardown": _teardown_stall(torch, dist, cr, comm,
+                                            x[:4096])}
     finally:
         lifecycle.stop()
 
@@ -430,6 +441,65 @@ def _stalls(torch, dist, cr, comm, kind: str, x) -> dict:
     finally:
         cr.RING_TIMEOUT_S = old_timeout
     return {"stall": stall, "late": {**lates[1], **lates[0]}}
+
+
+def _teardown_stall(torch, dist, cr, comm, x) -> dict:
+    """A stall in which the rank that gave up tears down before the late
+    rank enters, as a survivor of a lost peer does: rank 1 skips a B1
+    call that rank 0 makes, rank 0 raises and takes its ring states down
+    locally (``release_local``), then rank 1 makes the call late and must
+    raise ``RingTimeout`` in turn (at p = 2 its REDUCE reads rank 0's
+    error word through its mapping of rank 0's kept block).  Then every
+    rank takes its states down and frees the kept blocks after a
+    barrier; none may be left."""
+    me = comm.rank
+    cid = TEARDOWN_COLLECTIVE_ID
+    _ring_call(cr, comm, "allreduce", x, cid)
+    torch.cuda.synchronize()
+    dist.barrier()
+    old_timeout = cr.RING_TIMEOUT_S
+    cr.RING_TIMEOUT_S = STALL_TIMEOUT_S
+
+    def attempt():
+        t0 = time.monotonic()
+        try:
+            _ring_call(cr, comm, "allreduce", x, cid)
+            rec = {"raised": None}
+        except cr.RingError as e:
+            rec = {"raised": type(e).__name__, "message": str(e)}
+        rec["seconds"] = time.monotonic() - t0
+        return rec
+
+    try:
+        rec = {}
+        if me == 0:
+            rec["gave_up"] = attempt()
+            cr.release_local()
+            rec["kept_blocks"] = len(cr._retired)
+        dist.barrier()
+        if me == 1:
+            rec["late"] = attempt()
+        dist.barrier()
+        cr.release_local()
+        dist.barrier()
+        cr.free_retired()
+        rec["left"] = len(cr._states) + len(cr._retired)
+        recs = [None] * comm.size
+        dist.all_gather_object(recs, rec)
+    finally:
+        cr.RING_TIMEOUT_S = old_timeout
+    return {"gave_up": recs[0]["gave_up"],
+            "kept_blocks": recs[0]["kept_blocks"], "late": recs[1]["late"],
+            "left": [r["left"] for r in recs]}
+
+
+def teardown_ok(rec: dict) -> bool:
+    """Both stalled calls of :func:`_teardown_stall` raised ``RingTimeout``
+    within five deadlines, rank 0 kept its blocks, and no state is left."""
+    return (all(rec[k]["raised"] == "RingTimeout"
+                and rec[k]["seconds"] < 5 * STALL_TIMEOUT_S
+                for k in ("gave_up", "late"))
+            and rec["kept_blocks"] > 0 and not any(rec["left"]))
 
 
 def _counts(cr) -> dict:
@@ -759,6 +829,8 @@ def main() -> int:
     print(json.dumps({"collectives_launches": results[0]["collectives_launches"],
                       "stalls": stalls}), flush=True)
     ok = ok and stalls_ok(stalls)
+    print(json.dumps({"teardown": results[0]["teardown"]}), flush=True)
+    ok = ok and teardown_ok(results[0]["teardown"])
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
 
