@@ -384,6 +384,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    runs 3 times a step at p = 4, 3 and 2; ``obs/rca.analyze`` over the
    journals names ``aborted_resize`` and ``leader_failover``.  The kill
    seconds, restart seconds and ``scale.pause_ms`` are printed.
+24. mfu (run after vit): ``utils/tester.mfu_sweep`` on Llama-3-8B, all
+   MFU_LAYERS (32) layers, bf16, flash, L = 2048, batch 1 and 2 under
+   remat "none" and "dots", ``tester.sweep_batch``'s tokens, one warmup
+   step (the FLOP probe's) and 3 timed: each cell's ms, TFLOP/s, MFU, peak
+   GB and the LM head's share of its FLOPs printed; its B4-B6 launches as
+   ``_mfu_expected`` predicts (B4 1 or 2 a layer a step, B5 and B6 1);
+   the probe's flash share equal to the closed formula
+   (``ops/flash_attention.attention_flops``), its step FLOPs within
+   MFU_FLOPS_RTOL of 6 x matmul parameters x tokens plus that formula,
+   and its first loss within MFU_LOSS_RTOL of full attention's on the
+   same parameters and tokens.  The kernel phases hold B4-B6 at its
+   batch-2 shape (``mfu_bf16``: BH = 64, L = 2048, causal).
+25. numerics (after elastic): the numerics plane on config 1
+   (``tools/numerics_drill.py``): four ranks spawned on the card, the MLP
+   at full width, f32, global batch 128, ``compiled`` through B1 with
+   ``obs_http`` on and an ``Auditor`` over a host ring.  The same seeds
+   with ``numerics_mode`` "off" and "audit" (interval 2): parameters
+   bit-equal, B1 launches equal (3 a step); every step's sentinels within
+   1e-5 relative (plus 1e-6) of a float64 recomputation from every rank's
+   gathered gradients.  One ulp on one element of rank 2's ``w1``: the
+   next audit names ``['w1']`` and rank 2 on every rank, rank 2's
+   ``/healthz`` answers 503 ``diverged``, ``tmpi_numerics_divergence_total``
+   moves, a flight bundle holds the leaf, ``cluster.job_view`` over the
+   four endpoints reads ``diverged`` at rank 2 and ``cluster.federate``
+   labels every sample with its rank; a clean audit clears it.  A NaN in
+   one rank's batch is counted on that step by every rank's sentinels.
+   ``tmpi_step_flops`` equals the MLP step's analytic count and
+   ``tmpi_mfu_estimate`` is published; the sentinels' cost a step and the
+   audit's ms are printed.
 
 Then a ``timing`` line with each phase's seconds (the build included, the
 imports before it not) and the card memory each left allocated (before
@@ -635,11 +664,14 @@ def graph_ms(torch, fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def causal_pairs(lq: int, lk: int, causal: bool) -> int:
-    """(q, k) pairs a mask keeps: all of them, or row >= col."""
-    if causal:
-        return sum(min(lk, i + 1) for i in range(lq))
-    return lq * lk
+def attention_flops(bh, lq, lk, d, causal, part) -> float:
+    """The package's closed formula for one attention call's FLOPs over
+    the (q, k) pairs the mask keeps (``ops/flash_attention.attention_flops``,
+    the one the step FLOP probe credits): ``part`` "fwd", "dq" or "dkv"."""
+    from torchmpi_tpu_torch.ops.flash_attention import (
+        attention_flops as flops)
+
+    return flops(bh, lq, lk, d, causal, part)
 
 
 def bound_ms(ops: float, nbytes: float, in_dtype: str):
@@ -656,7 +688,7 @@ def attention_bound_ms(bh, lq, lk, d, causal, in_dtype, in_bytes, out_bytes):
     bytes (q, k, v read once, o and lse written once) over HBM rate and its
     multiply-adds (the (q, k) pairs this causal mask keeps) over the peak
     rate of the input type."""
-    ops = 4.0 * bh * causal_pairs(lq, lk, causal) * d   # q.k and p.v
+    ops = attention_flops(bh, lq, lk, d, causal, "fwd")   # q.k and p.v
     nbytes = bh * (lq * d * in_bytes + 2 * lk * d * in_bytes
                    + lq * d * out_bytes + lq * 4)
     return bound_ms(ops, nbytes, in_dtype)
@@ -665,7 +697,7 @@ def attention_bound_ms(bh, lq, lk, d, causal, in_dtype, in_bytes, out_bytes):
 def attention_tflops(bh, lq, lk, d, causal, ms):
     """The forward's rate: its multiply-adds over the kept (q, k) pairs
     (q.k and p.v) in TFLOP/s at ``ms`` a call."""
-    return 4.0 * bh * causal_pairs(lq, lk, causal) * d / ms / 1e9
+    return attention_flops(bh, lq, lk, d, causal, "fwd") / ms / 1e9
 
 
 def attention_bwd_bound_ms(kernel, bh, lq, lk, d, causal, in_dtype, in_bytes,
@@ -674,8 +706,8 @@ def attention_bwd_bound_ms(kernel, bh, lq, lk, d, causal, in_dtype, in_bytes,
     the kept pairs (s, dp, dq) and writes dq; ``"dkv"`` four (s, dp, dv,
     dk) and writes dk and dv.  Both read q, k, v, do once and lse and
     delta (f32) once."""
-    products, out_rows = {"dq": (3, lq), "dkv": (4, 2 * lk)}[kernel]
-    ops = 2.0 * products * bh * causal_pairs(lq, lk, causal) * d
+    out_rows = {"dq": lq, "dkv": 2 * lk}[kernel]
+    ops = attention_flops(bh, lq, lk, d, causal, kernel)
     nbytes = bh * ((2 * lq + 2 * lk) * d * in_bytes + 2 * lq * 4
                    + out_rows * d * out_bytes)
     return bound_ms(ops, nbytes, in_dtype)
@@ -684,8 +716,7 @@ def attention_bwd_bound_ms(kernel, bh, lq, lk, d, causal, in_dtype, in_bytes,
 def attention_bwd_tflops(kernel, bh, lq, lk, d, causal, ms):
     """A backward pass's rate: its products over the kept pairs (three for
     ``"dq"``, four for ``"dkv"``) in TFLOP/s at ``ms`` a call."""
-    products = {"dq": 3, "dkv": 4}[kernel]
-    return 2.0 * products * bh * causal_pairs(lq, lk, causal) * d / ms / 1e9
+    return attention_flops(bh, lq, lk, d, causal, kernel) / ms / 1e9
 
 
 def conv_bound_ms(n, h, w, c, cout, in_dtype, esize):
@@ -854,6 +885,8 @@ def phase_kernel(torch, fa, split):
         ("main_f32", 32, 2048, 2048, True, f32, None, 2e-4, 0.0),
         ("main_f32_bf16out", 32, 2048, 2048, True, f32, bf16, 1e-2, 1e-2),
         ("main_bf16_f32out", 32, 2048, 2048, True, bf16, f32, 2e-4, 0.0),
+        # The mfu phase's batch-2 shape: 2 x 32 heads.
+        ("mfu_bf16", 64, 2048, 2048, True, bf16, None, 1e-2, 1e-2),
         ("noncausal_bf16", 8, 1024, 1024, False, bf16, None, 1e-2, 1e-2),
         ("lk_ne_lq_f32out", 32, 512, 2048, True, bf16, f32, 2e-4, 0.0),
         ("lk_ne_lq_bf16", 32, 512, 2048, True, bf16, None, 1e-2, 1e-2),
@@ -973,6 +1006,8 @@ def phase_kernel_bwd(torch, fa, split):
         ("main_f32", 32, 2048, 2048, True, f32, None, 5e-4, 1e-3, False),
         ("main_f32_bf16out", 32, 2048, 2048, True, f32, bf16, 1e-2, 1e-2,
          False),
+        # The mfu phase's batch-2 shape: 2 x 32 heads.
+        ("mfu_bf16", 64, 2048, 2048, True, bf16, None, 1e-2, 1e-2, False),
         ("noncausal_bf16", 8, 1024, 1024, False, bf16, None, 1e-2, 1e-2,
          False),
         ("block_lk_ne_lq_f32out", 32, 512, 2048, True, bf16, f32, 5e-4,
@@ -5300,9 +5335,156 @@ def phase_elastic():
     return summary
 
 
+# The mfu phase: tester.mfu_sweep over Llama-3-8B in bf16 with flash
+# attention at L = 2048, all MFU_LAYERS layers.  step_flops must lie within
+# MFU_FLOPS_RTOL of 6 x (matmul parameters) x tokens plus the attention
+# formula: the probe counts every matrix product (2 m n k, the forward, and
+# the weight and input gradients) and each flash operator by the formula,
+# so the two agree to rounding.  Each cell's first loss (the probed step's, from fresh parameters) must
+# lie within MFU_LOSS_RTOL of full attention's on the same parameters and
+# tokens: the train phase's bf16 tolerance.
+MFU_LAYERS = 32
+MFU_BATCHES = (1, 2)
+MFU_REMATS = ("none", "dots")
+MFU_L = 2048
+MFU_WARMUP, MFU_ITERS = 1, 3
+MFU_FLOPS_RTOL = 1e-3
+MFU_LOSS_RTOL = 1e-2
+
+
+def _mfu_expected(llama, fa, cfg, batch: int, remat: str) -> dict:
+    """What the code predicts for one mfu cell: the three kernels' launches
+    over its warmup and timed steps, the probe's flash share, its whole
+    step's FLOPs and the LM head's share of them."""
+    steps = MFU_WARMUP + MFU_ITERS
+    L, D, H = MFU_L, cfg.head_dim, cfg.n_heads
+    fwd = FWD_PER_LAYER[remat] * cfg.n_layers
+    flash = (fwd * fa.attention_flops(batch * H, L, L, D, True, "fwd")
+             + cfg.n_layers * fa.attention_flops(batch * H, L, L, D, True,
+                                                 "bwd"))
+    kv = cfg.n_kv_heads * D
+    per_layer = (2 * cfg.d_model * cfg.d_model + 2 * cfg.d_model * kv
+                 + 3 * cfg.d_model * cfg.d_ff)
+    head = 6.0 * cfg.d_model * cfg.vocab * batch * L
+    step = 6.0 * cfg.n_layers * per_layer * batch * L + head + flash
+    return {"launches": {"flash_attention_fwd": steps * fwd,
+                         "flash_attention_bwd_dq": steps * cfg.n_layers,
+                         "flash_attention_bwd_dkv": steps * cfg.n_layers},
+            "flash_flops": flash, "step_flops": step,
+            "head_share": head / step}
+
+
+def _mfu_reference_losses(torch, llama, tester, cfg) -> dict:
+    """Full attention's loss by batch size on the sweep's fresh parameters
+    (``llama.init(0)``, as ``mfu_sweep`` draws them) and tokens."""
+    loss_fn = llama.make_loss_fn(cfg, attn="full")
+    ref = {}
+    for b in MFU_BATCHES:
+        params = llama.init(0, cfg, dtype=torch.bfloat16, device="cuda")
+        batch = tester.sweep_batch(b, MFU_L, cfg.vocab, "cuda")
+        with torch.no_grad():
+            ref[b] = float(loss_fn(params, batch))
+        del params, batch
+    return ref
+
+
+def phase_mfu(torch, llama, fa) -> dict:
+    """``tester.mfu_sweep`` on Llama-3-8B (bf16, flash, L = 2048, batch 1
+    and 2, remat "none" and "dots"): each cell's ms, TFLOP/s, MFU, peak GB
+    and the LM head's share of its FLOPs; its B4-B6 launches as predicted,
+    the probe's flash share equal to the closed formula, its FLOPs within
+    MFU_FLOPS_RTOL of 6 N T plus that formula and its first loss within
+    MFU_LOSS_RTOL of full attention's."""
+    from torchmpi_tpu_torch.utils import tester
+
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=MFU_LAYERS)
+    ref = _mfu_reference_losses(torch, llama, tester, cfg)
+    cells = []
+
+    def report(line):
+        # mfu_sweep reports each cell as it ends: its launches are the
+        # counts since the last report.
+        cells.append({"line": line, "launches": read_counts(fa)})
+        reset_counts(fa)
+
+    reset_counts(fa)
+    res = tester.mfu_sweep(MFU_BATCHES, MFU_REMATS, seq_len=MFU_L,
+                           warmup=MFU_WARMUP, iters=MFU_ITERS, cfg=cfg,
+                           report=report, attn="flash",
+                           dtype=torch.bfloat16)
+    failed, recs, total = [], [], {k: 0 for k in COUNTERS}
+    for r, cell in zip(res, cells):
+        want = _mfu_expected(llama, fa, cfg, r.batch, r.remat)
+        rel = abs(r.step_flops - want["step_flops"]) / want["step_flops"]
+        loss_rel = abs(r.first_loss - ref[r.batch]) / abs(ref[r.batch])
+        rec = {"batch": r.batch, "seq": r.seq_len, "remat": r.remat,
+               "n_layers": cfg.n_layers,
+               "ms": r.mean_seconds * 1e3, "min_ms": r.min_seconds * 1e3,
+               "tflops": r.flops_per_s / 1e12, "mfu": r.mfu_estimate,
+               "peak_gb": (None if r.peak_hbm_bytes is None
+                           else r.peak_hbm_bytes / 1e9),
+               "step_flops": r.step_flops,
+               "expected_step_flops": want["step_flops"],
+               "step_flops_rel_err": rel, "flash_flops": r.flash_flops,
+               "expected_flash_flops": want["flash_flops"],
+               "head_flops_share": want["head_share"],
+               "first_loss": r.first_loss,
+               "first_loss_full_attention": ref[r.batch],
+               "first_loss_rel_err": loss_rel,
+               "launches": cell["launches"],
+               "expected_launches": want["launches"],
+               "line": cell["line"]}
+        emit(phase="mfu_cell", **rec)
+        recs.append(rec)
+        for k, v in cell["launches"].items():
+            total[k] += v
+        tag = f"b={r.batch} remat={r.remat}"
+        if cell["launches"] != want["launches"]:
+            failed.append(f"{tag}: launches {cell['launches']}")
+        if r.flash_flops != want["flash_flops"]:
+            failed.append(f"{tag}: flash share {r.flash_flops} != "
+                          f"{want['flash_flops']}")
+        if not rel <= MFU_FLOPS_RTOL:
+            failed.append(f"{tag}: step_flops {r.step_flops} is {rel:.3g} "
+                          f"from {want['step_flops']}")
+        if not (math.isfinite(r.first_loss) and loss_rel < MFU_LOSS_RTOL):
+            failed.append(f"{tag}: first loss {r.first_loss} is "
+                          f"{loss_rel:.3g} from full attention's "
+                          f"{ref[r.batch]}")
+        if not (r.mfu_estimate and 0 < r.mfu_estimate < 1):
+            failed.append(f"{tag}: mfu {r.mfu_estimate}")
+    if len(recs) != len(MFU_BATCHES) * len(MFU_REMATS):
+        failed.append(f"{len(recs)} cells")
+    emit(phase="mfu", n_layers=MFU_LAYERS, cells=len(recs),
+         flops_rtol=MFU_FLOPS_RTOL, loss_rtol=MFU_LOSS_RTOL,
+         launches=total, failed=failed)
+    if failed:
+        raise AssertionError(f"mfu: {failed}")
+    return {"cells": recs, "launches": total}
+
+
+def phase_numerics():
+    """The numerics plane on config 1 at p = 4 on the card
+    (``tools/numerics_drill.py``): every check of the drill must hold.
+    Its ranks' B1 counts start at 0 in each spawned process and are read
+    from their records."""
+    import tempfile
+
+    from torchmpi_tpu_torch.tools import numerics_drill
+
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".numerics_") as d:
+        out = numerics_drill.run("cuda", d)
+    summary = numerics_drill.summary(out)
+    failed = numerics_drill.checks(out)
+    emit(phase="numerics", **summary, failed=failed)
+    if failed:
+        raise AssertionError(f"numerics: {failed}")
+    return summary
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
                        async_launches, async_rec, mnist_rec, options,
-                       hierarchy, vit_rings, elastic):
+                       hierarchy, vit_rings, elastic, numerics):
     """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
     work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
     an eager_async step beside (times, bound and the largest error over
@@ -5315,7 +5497,9 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
     sweep; hierarchy: the world-level allreduce under the span over both
     levels of a 2x2 split, B1 only; vit_dp: ViT-B/16's gradient rings on
     both ranks, B1 only; elastic: config 1's rings in the worlds the
-    elastic drill re-forms, B1 only)."""
+    elastic drill re-forms, B1 only; numerics: config 1's rings at p = 4
+    in the numerics drill's runs (off, audit, the checked audit run, NaN),
+    B1 only)."""
     replaces, function, kind, library = RING_KERNELS[name]
     big = next(r for r in rings[2]["records"]
                if r["kind"] == kind and "kernel_ms" in r)
@@ -5332,7 +5516,8 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
                "tester": options["tester"]["ring"]["launches"][name],
                "hierarchy": hierarchy["launches"][name],
                "vit_dp": vit_rings if name == "ring_allreduce" else 0,
-               "elastic": elastic if name == "ring_allreduce" else 0}
+               "elastic": elastic if name == "ring_allreduce" else 0,
+               "numerics": numerics if name == "ring_allreduce" else 0}
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     err = max(r["max_abs_err"] for p in (2, 4)
               for r in rings[p]["records"] if r["kind"] == kind)
@@ -5631,8 +5816,11 @@ def main() -> int:
     vit_rec = timed("vit", phase_vit, torch, vit, llama, fa, split)
     launches.update(vit_rec["launches"])
     torch.cuda.empty_cache()
+    launches["mfu"] = timed("mfu", phase_mfu, torch, llama, fa)["launches"]
+    torch.cuda.empty_cache()
     timed("parameterserver", phase_parameterserver, torch, fa)
     elastic = timed("elastic", phase_elastic)
+    numerics = timed("numerics", phase_numerics)
     emit(phase="timing", seconds=took, total_s=time.perf_counter() - start,
          held_gb_after=held)
 
@@ -5649,7 +5837,8 @@ def main() -> int:
                              resnet_rec, async_launches, async_rec,
                              mnist_rec, options, hierarchy,
                              vit_rec["ring_allreduce"],
-                             elastic["ring_allreduce_launches"])
+                             elastic["ring_allreduce_launches"],
+                             numerics["b1_launches_all_ranks"])
           for name in RING_KERNELS),
         conv_kernel_record(conv_recs, conv_launches),
     ])

@@ -631,3 +631,50 @@ def test_elastic_example_refuses_the_cpu_unless_asked(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert mnist_elastic.main(["--nproc", "4"]) == 2
     assert "--device cpu" in capsys.readouterr().err
+
+
+SLICE21_MODULES = ["obs/numerics.py", "obs/cluster.py", "obs/__main__.py",
+                   "tools/numerics_drill.py", "utils/tester.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE21_MODULES)
+def test_slice21_modules_are_checked(rel):
+    """The import check above covers the numerics plane, cluster
+    federation, the obs CLI, the numerics drill and the tester's
+    ``mfu_sweep``."""
+    assert ROOT / "torchmpi_tpu_torch" / rel in PORT_FILES
+
+
+def test_numerics_plane_and_cli_run_without_jax_loaded():
+    """The slice's modules import, and the CLI's ``snapshot`` runs, in a
+    fresh interpreter that loads neither JAX nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import torchmpi_tpu_torch.obs.numerics\n"
+        "import torchmpi_tpu_torch.obs.cluster\n"
+        "import torchmpi_tpu_torch.tools.numerics_drill\n"
+        "from torchmpi_tpu_torch.obs import __main__ as cli\n"
+        "from torchmpi_tpu_torch.utils import tester\n"
+        "assert cli.main(['snapshot']) == 0\n"
+        "assert callable(tester.mfu_sweep)\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'jaxlib', 'torchmpi_tpu')]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_cli_drill_and_mfu_sweep_raise_without_a_gpu(monkeypatch):
+    from torchmpi_tpu_torch.obs import __main__ as cli
+    from torchmpi_tpu_torch.tools import numerics_drill
+    from torchmpi_tpu_torch.utils import tester
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tester.mfu_sweep((1,), ("none",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["drill", "--numerics", "--quick"])
+    assert numerics_drill.main([]) == 2

@@ -278,15 +278,45 @@ def test_publish_step_and_input_match_jax(phases):
 
 
 def test_publish_step_numerics_waits_for_item_17():
-    reg = tmetrics.Registry()
-    with pytest.raises(tserve.NumericsNotPorted, match="item 17"):
-        tserve.publish_step(0.1, 1, 0, 1.0, registry=reg,
-                            numerics={"nonfinite": 0})
-    assert reg.collect() == []
-    assert issubclass(tserve.NumericsNotPorted, NotImplementedError)
+    """``publish_step(numerics=...)`` records the sentinels
+    (``obs/numerics.record_sentinels``): the same stats give the same
+    exposition byte for byte in both packages, and the step gauges beside
+    them."""
+    from torchmpi_tpu.obs import numerics as jnumerics
+    from torchmpi_tpu_torch.obs import numerics as tnumerics
+
+    rng = np.random.default_rng(21)
+    steps = [{"bucket_grad_norms": rng.uniform(1e-3, 50, 3).astype(
+                  np.float32),
+              "grad_norm": np.float32(rng.uniform(0.1, 10)),
+              "nonfinite_count": np.int32(n),
+              "update_ratio": np.float32(rng.uniform(1e-4, 1e-2))}
+             for n in (0, 3, 0)]
+
+    def run(serve, metrics, numerics, convert):
+        numerics.reset()
+        reg = metrics.Registry()
+        for t, st in enumerate(steps):
+            serve.publish_step(0.1, 32, 4096, 0.9, step=t, registry=reg,
+                               numerics={k: convert(v)
+                                         for k, v in st.items()})
+        hist = [{k: v for k, v in r.items() if k != "wall_time"}
+                for r in numerics.history()]
+        numerics.reset()
+        return reg.to_prometheus(), hist
+
+    got = run(tserve, tmetrics, tnumerics,
+              lambda v: torch.as_tensor(np.asarray(v)))
+    want = run(jserve, jmetrics, jnumerics, lambda v: v)
+    assert got == want
+    assert "tmpi_numerics_nonfinite_total 3" in got[0]
+    assert "tmpi_engine_steps_total 3" in got[0]
 
 
 def test_metrics_feed_gate_matches_jax_without_numerics():
+    """The feed gate's four clauses (endpoint, its knob, tracing, a
+    sentinel mode of the numerics plane) in both packages, and the
+    planes' knob reads."""
     for m in (JAX, PORT):
         assert m["serve"].metrics_feed() is False
         m["config"].set("obs_trace", True)
@@ -295,12 +325,13 @@ def test_metrics_feed_gate_matches_jax_without_numerics():
         m["config"].set("obs_http", True)
         assert m["serve"].metrics_feed() is True
         m["config"].reset()
+        for mode, fed in (("off", False), ("sentinel", True),
+                          ("audit", True)):
+            m["config"].set("numerics_mode", mode)
+            assert m["serve"].metrics_feed() is fed
+        m["config"].reset()
     assert tnative.serve_config() == jnative.serve_config()
-    # JAX's cluster plane also reads obs_federation_fanout, for
-    # obs/cluster.py, which the port does not have yet.
-    tcluster, jcluster = tnative.cluster_config(), jnative.cluster_config()
-    assert set(jcluster) - set(tcluster) == {"federation_fanout"}
-    assert tcluster == {k: jcluster[k] for k in tcluster}
+    assert tnative.cluster_config() == jnative.cluster_config()
 
 
 # ------------------------------------------------------------- history

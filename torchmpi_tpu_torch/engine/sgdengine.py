@@ -71,6 +71,18 @@ staged bytes, overlap fraction and phase decomposition
 through ``obs/serve.publish_step``, which beats the ``engine_step`` health
 mark; with the gate shut a step only beats the mark.  ``train`` clears the
 mark when it returns, so a loop that ended does not read as stalled.
+
+The numerics plane (``obs/numerics.py``), as in JAX: with
+``numerics_mode`` ``sentinel`` or ``audit`` a ``compiled`` step computes
+``sentinel_stats`` over the synced gradients and the applied update (under
+zero1 over the synced row blocks, summed over the ranks) and publishes
+them through ``publish_step``; ``"off"`` adds no launch and no host read.
+An installed ``numerics_auditor`` (an ``obs.numerics.Auditor`` over a host
+ring) is consulted after every step and audits in ``audit`` mode on its
+cadence.  Under the feed gate the first ``compiled`` step runs under the
+FLOP probe (``numerics.probe_step_flops``), and the later steps publish
+``tmpi_step_flops`` and ``tmpi_mfu_estimate`` (``numerics.publish_flops``);
+the probed step, slowed by the counter, publishes no MFU.
 """
 
 from __future__ import annotations
@@ -87,6 +99,7 @@ from ..collectives import cuda_ring, eager, gspmd
 from ..data.pipeline import engine_wrap
 from ..data.staging import Staged, stage_rank_major
 from ..obs import native as _obs_native
+from ..obs import numerics as _numerics
 from ..obs import serve as _obs_serve
 from ..runtime import communicator as _comm_mod
 from ..runtime import config
@@ -278,6 +291,40 @@ def _allgather_rows(comm, blocks, idxs) -> Dict[int, torch.Tensor]:
     return out
 
 
+def _zero1_sentinels(comm, grads, plan, g_mine, updates, p_mine):
+    """``numerics.sentinel_stats`` of a zero1 step over the whole tree:
+    each leaf's squared norms (gradient, update, parameter) and non-finite
+    count, on the synced row block of a sharded leaf (``plan``) and on the
+    whole synced leaf otherwise, summed over the ranks in one allreduce
+    (a whole leaf counted on rank 0 alone), then folded into the gradient
+    buckets as ``sentinel_stats`` folds them."""
+    from ..nn import bucketing
+
+    def sq(leaves):
+        return torch.stack([t.float().square().sum() for t in leaves])
+
+    n = len(g_mine)
+    bad = torch.stack([(t.numel() - torch.isfinite(t).sum()).float()
+                       for t in g_mine])
+    weight = torch.tensor([1.0 if s or comm.rank == 0 else 0.0
+                           for s in plan], device=bad.device)
+    per_leaf = torch.cat([sq(g_mine), bad, sq(updates), sq(p_mine)])
+    per_leaf = eager.allreduce(comm, per_leaf * weight.repeat(4),
+                               op="sum").view(4, n)
+    g_sq, bad, u_sq, p_sq = per_leaf
+    buckets = bucketing.plan_buckets(grads)
+    owner = torch.empty(n, dtype=torch.long)
+    for b, spec in enumerate(buckets.specs):
+        owner[list(spec.leaf_indices)] = b
+    bucket_sq = torch.zeros(len(buckets.specs), device=g_sq.device)
+    bucket_sq.index_add_(0, owner.to(g_sq.device), g_sq)
+    return {"bucket_grad_norms": bucket_sq.sqrt(),
+            "grad_norm": g_sq.sum().sqrt(),
+            "nonfinite_count": bad.sum().to(torch.int32),
+            "update_ratio": u_sq.sum().sqrt()
+            / p_sq.sum().sqrt().clamp_min(1e-12)}
+
+
 class AllReduceSGDEngine:
     """Data-parallel training loop; see the module docstring."""
 
@@ -318,6 +365,17 @@ class AllReduceSGDEngine:
         # its on_boundary_fault (a dead leader fails over, as a commit).
         self.resize_controller = None
         self.election_coordinator = None
+        # The numerics plane (obs/numerics.py): whether this train() call's
+        # compiled steps compute the sentinels, and the optional cross-rank
+        # auditor (an Auditor over a host ring) consulted after each step.
+        self._sentinels_on = False
+        self.numerics_auditor = None
+        # The compiled step's FLOPs, probed on its first fed step; a new
+        # step (another loss, optimizer, option or numerics mode) probes
+        # again, as a JAX recompile does.
+        self._step_flops = None
+        self._flops_probed = False
+        self._probe_key = None
 
     @property
     def comm(self):
@@ -423,6 +481,8 @@ class AllReduceSGDEngine:
         self._check_mode()
         comm = self.comm
         device = _tree.leaves(params)[0].device
+        if self.mode == "compiled":
+            self._numerics_mode()
         state: Dict[str, Any] = {
             "params": params, "opt_state": opt_state, "epoch": 0,
             "t": int(start_step), "loss_meter": AverageValueMeter(),
@@ -453,6 +513,9 @@ class AllReduceSGDEngine:
                     if (self.check_frequency and self.mode != "compiled"
                             and state["t"] % self.check_frequency == 0):
                         mpinn.check_with_allreduce(state["params"], comm)
+                    if self.numerics_auditor is not None:
+                        self.numerics_auditor.maybe_audit(state["params"],
+                                                          state["t"])
                     self._hook("on_update", state)
                     if self.resize_controller is not None and \
                             self._resize_boundary(state):
@@ -467,6 +530,22 @@ class AllReduceSGDEngine:
             # reading as stalled on /healthz.
             _obs_serve.health.clear("engine_step")
         return state
+
+    def _numerics_mode(self) -> None:
+        """Read ``numerics_mode`` for a compiled ``train`` call: validate
+        it, set whether the steps compute the sentinels, and forget the
+        probed FLOPs when the step is another one than the probed."""
+        mode = str(config.get("numerics_mode"))
+        if mode not in _numerics.MODES:
+            raise ValueError(f"numerics_mode must be one of "
+                             f"{_numerics.MODES}, got {mode!r}")
+        key = (self.loss_fn, self.lr, self.optimizer, self.zero1,
+               self.accum_steps, self._rings(), mode)
+        if key != self._probe_key:
+            self._probe_key = key
+            self._step_flops = None
+            self._flops_probed = False
+        self._sentinels_on = mode in _numerics.SENTINEL_MODES
 
     def _resize_boundary(self, state) -> bool:
         """The step boundary, the one place membership may change (no
@@ -492,8 +571,16 @@ class AllReduceSGDEngine:
         clock = _StepClock() if _obs_serve.metrics_feed() else None
         local = self._local(batch, comm.rank, device)
         _mark(clock, "data_wait")
+        nstats, probed = None, False
         if self.mode == "compiled":
-            self._compiled_step(state, local, clock)
+            if clock is not None and not self._flops_probed:
+                # The FLOP probe, once per step function: it counts this
+                # real step (there is no cost model to ask instead).
+                self._flops_probed = probed = True
+                self._step_flops, nstats = _numerics.probe_step_flops(
+                    self._compiled_step, (state, local, clock))
+            else:
+                nstats = self._compiled_step(state, local, clock)
         else:
             self._eager_step(state, local, clock)
         if clock is None:
@@ -518,9 +605,13 @@ class AllReduceSGDEngine:
             step_s=step_s, examples=int(x.shape[0]),
             staged_bytes=int(x.nbytes) + int(y.nbytes),
             overlap_fraction=1.0 - blocked_s / max(step_s, 1e-12),
-            step=state["t"], phases=ph)
+            step=state["t"], numerics=nstats, phases=ph)
+        if self._step_flops and not probed:
+            _numerics.publish_flops(self._step_flops, step_s)
 
-    def _compiled_step(self, state, local, clock=None) -> None:
+    def _compiled_step(self, state, local, clock=None):
+        """One compiled step; returns its sentinel stats (None unless
+        ``numerics_mode`` asks for them)."""
         comm = state["comm"]
         params = state["params"]
         A = self.accum_steps
@@ -543,20 +634,31 @@ class AllReduceSGDEngine:
         _mark(clock, "hooks")
         state["loss_meter"].add(loss)
         if self.zero1:
-            state["params"], state["opt_state"] = self._zero1_update(
-                params, grads, state["opt_state"], comm)
-        elif self.optimizer is not None:
+            state["params"], state["opt_state"], nstats = \
+                self._zero1_update(params, grads, state["opt_state"], comm)
+            return nstats
+        if self.optimizer is not None:
             with torch.no_grad():
                 updates, state["opt_state"] = self.optimizer.update(
                     grads, state["opt_state"], params)
             state["params"] = optim.apply_updates(params, updates)
         else:
             state["params"] = sgd_update(params, grads, self.lr)
+            updates = None
+        if not self._sentinels_on:
+            return None
+        with torch.no_grad():
+            if updates is None:
+                updates = _tree.tree_map(lambda q, p: q - p,
+                                         state["params"], params)
+            return _numerics.sentinel_stats(params, grads, updates)
 
     def _zero1_update(self, params, grads, opt_state, comm):
         """One zero1 update: the sharded leaves' gradients reduce-scattered
         into this rank's row blocks, the rest allreduced; each block
-        updated with its state; the updated rows all-gathered."""
+        updated with its state; the updated rows all-gathered.  Returns
+        the new parameters, the state and the sentinel stats (None unless
+        asked for)."""
         p, r = comm.size, comm.rank
         leaves, treedef = _tree.flatten(params)
         g = _tree.leaves(grads)
@@ -574,9 +676,15 @@ class AllReduceSGDEngine:
             updates, opt_state = self.optimizer.update(
                 _tree.unflatten(treedef, g_mine), opt_state, p_mine)
         new = _tree.leaves(optim.apply_updates(p_mine, updates))
+        nstats = None
+        if self._sentinels_on:
+            with torch.no_grad():
+                nstats = _zero1_sentinels(comm, grads, plan, g_mine,
+                                          _tree.leaves(updates),
+                                          _tree.leaves(p_mine))
         gathered = _allgather_rows(comm, new, sharded)
         new = [gathered.get(i, t) for i, t in enumerate(new)]
-        return _tree.unflatten(treedef, new), opt_state
+        return _tree.unflatten(treedef, new), opt_state, nstats
 
     def _eager_step(self, state, local, clock=None) -> None:
         comm = state["comm"]

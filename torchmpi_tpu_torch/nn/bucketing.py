@@ -136,7 +136,8 @@ def bucket_sq_norms(tree: Any, plan: BucketPlan) -> torch.Tensor:
     summed leaf by leaf without packing the buckets."""
     leaves = _tree.leaves(tree)
     if not plan.specs:
-        return torch.zeros((0,), dtype=torch.float32)
+        return torch.zeros((0,), dtype=torch.float32,
+                           device=leaves[0].device if leaves else None)
     sq = [leaf.float().square().sum() for leaf in leaves]
     return torch.stack([sum(sq[i] for i in spec.leaf_indices)
                         for spec in plan.specs])

@@ -42,9 +42,9 @@ rules engine evaluated on the history
   overlap-fraction collapse, PS fence/failover storm, trace/journal
   drop-loss, straggler skew share, autotune byte-mix drift,
   watchdog-near-expiry, a missing leader) so the plane is useful with
-  zero authored rules.  Some watch series whose publishers the port has
-  not yet (the numerics sentinels, item 17; the autotuner, item 18):
-  those rules stay inactive until then.  ``leader_missing`` watches the
+  zero authored rules.  ``autotune_mix_drift`` watches a series whose
+  publisher the port has not yet (the autotuner, item 18): it stays
+  inactive until then.  ``leader_missing`` watches the
   gauge ``runtime/election.HealthzDetector.probe_leader`` publishes.
 * **phase attribution**: the engine publishes
   ``tmpi_step_phase_seconds{phase=data_wait|dispatch|collective|optimizer|ps}``

@@ -2,7 +2,8 @@
 
 Counterpart of ``torchmpi_tpu/obs/flight.py``, cut to what the port has.
 When a failure path of ``parameterserver/__init__.py`` trips (a failover,
-a promotion), :func:`on_failure` snapshots
+a promotion) or the numerics auditor finds a divergence
+(``obs/numerics.py``), :func:`on_failure` snapshots
 
 * the finished spans (**peeked**, not drained),
 * the native trace-ring tails of every loaded plane (**drained** — the
@@ -10,6 +11,8 @@ a promotion), :func:`on_failure` snapshots
 * the parameter server's counters (native and client side) and a fresh
   metrics-registry snapshot (native counters scraped),
 * the knobs, the triggering exception and the active journal segment,
+* the numerics plane's sentinel history and last audit
+  (``obs/numerics.snapshot``), when it has any,
 
 into ``flight-<pid>-<seq>-<reason>.json`` under ``obs_flight_dir``,
 written tmp -> fsync -> atomic rename, so a process that dies mid-dump
@@ -130,6 +133,13 @@ def dump(reason: str, exc: Optional[BaseException] = None,
         # Joins the bundle to the journal record that brackets it.
         "journal_segment": obs_journal.active_segment(),
     }
+    # The numerics plane's evidence (obs/numerics.py): the recent sentinel
+    # history and the last audit verdict, only when it has any.
+    from . import numerics
+
+    num = numerics.snapshot()
+    if num["history"] or num["last_audit"]:
+        bundle["numerics"] = obs_journal._jsonable(num)
     path = os.path.join(
         directory, f"flight-{os.getpid()}-{next(_seq):04d}-{reason}.json")
     tmp = f"{path}.{os.getpid()}.tmp"

@@ -89,14 +89,16 @@ def apply_config() -> None:
 
 def cluster_config() -> dict:
     """The cluster plane's knobs in one read: clock alignment
-    (``obs/clocksync.py``), obsdumps (``obs/aggregate.py``) and the flight
-    recorder (``obs/flight.py``)."""
+    (``obs/clocksync.py``), the federation fan-in (``obs/cluster.py``),
+    obsdumps (``obs/aggregate.py``) and the flight recorder
+    (``obs/flight.py``)."""
     from ..runtime import config
 
     return {
         "clocksync_rounds": int(config.get("obs_clocksync_rounds")),
         "clocksync_sample_peers": int(
             config.get("obs_clocksync_sample_peers")),
+        "federation_fanout": int(config.get("obs_federation_fanout")),
         "dump_dir": str(config.get("obs_dump_dir")),
         "flight": bool(config.get("obs_flight")),
         "flight_dir": str(config.get("obs_flight_dir")),

@@ -35,14 +35,10 @@ on a daemon thread, loopback-bound by default, gated by the ``obs_http``
   off); a non-leader answers a typed 307 naming the leader
   (``runtime/election.leader_info``).
 
-Two routes wait for modules the port does not have yet, and answer as
+One route waits for a module the port does not have yet, and answers as
 the JAX package answers when nothing is armed (ROADMAP.md §C):
-
-* ``GET /retune`` answers ``{"enabled": false}``: there is no retune
-  controller until ``collectives/retune.py`` (item 18).
-* ``publish_step(numerics=...)`` raises :class:`NumericsNotPorted`: the
-  in-step sentinels are ``obs/numerics.py`` (item 17), and
-  :func:`metrics_feed` has no numerics clause until then.
+``GET /retune`` answers ``{"enabled": false}``: there is no retune
+controller until ``collectives/retune.py`` (item 18).
 
 Health state machine (:class:`HealthState`): five states with strict
 precedence ``stalled > diverged > draining > degraded > healthy``,
@@ -67,9 +63,7 @@ derived from
   by the next clean audit (``clear_diverged``) — recovery is
   observable, not sticky.
 
-The aggregator half (JAX's ``obs/cluster.py``: federation, the job
-verdict) is not ported yet (ROADMAP.md item 17); :mod:`serving.router`
-probes the endpoints itself.
+The aggregator half (federation, the job verdict) is ``obs/cluster.py``.
 """
 
 from __future__ import annotations
@@ -87,7 +81,6 @@ from . import tracer
 
 __all__ = [
     "HealthState",
-    "NumericsNotPorted",
     "ObsHTTPServer",
     "health",
     "maybe_start",
@@ -103,10 +96,6 @@ __all__ = [
 
 STATES = ("healthy", "degraded", "diverged", "stalled", "draining")
 
-
-class NumericsNotPorted(NotImplementedError):
-    """``publish_step(numerics=...)``: the in-step sentinel statistics are
-    ``obs/numerics.py``, which the port has not yet (ROADMAP.md item 17)."""
 
 #: mark thresholds when nothing tighter is known (no watchdog registered
 #: and the mark was not monitor()'d with explicit bounds).
@@ -787,14 +776,15 @@ def maybe_start(rank: int = 0) -> Optional[ObsHTTPServer]:
 
 def metrics_feed() -> bool:
     """Whether the engine should publish its per-step gauges: someone is
-    (or could be) watching — the endpoint is up, its knob is on, or
-    tracing is on (the gauges also land in obsdump metric snapshots).
-    JAX's fourth clause, the numerics plane's sentinel modes, comes with
-    ``obs/numerics.py`` (ROADMAP.md item 17)."""
+    (or could be) watching — the endpoint is up, its knob is on, tracing
+    is on (the gauges also land in obsdump metric snapshots), or the
+    numerics plane is on (its sentinels are per-step gauges)."""
     from ..runtime import config
+    from . import numerics
 
     return (_server is not None or bool(config.get("obs_http"))
-            or bool(config.get("obs_trace")))
+            or bool(config.get("obs_trace"))
+            or str(config.get("numerics_mode")) in numerics.SENTINEL_MODES)
 
 
 def note(name: str) -> None:
@@ -834,9 +824,10 @@ def publish_step(step_s: float, examples: int, staged_bytes: int,
     fraction as gauges, plus monotonic step/example counters a poller
     turns into rates.  Also beats the ``engine_step`` health mark.
 
-    ``numerics``: the step's in-step sentinel stats.  The port has no
-    ``obs/numerics.py`` yet (ROADMAP.md item 17): anything but None
-    raises :class:`NumericsNotPorted` rather than drop the stats.
+    ``numerics``: the step's in-step sentinel stats
+    (``obs/numerics.sentinel_stats``' tensors, still on the device),
+    recorded as ``tmpi_numerics_*`` gauges and histogram and appended to
+    the sentinel history ring (``numerics.record_sentinels``).
 
     ``phases``: the step's phase decomposition in seconds (a subset of
     ``obs/alerts.PHASES``: data_wait / dispatch / collective /
@@ -849,9 +840,9 @@ def publish_step(step_s: float, examples: int, staged_bytes: int,
         from .metrics import registry as registry_
         registry = registry_
     if numerics is not None:
-        raise NumericsNotPorted(
-            "publish_step(numerics=...): obs/numerics.py is not ported yet "
-            "(ROADMAP.md item 17)")
+        from . import numerics as numerics_mod
+
+        numerics_mod.record_sentinels(step, numerics, registry=registry)
     step_s = max(float(step_s), 1e-12)
     registry.gauge(
         "tmpi_engine_step_seconds",

@@ -41,6 +41,8 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode, \
+    register_flop_formula
 
 from .bf16_split import bf16_split
 
@@ -377,16 +379,34 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _flash_bh(qbh, kbh, vbh, *, causal: bool, block_q: int, block_k: int,
-              scale: Optional[float] = None, out_dtype=None):
-    """(BH, L, D) flash attention forward; returns (o, lse (BH, L, 1) f32).
+# ----------------------------------------------------------------- FLOPs
 
-    ``kbh``/``vbh`` may have a different sequence length than ``qbh``.
-    ``out_dtype`` overrides the output dtype (default: q's)."""
-    D = qbh.shape[-1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    out_dtype = qbh.dtype if out_dtype is None else out_dtype
+#: multiply-add FLOPs per kept (q, k) pair and head-dim column: the
+#: forward's q.k and p.v (4); the dq pass's s, dp and dq (6) and the dk/dv
+#: pass's s, dp, dv and dk (8), 14 for the whole backward.
+FLOPS_PER_PAIR = {"fwd": 4, "dq": 6, "dkv": 8, "bwd": 14}
+
+
+def causal_pairs(lq: int, lk: int, causal: bool) -> int:
+    """(q, k) pairs a mask keeps: all of them, or those with row >= col
+    (``sum(min(lk, i + 1) for i in range(lq))``)."""
+    if not causal:
+        return lq * lk
+    n = min(lq, lk)
+    return n * (n + 1) // 2 + (lq - n) * lk
+
+
+def attention_flops(bh: int, lq: int, lk: int, d: int, causal: bool,
+                    part: str) -> float:
+    """FLOPs of one attention call over the kept (q, k) pairs, ``part``
+    one of :data:`FLOPS_PER_PAIR`: the closed formula that a
+    ``FlopCounterMode`` counts for each call of :data:`FLASH_OPS`."""
+    return float(FLOPS_PER_PAIR[part]) * bh * causal_pairs(lq, lk, causal) \
+        * d
+
+
+def _flash_bh_impl(qbh, kbh, vbh, causal, block_q, block_k, scale,
+                   out_dtype):
     if _on_cpu(qbh, kbh, vbh):
         return _flash_bh_plain(qbh, kbh, vbh, causal=causal, block_q=block_q,
                                block_k=block_k, scale=scale,
@@ -395,20 +415,8 @@ def _flash_bh(qbh, kbh, vbh, *, causal: bool, block_q: int, block_k: int,
                             out_dtype=out_dtype)
 
 
-def _flash_bh_bwd(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
-                  block_q: int, block_k: int, scale: Optional[float] = None,
-                  out_dtype=None):
-    """Backward against an externally supplied (lse, delta), each
-    (BH, Lq, 1) f32: returns (dq, dk, dv), dq in q's dtype and dk/dv in k's,
-    or all in ``out_dtype``.
-
-    For single-device flash, lse and delta come from this call's own
-    forward; a ring caller passes the globally combined lse and the delta of
-    the final output, and each call then yields one K/V chunk's exact
-    gradient contribution."""
-    D = qbh.shape[-1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
+def _flash_bh_bwd_impl(qbh, kbh, vbh, dobh, lse, delta, causal, block_q,
+                       block_k, scale, out_dtype):
     if _on_cpu(qbh, kbh, vbh, dobh, lse, delta):
         kw = dict(causal=causal, block_q=block_q, block_k=block_k,
                   scale=scale)
@@ -427,6 +435,93 @@ def _flash_bh_bwd(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
     dq = _flash_bh_bwd_dq_kernel(qbh, kbh, vbh, dobh, lse, delta, **kw)
     return (dq, *_flash_bh_bwd_dkv_kernel(qbh, kbh, vbh, dobh, lse, delta,
                                           **kw))
+
+
+# The forward and the whole backward as operators of their own, so that a
+# dispatch mode sees each call as one op and not its body: a
+# ``FlopCounterMode`` counts them by the closed formula (it cannot see a
+# ctypes launch, and must not count the plain version's products beside
+# it), and selective checkpointing recomputes them as a whole.
+_fwd_op = torch.library.custom_op(
+    "torchmpi_tpu_torch::flash_fwd", _flash_bh_impl, mutates_args=(),
+    schema="(Tensor qbh, Tensor kbh, Tensor vbh, bool causal, int block_q, "
+           "int block_k, float scale, ScalarType out_dtype) "
+           "-> (Tensor, Tensor)")
+_bwd_op = torch.library.custom_op(
+    "torchmpi_tpu_torch::flash_bwd", _flash_bh_bwd_impl, mutates_args=(),
+    schema="(Tensor qbh, Tensor kbh, Tensor vbh, Tensor dobh, Tensor lse, "
+           "Tensor delta, bool causal, int block_q, int block_k, float scale, "
+           "ScalarType? out_dtype) -> (Tensor, Tensor, Tensor)")
+FLASH_OPS = (torch.ops.torchmpi_tpu_torch.flash_fwd,
+             torch.ops.torchmpi_tpu_torch.flash_bwd)
+
+
+# Tensors without storage (meta, fake) take the kernel route's checks, so
+# that only a CPU tensor ever reaches a plain version, and its shapes.
+@_fwd_op.register_fake
+def _fwd_fake(qbh, kbh, vbh, causal, block_q, block_k, scale, out_dtype):
+    _check_kernel_inputs(qbh, kbh, vbh, out_dtype)
+    return (qbh.new_empty(qbh.shape, dtype=out_dtype),
+            qbh.new_empty((*qbh.shape[:2], 1), dtype=torch.float32))
+
+
+@_bwd_op.register_fake
+def _bwd_fake(qbh, kbh, vbh, dobh, lse, delta, causal, block_q, block_k,
+              scale, out_dtype):
+    out_dtype = qbh.dtype if out_dtype is None else out_dtype
+    _check_bwd_kernel_inputs(qbh, kbh, vbh, dobh, lse, delta, out_dtype)
+    return (qbh.new_empty(qbh.shape, dtype=out_dtype),
+            kbh.new_empty(kbh.shape, dtype=out_dtype),
+            vbh.new_empty(vbh.shape, dtype=out_dtype))
+
+
+@register_flop_formula(FLASH_OPS[0])
+def _fwd_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
+               **kwargs) -> float:
+    bh, lq, d = q_shape
+    return attention_flops(bh, lq, k_shape[1], d, causal, "fwd")
+
+
+@register_flop_formula(FLASH_OPS[1])
+def _bwd_flops(q_shape, k_shape, v_shape, do_shape, lse_shape, delta_shape,
+               causal, *args, out_shape=None, **kwargs) -> float:
+    bh, lq, d = q_shape
+    return attention_flops(bh, lq, k_shape[1], d, causal, "bwd")
+
+
+def counted_flops(counter: FlopCounterMode) -> float:
+    """The FLOPs ``counter`` counted for flash attention's operators."""
+    counts = counter.get_flop_counts().get("Global", {})
+    return float(sum(counts.get(op, 0) for op in FLASH_OPS))
+
+
+def _flash_bh(qbh, kbh, vbh, *, causal: bool, block_q: int, block_k: int,
+              scale: Optional[float] = None, out_dtype=None):
+    """(BH, L, D) flash attention forward; returns (o, lse (BH, L, 1) f32).
+
+    ``kbh``/``vbh`` may have a different sequence length than ``qbh``.
+    ``out_dtype`` overrides the output dtype (default: q's)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(qbh.shape[-1])
+    return _fwd_op(qbh, kbh, vbh, causal, block_q, block_k, scale,
+                   qbh.dtype if out_dtype is None else out_dtype)
+
+
+def _flash_bh_bwd(qbh, kbh, vbh, dobh, lse, delta, *, causal: bool,
+                  block_q: int, block_k: int, scale: Optional[float] = None,
+                  out_dtype=None):
+    """Backward against an externally supplied (lse, delta), each
+    (BH, Lq, 1) f32: returns (dq, dk, dv), dq in q's dtype and dk/dv in k's,
+    or all in ``out_dtype``.
+
+    For single-device flash, lse and delta come from this call's own
+    forward; a ring caller passes the globally combined lse and the delta of
+    the final output, and each call then yields one K/V chunk's exact
+    gradient contribution."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(qbh.shape[-1])
+    return _bwd_op(qbh, kbh, vbh, dobh, lse, delta, causal, block_q, block_k,
+                   scale, out_dtype)
 
 
 class _FlashCore(torch.autograd.Function):

@@ -227,6 +227,11 @@ class Constants:
     # Directory each rank writes its obsdump-<rank>.json bundle into at
     # shutdown ("" = no shutdown dump; obs/aggregate.py).
     obs_dump_dir: str = _env("TORCHMPI_TPU_OBS_DUMP_DIR", "", str)
+    # Fan-in of the federation tree (obs/cluster.py): endpoints shard into
+    # groups of about this many per aggregator, and a sweep runs at most
+    # this many probes at once.
+    obs_federation_fanout: int = _env(
+        "TORCHMPI_TPU_OBS_FEDERATION_FANOUT", 16, int)
     # --- live telemetry & health plane (obs/serve.py; all reads funnel
     # through obs/native.serve_config) ---
     # Serve /metrics, /healthz, /spans, /journal, /history, /alerts and
@@ -331,6 +336,21 @@ class Constants:
     chaos_corrupt_prob: float = 0.0
     chaos_reset_prob: float = 0.0
     chaos_blackhole_prob: float = 0.0
+
+    # --- the numerics plane (obs/numerics.py; all reads funnel through
+    # numerics.numerics_config) ---
+    # "off" (the step as it was: no extra launch, no host read),
+    # "sentinel" (in-step gradient statistics published each step as
+    # tmpi_numerics_* through obs/serve.publish_step) or "audit"
+    # (sentinel plus an installed engine.numerics_auditor's cross-rank
+    # parameter digest exchange every numerics_audit_interval steps).
+    numerics_mode: str = _env("TORCHMPI_TPU_NUMERICS_MODE", "off", str)
+    # Steps between cross-rank digest audits in audit mode.
+    numerics_audit_interval: int = _env(
+        "TORCHMPI_TPU_NUMERICS_AUDIT_INTERVAL", 100, int)
+    # Records kept in the in-memory sentinel history ring that flight
+    # bundles snapshot.
+    numerics_history: int = _env("TORCHMPI_TPU_NUMERICS_HISTORY", 64, int)
 
     # --- elastic resize (runtime/resize.py; all reads funnel through
     # resize.resize_config()) ---

@@ -22,15 +22,17 @@ Timing fences (``fence``): ``"sync"`` waits for the device
 (``torch.cuda.synchronize``; nothing to wait for on the CPU), ``"value"``
 reads one element of the result back to the host.
 
-The JAX module's ``mfu_sweep`` is not here: it needs the numerics plane
-(``obs/numerics.py``) and the mesh (ROADMAP.md items 17 and 12).
+:func:`mfu_sweep` is the compute side: a Llama training step over (batch,
+remat), each cell's FLOPs counted by the numerics plane's probe
+(``obs/numerics.probe_step_flops``) on its first warmup step and its MFU
+taken against the card's bf16 peak.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +81,144 @@ def peak_hbm_bytes(device=None) -> Optional[int]:
     if device is None or torch.device(device).type != "cuda":
         return None
     return int(torch.cuda.max_memory_allocated(device))
+
+
+@dataclasses.dataclass
+class MFUResult:
+    """One row of :func:`mfu_sweep`.  ``step_flops`` is the step's FLOPs as
+    the probe counted them on a real step, ``flash_flops`` the share it
+    counted for the flash-attention operators by their closed formula (0
+    without ``attn="flash"``); ``mfu_estimate`` is the FLOP/s of this one
+    card over its bf16 peak (None where the peak is unknown: on the CPU,
+    ``numerics.device_peak_flops``).  ``first_loss`` is the loss of the
+    probed step, from the fresh parameters."""
+    batch: int
+    seq_len: int
+    remat: str
+    mean_seconds: float
+    min_seconds: float
+    step_flops: Optional[float]
+    flops_per_s: Optional[float]       # step_flops / mean_seconds
+    mfu_estimate: Optional[float]      # flops_per_s / bf16 peak
+    peak_hbm_bytes: Optional[int] = None
+    flash_flops: Optional[float] = None
+    first_loss: Optional[float] = None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+#: the seed of :func:`sweep_batch`'s token ids.
+SWEEP_SEED = 0
+
+
+def sweep_batch(batch: int, seq_len: int, vocab: int, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (tokens, targets) of a :func:`mfu_sweep` cell: ids drawn
+    uniformly from the vocabulary from :data:`SWEEP_SEED` (``seq_len + 1``
+    a row, the targets the tokens shifted by one).  The JAX sweep feeds
+    zeros, which make every position's value row the same: attention's
+    output then cannot show its weights, and the first loss checks
+    nothing of them."""
+    ids = torch.randint(vocab, (batch, seq_len + 1),
+                        generator=torch.Generator().manual_seed(SWEEP_SEED))
+    ids = ids.to(device)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def mfu_sweep(
+    batch_sizes: Sequence[int] = (2, 4, 8),
+    remats: Sequence[str] = ("none", "dots"),
+    seq_len: int = 32,
+    warmup: int = 1,
+    iters: int = 3,
+    mesh=None,
+    cfg=None,
+    report: Optional[Callable[[str], None]] = print,
+    *,
+    attn: str = "full",
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> List[MFUResult]:
+    """Sweep a Llama training step (``llama.make_train_step``, plain SGD)
+    over (batch, remat) and record each cell's time, FLOP/s and MFU.
+
+    Each cell starts from fresh parameters (the step updates them in
+    place).  Its first warmup step runs under the FLOP probe
+    (``numerics.probe_step_flops``), which counts that step as it runs;
+    the probe slows it, so it is never timed.  Then ``iters`` steps are
+    timed, each ended by a device synchronize.  Peak memory is the card's
+    allocator high-water mark over the cell (None on the CPU).  With
+    ``mesh`` every rank passes the global batch (rounded to the dp axis)
+    and the numbers are this rank's, on its one card.
+
+    The JAX sweep's arguments come first; ``attn``, ``dtype`` and
+    ``device`` (the card unless the CPU is asked for: no GPU and no
+    ``device`` raises) are the port's.  The tokens are
+    :func:`sweep_batch`'s."""
+    import importlib
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ..models import llama
+    from ..models._common import resolve_device
+    from ..obs import numerics as _numerics
+
+    fa = importlib.import_module("..ops.flash_attention", __package__)
+
+    dev = resolve_device(device)
+    cfg = cfg or llama.tiny()
+    dp = mesh.shape.get("dp", 1) if mesh is not None else 1
+    peak = _numerics.device_peak_flops(dev)
+    results: List[MFUResult] = []
+    for remat in remats:
+        step = llama.make_train_step(cfg, mesh, lr=0.1, attn=attn,
+                                     remat=remat)
+        for b in batch_sizes:
+            b_eff = max(dp, (b // dp) * dp)
+            params = llama.init(0, cfg, dtype=dtype, device=dev)
+            if mesh is not None:
+                params = llama.shard_params(params, mesh, cfg)
+            tokens, targets = sweep_batch(b_eff, seq_len, cfg.vocab, dev)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            # The probe (``numerics.probe_step_flops``'s counter, kept here
+            # for the flash share).
+            counter = FlopCounterMode(display=False)
+            with counter:
+                _, _, loss = step(params, None, tokens, targets)
+            flops = float(counter.get_total_flops()) or None
+            for _ in range(max(warmup, 1) - 1):
+                step(params, None, tokens, targets)
+            _sync(dev)
+            times: List[float] = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                step(params, None, tokens, targets)
+                _sync(dev)
+                times.append(time.perf_counter() - t0)
+            mean_t = float(np.mean(times))
+            fps = (flops / mean_t) if flops else None
+            mfu = (fps / peak) if (fps and peak) else None
+            r = MFUResult(
+                batch=b_eff, seq_len=seq_len, remat=remat,
+                mean_seconds=mean_t, min_seconds=float(np.min(times)),
+                step_flops=flops, flops_per_s=fps, mfu_estimate=mfu,
+                peak_hbm_bytes=peak_hbm_bytes(dev),
+                flash_flops=fa.counted_flops(counter),
+                first_loss=float(loss))
+            results.append(r)
+            del params
+            if report:
+                mfu_s = "     n/a" if mfu is None else f"{mfu:8.4f}"
+                fps_s = ("      n/a" if fps is None
+                         else f"{fps / 1e12:9.4f}")
+                report(f"mfu b={b_eff:<4} L={seq_len:<4} remat={remat:<5} "
+                       f"t={mean_t * 1e3:9.2f}ms tflops={fps_s} "
+                       f"mfu={mfu_s}")
+    return results
 
 
 def _device(device) -> torch.device:

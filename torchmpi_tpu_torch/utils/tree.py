@@ -93,7 +93,7 @@ def _paths_into(t: Any, path: Tuple[Any, ...],
             _paths_into(t[k], path + (k,), out)
     elif _is_namedtuple(t):
         for name, x in zip(type(t)._fields, t):
-            _paths_into(x, path + ("." + name,), out)
+            _paths_into(x, path + (AttrKey("." + name),), out)
     elif isinstance(t, (list, tuple)):
         for i, x in enumerate(t):
             _paths_into(x, path + (i,), out)
@@ -101,14 +101,28 @@ def _paths_into(t: Any, path: Tuple[Any, ...],
         out.append((path, t))
 
 
+class AttrKey(str):
+    """A ``NamedTuple`` field in a path: the string ``".name"`` (equal to
+    it), marked so that :func:`keystr` does not take it for a dict key."""
+
+
 def flatten_with_paths(tree: Any) -> List[Tuple[Tuple[Any, ...], Any]]:
     """``(path, leaf)`` pairs in JAX order, as
     ``jax.tree_util.tree_flatten_with_path`` gives them: a path is the dict
     keys, sequence indices and ``NamedTuple`` fields (as ``".name"``, the
-    string of JAX's ``GetAttrKey``) from the root to the leaf."""
+    string of JAX's ``GetAttrKey``, an :class:`AttrKey`) from the root to
+    the leaf."""
     out: List[Tuple[Tuple[Any, ...], Any]] = []
     _paths_into(tree, (), out)
     return out
+
+
+def keystr(path: Tuple[Any, ...]) -> str:
+    """``jax.tree_util.keystr`` of a :func:`flatten_with_paths` path: a
+    dict key or a sequence index as ``[repr(key)]``, a field as
+    ``.name``."""
+    return "".join(k if isinstance(k, AttrKey) else f"[{k!r}]"
+                   for k in path)
 
 
 def by_dtype(leaves: List[Any], idxs=None) -> List[List[int]]:
