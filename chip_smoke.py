@@ -413,6 +413,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``tmpi_step_flops`` equals the MLP step's analytic count and
    ``tmpi_mfu_estimate`` is published; the sentinels' cost a step and the
    audit's ms are printed.
+26. autotune (after numerics): the measured collective autotuner on 2
+   ranks of the card.  The eager pass (``collectives/autotune.run_pass``)
+   over the five ops at AUTOTUNE_SIZES (2^14 to 2^23 f32 elements, so
+   that ResNet-50's 32 MiB and 8 MiB buckets have exact cells), the ring
+   kernels (B1-B3) against gloo where both are candidates: every cell's
+   ms per candidate and its winner, the document identical on both ranks,
+   B1-B3 launched in the pass, and every candidate of every cell bit-equal
+   to the plain result.  ResNet-50 (224x224, 1000 classes, f32, 32 images
+   a rank, ``eager_async``) AUTOTUNE_RESNET_STEPS steps under
+   ``autotune_mode="off"`` and again under ``"cache"`` from one start: the
+   losses and parameters bit-equal, the namespace each bucket rode (the
+   ``autotune.decision`` marks), both step times and B1's launches.
+   ``bench_section``'s A/B (``default_ms``, ``autotuned_ms``), and a pass
+   on the host column (hostcomm, gloo and the ring's plain form over a
+   host ring) at config 1's 1,863,690 elements (7.45 MB).
+27. retune: ``tools/retune_drill.py`` on 4 ranks of the card: a chaos
+   straggler sags config 1's step rate, ``step_rate_sag`` fires, the
+   agreeing controllers probe and apply the same flips at one boundary
+   (``retune.pause_ms`` printed: the controller's default eager pass,
+   the ops with a choice of namespace, under 6 s, the rest of the pause
+   under 250 ms; ``retune.ab.ratio``
+   printed); a seeded wrong
+   winner flips back on ``autotune_mix_drift``; the compiled pass times
+   both wire variants of both default programs at Llama-3-8B width cut to
+   2 layers (bf16, flash: B4-B6 launched), each variant's first loss
+   within 1e-2 of full attention's on the same weights and tokens (the
+   kernel phases hold B4-B6 at its shape, ``compiled_bf16``: BH = 32,
+   L = 512, causal); ``perf_retune`` is named from the journals alone.  Both phases print the card's name and power limit
+   beside their numbers.
 
 Then a ``timing`` line with each phase's seconds (the build included, the
 imports before it not) and the card memory each left allocated (before
@@ -887,6 +916,9 @@ def phase_kernel(torch, fa, split):
         ("main_bf16_f32out", 32, 2048, 2048, True, bf16, f32, 2e-4, 0.0),
         # The mfu phase's batch-2 shape: 2 x 32 heads.
         ("mfu_bf16", 64, 2048, 2048, True, bf16, None, 1e-2, 1e-2),
+        # The retune drill's compiled leg: L 512, 2 x 16 heads a rank over
+        # {dp 2, tp 2} (16 over 1F1B's {pp 2, tp 2}, the same kernel).
+        ("compiled_bf16", 32, 512, 512, True, bf16, None, 1e-2, 1e-2),
         ("noncausal_bf16", 8, 1024, 1024, False, bf16, None, 1e-2, 1e-2),
         ("lk_ne_lq_f32out", 32, 512, 2048, True, bf16, f32, 2e-4, 0.0),
         ("lk_ne_lq_bf16", 32, 512, 2048, True, bf16, None, 1e-2, 1e-2),
@@ -1008,6 +1040,9 @@ def phase_kernel_bwd(torch, fa, split):
          False),
         # The mfu phase's batch-2 shape: 2 x 32 heads.
         ("mfu_bf16", 64, 2048, 2048, True, bf16, None, 1e-2, 1e-2, False),
+        # The retune drill's compiled leg (as in the forward's cases).
+        ("compiled_bf16", 32, 512, 512, True, bf16, None, 1e-2, 1e-2,
+         False),
         ("noncausal_bf16", 8, 1024, 1024, False, bf16, None, 1e-2, 1e-2,
          False),
         ("block_lk_ne_lq_f32out", 32, 512, 2048, True, bf16, f32, 5e-4,
@@ -5482,9 +5517,287 @@ def phase_numerics():
     return summary
 
 
+# The autotune phase: the eager pass over the five ops at AUTOTUNE_SIZES
+# (f32 elements; ResNet-50's buckets are 32 MiB and 8 MiB), best of
+# AUTOTUNE_TRIALS interleaved trials; ResNet-50 at config 2's shape for
+# AUTOTUNE_RESNET_STEPS steps a mode; the host-column pass at config 1's
+# parameter count.
+AUTOTUNE_SIZES = (1 << 14, 1 << 17, 1 << 19, 1 << 21, 1 << 23)
+AUTOTUNE_TRIALS = 2
+AUTOTUNE_RESNET_STEPS = 3
+AUTOTUNE_BENCH_SIZES = (1 << 14, 1 << 18, 1 << 21)
+AUTOTUNE_CPU_ELEMENTS = 1863690     # 784-1024-1024-10's parameters
+AUTOTUNE_HC_DEADLINE_MS = 60000
+
+
+def _pass_plain(torch, op, rows, me):
+    """What a pass cell's collective must give on rank ``me``: the rows'
+    sum, rank 0's row, the stacked rows or this rank's chunk of the sum."""
+    total = torch.stack(rows).sum(0)
+    return {"allreduce": total, "broadcast": rows[0],
+            "reduce": total if me == 0 else rows[me],
+            "allgather": torch.stack(rows),
+            "reduce_scatter": total.view(len(rows), -1)[me]}[op]
+
+
+def _host_ring(dist, hostcomm, comm):
+    box = [[("127.0.0.1", q) for q in hostcomm.free_ports(comm.size)]]
+    dist.broadcast_object_list(box, src=0)
+    return hostcomm.HostCommunicator(comm.rank, comm.size, box[0],
+                                     timeout_ms=60000,
+                                     io_deadline_ms=AUTOTUNE_HC_DEADLINE_MS)
+
+
+def autotune_rank_main() -> dict:
+    """One rank of the autotune phase (spawned): the pass, its checks,
+    ResNet-50 off and cache, the A/B and the host-column pass."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from torchmpi_tpu_torch.collectives import autotune, hostcomm, selector
+    from torchmpi_tpu_torch.engine import AllReduceSGDEngine
+    from torchmpi_tpu_torch.models import resnet
+    from torchmpi_tpu_torch.nn import bucketing
+    from torchmpi_tpu_torch.obs import tracer
+    from torchmpi_tpu_torch.runtime import communicator, config, lifecycle
+    from torchmpi_tpu_torch.utils import tree
+    from torchmpi_tpu_torch.utils.data import synthetic_mnist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    config.set("use_pallas_collectives", True)
+    device = lifecycle.start()
+    out = {}
+    try:
+        comm = communicator.stack.world()
+        p, me = comm.size, comm.rank
+        out["rank"] = me
+        _reset_ring_counts()
+        t0 = time.perf_counter()
+        doc = autotune.run_pass(comm=comm, sizes=AUTOTUNE_SIZES,
+                                trials=AUTOTUNE_TRIALS)
+        out["pass_s"] = time.perf_counter() - t0
+        out["pass_launches"] = _ring_counts()
+        out["doc"] = {k: doc[k] for k in ("digest", "fingerprint", "cells")}
+        held = []
+        for key, c in doc["cells"].items():
+            n = c["bytes"] // 4
+            rows = [autotune.rank_row(r, n, "float32", device)
+                    for r in range(p)]
+            want = _pass_plain(torch, c["op"], rows, me)
+            for impl in c["ms"]:
+                fn = selector.resolve(c["op"], "tpu", c["scope"], prefer=impl)
+                got = fn(comm, rows[me], **autotune._OP_KWARGS[c["op"]])
+                got = got.reshape(want.shape)
+                torch.cuda.synchronize()
+                held.append({"cell": key, "impl": impl,
+                             "equal": bool(torch.equal(got, want)),
+                             "max_abs_err": float((got.double()
+                                                   - want.double()).abs()
+                                                  .max())})
+            del rows, want
+        out["held"] = held
+        # ResNet-50 eager_async, off then cache, from one start.
+        cfg = resnet.config(depth=50, n_classes=1000, width_multiplier=1.0)
+        init, _ = resnet.init(7, cfg, device=device)
+        ds = synthetic_mnist(n=p * RESNET_BATCH, n_classes=1000, seed=1,
+                             image_shape=(224, 224, 3))
+        one = (ds.x.reshape(p, RESNET_BATCH, 224, 224, 3),
+               ds.y.reshape(p, RESNET_BATCH))
+        out["bucket_elements"] = [
+            s.total for s in bucketing.plan_ready_order(init).plan.specs]
+        runs = {}
+        for mode in ("off", "cache"):
+            config.set("autotune_mode", mode)
+            config.set("obs_trace", mode == "cache")
+            tracer.drain()
+            step_ms, losses, marks = [], [], {}
+
+            def on_sample(state):
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+
+            def on_update(state):
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - marks["t0"]) * 1e3)
+                losses.append(float(state["loss"]))
+
+            engine = AllReduceSGDEngine(
+                resnet.make_loss_fn(cfg), lr=RESNET_LR, mode="eager_async",
+                hooks={"on_sample": on_sample, "on_update": on_update})
+            params = tree.tree_map(lambda t: t.clone(), init)
+            torch.cuda.synchronize()
+            _reset_ring_counts()
+            state = engine.train(params, [one] * AUTOTUNE_RESNET_STEPS)
+            torch.cuda.synchronize()
+            digest = hashlib.sha256()
+            for leaf in tree.leaves(state["params"]):
+                digest.update(leaf.detach().cpu().numpy().tobytes())
+            # The gradient buckets' allreduce decisions (the start's
+            # parameter broadcast resolves the same buckets too).
+            rode = sorted({(s["attrs"]["bytes"], s["attrs"]["bucket"],
+                            s["attrs"]["impl"]) for s in tracer.drain()
+                           if s["name"] == "autotune.decision"
+                           and s["attrs"]["op"] == "allreduce"})
+            runs[mode] = {"losses": losses, "step_ms": step_ms,
+                          "launches": _ring_counts(),
+                          "digest": digest.hexdigest(),
+                          "buckets_rode": [list(r) for r in rode]}
+            del params, state
+        config.set("obs_trace", False)
+        config.set("autotune_mode", "off")
+        out["resnet"] = runs
+        del init
+        torch.cuda.empty_cache()
+        out["bench"] = autotune.bench_section(
+            comm=comm, sizes=AUTOTUNE_BENCH_SIZES, trials=AUTOTUNE_TRIALS,
+            ab_elements=1 << 18)
+        comm.host_ring = _host_ring(dist, hostcomm, comm)
+        try:
+            cpu = autotune.run_pass(comm=comm, ops=("allreduce",),
+                                    sizes=(AUTOTUNE_CPU_ELEMENTS,),
+                                    placement="cpu", trials=AUTOTUNE_TRIALS,
+                                    install=False)
+        finally:
+            comm.host_ring.close()
+            comm.host_ring = None
+        out["cpu_cells"] = cpu["cells"]
+        return out
+    except BaseException:
+        import traceback
+
+        print(f"autotune rank {out.get('rank')}: {traceback.format_exc()}",
+              file=sys.stderr, flush=True)
+        raise
+    finally:
+        lifecycle.stop()
+
+
+def _steady(ms):
+    rest = ms[1:] or ms
+    return sum(rest) / len(rest)
+
+
+def _bytes_bucket(n: int) -> str:
+    from torchmpi_tpu_torch.obs.metrics import bytes_bucket
+
+    return bytes_bucket(n)
+
+
+def phase_autotune(smi: str) -> dict:
+    """The autotune phase: every check of the docstring's item 26."""
+    from torchmpi_tpu_torch.runtime import launch
+
+    t0 = time.perf_counter()
+    res = launch.spawn(2, autotune_rank_main, (), timeout_s=600)
+    r0 = res[0]
+    cells = r0["doc"]["cells"]
+    off, cache = r0["resnet"]["off"], r0["resnet"]["cache"]
+    rec = {
+        "phase": "autotune", "card": smi, "ranks": 2,
+        "sizes": list(AUTOTUNE_SIZES), "trials": AUTOTUNE_TRIALS,
+        "pass_s": r0["pass_s"],
+        "cells": {k: {"ms": c["ms"], "winner": c["winner"],
+                      "default": c["default"], "reps": c["reps"]}
+                  for k, c in cells.items()},
+        "pass_launches": {r["rank"]: r["pass_launches"] for r in res},
+        "candidates_held": len(r0["held"]),
+        "max_abs_err": max(h["max_abs_err"] for r in res for h in r["held"]),
+        "resnet50": {
+            "dtype": "float32", "image": 224, "classes": 1000,
+            "batch_per_rank": RESNET_BATCH, "mode": "eager_async",
+            "steps": AUTOTUNE_RESNET_STEPS,
+            "bucket_elements": r0["bucket_elements"],
+            "buckets_rode_under_cache": cache["buckets_rode"],
+            "off_step_ms": off["step_ms"], "cache_step_ms": cache["step_ms"],
+            "off_steady_step_ms": _steady(off["step_ms"]),
+            "cache_steady_step_ms": _steady(cache["step_ms"]),
+            "off_losses": off["losses"], "cache_losses": cache["losses"],
+            "b1_launches": {"off": off["launches"]["ring_allreduce"],
+                            "cache": cache["launches"]["ring_allreduce"]}},
+        "bench_section": {"cells": r0["bench"]["cells"],
+                          "ab": r0["bench"]["ab"]},
+        "cpu_pass": {k: {"ms": c["ms"], "winner": c["winner"],
+                         "bytes": c["bytes"]}
+                     for k, c in r0["cpu_cells"].items()},
+        "seconds": time.perf_counter() - t0}
+    emit(**rec)
+    bad = []
+    for r in res:
+        if r["doc"] != r0["doc"] or r["cpu_cells"] != r0["cpu_cells"]:
+            bad.append(f"rank {r['rank']}: its pass doc differs from rank 0's")
+        if not all(h["equal"] for h in r["held"]):
+            bad.append(f"rank {r['rank']}: candidates unequal to plain: "
+                       f"{[h for h in r['held'] if not h['equal']][:3]}")
+        if not all(r["pass_launches"][k] > 0 for k in RING_KERNELS):
+            bad.append(f"rank {r['rank']}: pass launches "
+                       f"{r['pass_launches']}")
+        ro, rc = r["resnet"]["off"], r["resnet"]["cache"]
+        if ro["losses"] != rc["losses"] or ro["digest"] != rc["digest"]:
+            bad.append(f"rank {r['rank']}: cache's ResNet-50 differs from "
+                       f"off's: {ro['losses']} {rc['losses']}")
+        if not all(math.isfinite(x) for x in ro["losses"]):
+            bad.append(f"rank {r['rank']}: non-finite loss {ro['losses']}")
+        if rc["buckets_rode"] != cache["buckets_rode"]:
+            bad.append(f"rank {r['rank']}: its buckets rode "
+                       f"{rc['buckets_rode']}, rank 0's "
+                       f"{cache['buckets_rode']}")
+    if sorted(b for b, _, _ in cache["buckets_rode"]) != sorted(
+            4 * n for n in r0["bucket_elements"]):
+        bad.append(f"not every bucket resolved by measurement: "
+                   f"{cache['buckets_rode']}")
+    for n in r0["bucket_elements"]:
+        key = f"allreduce|float32|{_bytes_bucket(4 * n)}|tpu|singlenode"
+        if key not in cells:
+            bad.append(f"no exact cell {key}")
+    for k, c in cells.items():
+        if c["winner"] != min(c["ms"], key=c["ms"].get):
+            bad.append(f"cell {k}: winner {c['winner']} of {c['ms']}")
+    ab = r0["bench"]["ab"]
+    if not (ab["default_ms"] > 0 and ab["autotuned_ms"] > 0):
+        bad.append(f"bench_section A/B {ab}")
+    if {i for c in r0["cpu_cells"].values() for i in c["ms"]} != {
+            "hostcomm", "xla", "pallas"}:
+        bad.append(f"host-column candidates {r0['cpu_cells']}")
+    if bad:
+        raise AssertionError(f"autotune: {bad}")
+    return {"launches": {
+        "autotune_pass": {k: sum(r["pass_launches"][k] for r in res)
+                          for k in RING_KERNELS},
+        "autotune_resnet": {k: sum(r["resnet"][m]["launches"][k]
+                                   for r in res for m in ("off", "cache"))
+                            for k in RING_KERNELS}},
+        "rec": rec}
+
+
+def phase_retune(smi: str) -> dict:
+    """The retune drill on the card (``tools/retune_drill.py``): every
+    check of the drill must hold.  Its ranks' counts start at 0 in each
+    spawned process and are read from their records."""
+    import tempfile
+
+    from torchmpi_tpu_torch.tools import retune_drill
+
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".retune_") as d:
+        out = retune_drill.run("cuda", d)
+    summary = retune_drill.summary(out)
+    failed = retune_drill.checks(out)
+    emit(phase="retune", card=smi, **summary, failed=failed)
+    if failed:
+        raise AssertionError(f"retune: {failed}")
+    return {"b1": summary["b1_launches_all_ranks"],
+            "compiled": {k: summary["compiled_launches_all_ranks"][v]
+                         for k, v in COUNTERS.items()},
+            "summary": summary}
+
+
 def ring_kernel_record(name, rings, train_launches, train_rec,
                        async_launches, async_rec, mnist_rec, options,
-                       hierarchy, vit_rings, elastic, numerics):
+                       hierarchy, vit_rings, elastic, numerics, autotune,
+                       retune):
     """One ``kernels`` entry of a ring kernel at p = 2: B1 at the path's own
     work, the 43 rings of a ResNet-50 compiled step, with the 4 buckets of
     an eager_async step beside (times, bound and the largest error over
@@ -5499,7 +5812,9 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
     both ranks, B1 only; elastic: config 1's rings in the worlds the
     elastic drill re-forms, B1 only; numerics: config 1's rings at p = 4
     in the numerics drill's runs (off, audit, the checked audit run, NaN),
-    B1 only)."""
+    B1 only; autotune_pass: the eager pass's candidates on both ranks;
+    autotune_resnet: ResNet-50's buckets under off and cache; retune: the
+    retune drill's rings and boundary passes on 4 ranks, B1 only)."""
     replaces, function, kind, library = RING_KERNELS[name]
     big = next(r for r in rings[2]["records"]
                if r["kind"] == kind and "kernel_ms" in r)
@@ -5517,7 +5832,10 @@ def ring_kernel_record(name, rings, train_launches, train_rec,
                "hierarchy": hierarchy["launches"][name],
                "vit_dp": vit_rings if name == "ring_allreduce" else 0,
                "elastic": elastic if name == "ring_allreduce" else 0,
-               "numerics": numerics if name == "ring_allreduce" else 0}
+               "numerics": numerics if name == "ring_allreduce" else 0,
+               "autotune_pass": autotune["autotune_pass"][name],
+               "autotune_resnet": autotune["autotune_resnet"][name],
+               "retune": retune if name == "ring_allreduce" else 0}
     timing = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
     err = max(r["max_abs_err"] for p in (2, 4)
               for r in rings[p]["records"] if r["kind"] == kind)
@@ -5821,6 +6139,9 @@ def main() -> int:
     timed("parameterserver", phase_parameterserver, torch, fa)
     elastic = timed("elastic", phase_elastic)
     numerics = timed("numerics", phase_numerics)
+    autotuned = timed("autotune", phase_autotune, smi)
+    retuned = timed("retune", phase_retune, smi)
+    launches["retune_compiled"] = retuned["compiled"]
     emit(phase="timing", seconds=took, total_s=time.perf_counter() - start,
          held_gb_after=held)
 
@@ -5838,7 +6159,8 @@ def main() -> int:
                              mnist_rec, options, hierarchy,
                              vit_rec["ring_allreduce"],
                              elastic["ring_allreduce_launches"],
-                             numerics["b1_launches_all_ranks"])
+                             numerics["b1_launches_all_ranks"],
+                             autotuned["launches"], retuned["b1"])
           for name in RING_KERNELS),
         conv_kernel_record(conv_recs, conv_launches),
     ])

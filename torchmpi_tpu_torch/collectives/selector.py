@@ -1,10 +1,9 @@
 """Collective selector: the static table of implementations per (placement,
 scope, mode), and the executable each collective resolves to.
 
-Counterpart of the ``autotune_mode=off`` path of
-``torchmpi_tpu/collectives/selector.py``, with its whole table.  A cell
-lists namespaces in preference order, and :func:`resolve` returns the
-first one that implements a collective:
+Counterpart of ``torchmpi_tpu/collectives/selector.py``, with its whole
+table.  A cell lists namespaces in preference order, and :func:`resolve`
+returns the first one that implements a collective:
 
 * ``xla`` — the vendor path: ``collectives.eager`` over
   ``torch.distributed`` (the name is kept so the table reads as JAX's);
@@ -35,8 +34,12 @@ registered in flight; a namespace without native async forms runs the sync
 call and wraps the result (:func:`_wrap_async`).  The table follows its
 knobs: a lookup after ``use_pallas_collectives`` or
 ``use_hierarchical_collectives`` changed rebuilds it (JAX's waits for the
-next ``configure()``).  The measured cells of JAX's autotuner are not
-ported: the table is static.
+next ``configure()``).
+
+Under ``autotune_mode`` ``cache`` or ``online`` a payload-keyed
+:func:`resolve` puts the autotuner's measured winner for the payload's
+cell first (``collectives/autotune.py``); ``off``, the default, resolves
+through the static table alone.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..runtime import config
 from ..runtime import handles as _handles
 from ..runtime.handles import SynchronizationHandle
 
+IMPLS = ("xla", "hierarchical", "pallas", "hostcomm")
 PLACEMENTS = ("tpu", "cpu")
 SCOPES = ("singlenode", "multinode")
 MODES = ("sync", "async")
@@ -348,10 +352,35 @@ _DISPATCH: Dict[tuple, Callable] = {
 
 def resolve(collective: str, placement: Optional[str] = None,
             scope: Optional[str] = None, mode: str = "sync",
-            payload=None) -> Callable:
+            prefer: Optional[str] = None, payload=None) -> Callable:
     """The executable for ``collective``: the first namespace of the
-    cell's preference order that implements it."""
-    for impl in preferences(placement, scope, mode, payload):
+    cell's preference order that implements it.
+
+    ``prefer`` puts one namespace at the head of the order for this
+    resolution (the autotune pass pins its candidates so).  Otherwise,
+    under ``autotune_mode`` ``cache`` or ``online`` and with a ``payload``,
+    the autotuner's winner for the payload's cell leads
+    (``autotune.decide``), or, with no measured cell, the compiled pass's
+    knob verdict (``autotune.compiled_preference``); a winner outside the
+    cell is never forced.  ``off`` costs one config read."""
+    if prefer is not None and prefer not in IMPLS:
+        raise ValueError(f"prefer must be one of {IMPLS}, got {prefer!r}")
+    placement_r = placement or _auto_placement(payload)
+    scope_r = scope or _auto_scope()
+    prefs = preferences(placement_r, scope_r, mode)
+    if prefer is not None:
+        prefs = [prefer] + [i for i in prefs if i != prefer]
+    elif payload is not None and config.get("autotune_mode") != "off":
+        from . import autotune
+
+        measured = autotune.decide(collective, placement_r, scope_r, mode,
+                                   payload, candidates=prefs)
+        if measured is None:
+            measured = autotune.compiled_preference(collective, placement_r,
+                                                    scope_r)
+        if measured is not None and measured in prefs:
+            prefs = [measured] + [i for i in prefs if i != measured]
+    for impl in prefs:
         fn = _DISPATCH.get((collective, impl, mode))
         if fn is not None:
             return fn

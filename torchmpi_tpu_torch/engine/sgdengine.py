@@ -365,6 +365,10 @@ class AllReduceSGDEngine:
         # its on_boundary_fault (a dead leader fails over, as a commit).
         self.resize_controller = None
         self.election_coordinator = None
+        # Retune controller (collectives/retune.py): consulted at the same
+        # boundary, after the resize one; it never raises or breaks the
+        # loop.
+        self.retune_controller = None
         # The numerics plane (obs/numerics.py): whether this train() call's
         # compiled steps compute the sentinels, and the optional cross-rank
         # auditor (an Auditor over a host ring) consulted after each step.
@@ -520,6 +524,7 @@ class AllReduceSGDEngine:
                     if self.resize_controller is not None and \
                             self._resize_boundary(state):
                         break
+                    self._retune_boundary(comm)
                 if state.get("departed") or state.get("resized"):
                     break
                 self._hook("on_end_epoch", state)
@@ -564,6 +569,19 @@ class AllReduceSGDEngine:
         elif out == _resize_mod.COMMITTED:
             state["resized"] = self.resize_controller.membership.epoch
         return out in (_resize_mod.DEPARTED, _resize_mod.COMMITTED)
+
+    def _retune_boundary(self, comm) -> None:
+        """After the resize boundary: the retune controller's consult, and
+        under ``autotune_mode="online"`` in a world of several ranks the
+        collective point where the ranks agree their production means
+        (``autotune.agree_online``), so that every rank moves a
+        resolution at the same step."""
+        if self.retune_controller is not None:
+            self.retune_controller.step_boundary()
+        if comm.size > 1 and config.get("autotune_mode") == "online":
+            from ..collectives import autotune
+
+            autotune.agree_online(comm)
 
     def _step(self, state, batch, comm, device) -> None:
         """One step, and the live feed of it (JAX's per-step

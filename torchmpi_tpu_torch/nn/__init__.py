@@ -29,10 +29,14 @@ def _comm(comm=None):
     return comm if comm is not None else _comm_mod.stack.current()
 
 
-def _select(collective: str, mode: str = "sync"):
+def _select(collective: str, mode: str = "sync", payload=None):
+    """The selector's executable for one bucket: with the bucket as the
+    payload, a measured ``autotune_mode`` picks a namespace per (op,
+    dtype, bytes-bucket) cell; ``off`` resolves every bucket through the
+    static table."""
     from ..collectives import selector
 
-    return selector.resolve(collective, mode=mode)
+    return selector.resolve(collective, mode=mode, payload=payload)
 
 
 def synchronize_parameters(params: Any, comm=None, average: bool = False,
@@ -42,9 +46,10 @@ def synchronize_parameters(params: Any, comm=None, average: bool = False,
     c = _comm(comm)
     if average:
         return bucketing.map_bucketed(
-            lambda b: _select("allreduce")(c, b, op="mean"), params)
+            lambda b: _select("allreduce", payload=b)(c, b, op="mean"),
+            params)
     return bucketing.map_bucketed(
-        lambda b: _select("broadcast")(c, b, root=root), params)
+        lambda b: _select("broadcast", payload=b)(c, b, root=root), params)
 
 
 def synchronize_gradients(grads: Any, comm=None, average: bool = True) -> Any:
@@ -52,7 +57,7 @@ def synchronize_gradients(grads: Any, comm=None, average: bool = True) -> Any:
     c = _comm(comm)
     op = "mean" if average else "sum"
     return bucketing.map_bucketed(
-        lambda b: _select("allreduce")(c, b, op=op), grads)
+        lambda b: _select("allreduce", payload=b)(c, b, op=op), grads)
 
 
 class _AsyncNN:
@@ -83,7 +88,8 @@ class _AsyncNN:
                                 step: Optional[int] = None) -> "Registration":
         """Dispatch this step's gradient buckets (:func:`bucketing.
         plan_ready_order`) as async allreduces, ready order first, each
-        resolved through the selector's async cell.
+        resolved through the selector's async cell with itself as the
+        payload.
 
         With ``step`` given and ``sync_gradient_frequency`` N > 1, only
         every N-th step dispatches; the others pass this rank's gradients
@@ -95,8 +101,8 @@ class _AsyncNN:
         op = "mean" if average else "sum"
         dp = bucketing.plan_ready_order(grads)
         buckets = bucketing.flatten(grads, dp.plan)
-        fn = _select("allreduce", mode="async")
-        handles = [fn(c, buckets[bi], op=op) for bi in dp.order]
+        handles = [_select("allreduce", mode="async", payload=buckets[bi])(
+            c, buckets[bi], op=op) for bi in dp.order]
         return self.Registration(handles, dp.plan, dispatch=dp)
 
     def synchronize_gradients(self, registration: "Registration") -> Any:

@@ -42,9 +42,9 @@ rules engine evaluated on the history
   overlap-fraction collapse, PS fence/failover storm, trace/journal
   drop-loss, straggler skew share, autotune byte-mix drift,
   watchdog-near-expiry, a missing leader) so the plane is useful with
-  zero authored rules.  ``autotune_mix_drift`` watches a series whose
-  publisher the port has not yet (the autotuner, item 18): it stays
-  inactive until then.  ``leader_missing`` watches the
+  zero authored rules.  ``autotune_mix_drift`` watches the gauge
+  ``collectives/autotune.mix_drift`` publishes, at the
+  ``retune_mix_threshold`` knob.  ``leader_missing`` watches the
   gauge ``runtime/election.HealthzDetector.probe_leader`` publishes.
 * **phase attribution**: the engine publishes
   ``tmpi_step_phase_seconds{phase=data_wait|dispatch|collective|optimizer|ps}``
@@ -422,11 +422,18 @@ DEFAULT_PACK: Sequence[Dict[str, Any]] = (
 
 
 def default_rules(default_for_s: float = 3.0) -> List[AlertRule]:
-    # autotune_mix_drift fires at the spec's 0.5.  In JAX that level is
-    # the retune_mix_threshold knob, shared with the gauge's publisher,
-    # the autotuner; the knob comes with the autotuner's port.
-    return [AlertRule(spec, default_for_s=default_for_s)
-            for spec in DEFAULT_PACK]
+    from ..runtime import config
+
+    out = []
+    for spec in DEFAULT_PACK:
+        if spec["name"] == "autotune_mix_drift":
+            # The firing level is the retune_mix_threshold knob: the
+            # gauge's publisher and this watcher agree on what counts as
+            # drifted (the spec's 0.5 is the knob's default).
+            spec = dict(spec,
+                        value=float(config.get("retune_mix_threshold")))
+        out.append(AlertRule(spec, default_for_s=default_for_s))
+    return out
 
 
 def load_rules(path: str, default_for_s: float = 3.0) -> List[AlertRule]:

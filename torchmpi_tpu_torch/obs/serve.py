@@ -35,10 +35,9 @@ on a daemon thread, loopback-bound by default, gated by the ``obs_http``
   off); a non-leader answers a typed 307 naming the leader
   (``runtime/election.leader_info``).
 
-One route waits for a module the port does not have yet, and answers as
-the JAX package answers when nothing is armed (ROADMAP.md §C):
-``GET /retune`` answers ``{"enabled": false}``: there is no retune
-controller until ``collectives/retune.py`` (item 18).
+* ``GET /retune``  — the installed retune controller's snapshot
+  (``collectives/retune.installed``), or ``{"enabled": false}`` when none
+  is installed.
 
 Health state machine (:class:`HealthState`): five states with strict
 precedence ``stalled > diverged > draining > degraded > healthy``,
@@ -549,9 +548,16 @@ class _Handler(BaseHTTPRequestHandler):
                                         window_s * 3 / 4, of_rate=True)
             self._send_json(200, doc)
         elif parsed.path == "/retune":
-            # No retune controller in the port until collectives/retune.py
-            # (ROADMAP.md item 18): the JAX answer with none installed.
-            self._send_json(200, {"enabled": False})
+            from ..collectives import retune as retune_mod
+
+            ctl = retune_mod.installed()
+            if ctl is None:
+                self._send_json(200, {"enabled": False})
+                return
+            doc = ctl.snapshot()
+            doc["enabled"] = True
+            doc["rank"] = self.server.tmpi_rank
+            self._send_json(200, doc)
         else:
             self._send_json(404, {"error": f"no route {parsed.path}",
                                   "routes": ["/metrics", "/healthz",

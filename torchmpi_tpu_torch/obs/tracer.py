@@ -185,3 +185,15 @@ def span(name: str, correlation: Optional[int] = None, **attrs: Any):
     if not enabled():
         return _NULL
     return _Span(name, correlation, attrs)
+
+
+def dispatch_mark(name: str, correlation: Optional[int] = None,
+                  **attrs: Any) -> int:
+    """A zero-length span marking a dispatch or a decision; returns its
+    correlation id (0 when tracing is off)."""
+    if not enabled():
+        return 0
+    corr = correlation or _correlation.get() or new_correlation()
+    t = now_ns()
+    record(name, t, t, corr, **attrs)
+    return corr

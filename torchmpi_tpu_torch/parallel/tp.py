@@ -45,16 +45,22 @@ def resolve_wire_dtype(override=None) -> torch.dtype:
     """The wire dtype of the tensor-parallel sums, from the
     ``manual_wire_dtype`` knob (runtime/config.py).
 
-    ``"auto"`` gives f32: the JAX package's rule for every backend that is
-    not a TPU (bf16 there), which keeps full partial-sum accuracy.  The
-    JAX package first consults its compiled-mode autotune verdict under
-    ``autotune_mode=cache|online``; the port has no autotuner yet
-    (ROADMAP item 18), so ``"auto"`` is always f32 here.  An explicit
-    ``override`` dtype wins over the knob."""
+    ``"auto"`` first consults the compiled autotune pass's verdict under
+    ``autotune_mode=cache|online`` (``autotune.compiled_wire_dtype``: knob
+    variants of the registered programs timed on the running world), as
+    the JAX package does; without one it gives f32, JAX's rule for every
+    backend that is not a TPU, which keeps full partial-sum accuracy.
+    ``off`` never consults the pass.  An explicit ``override`` dtype wins
+    over the knob, and an explicit knob over the measurement."""
     if override is not None:
         return override
     knob = str(config.get("manual_wire_dtype"))
     if knob == "auto":
+        from ..collectives import autotune as _autotune
+
+        measured = _autotune.compiled_wire_dtype()
+        if measured is not None:
+            return _WIRE[measured]
         return torch.float32
     if knob not in _WIRE:
         raise ValueError(

@@ -21,8 +21,9 @@ native trace rings and the flight recorder (``obs_trace_ring_capacity``,
 ``obs_flight*``), clock alignment and obsdumps (``obs_clocksync_*``,
 ``obs_dump_dir``), the live endpoint (``obs_http*``), the metrics history
 (``history_*``), the alert plane (``alert_*``), transport chaos
-(``chaos_*``), elastic resize (``resize_*``) and the logger's level
-(``verbose``).
+(``chaos_*``), elastic resize (``resize_*``), the collective autotuner
+(``autotune_*``) and its retune controller (``retune_*``) and the logger's
+level (``verbose``).
 """
 
 from __future__ import annotations
@@ -192,6 +193,50 @@ class Constants:
         "TORCHMPI_TPU_PS_PROMOTE_JITTER_MS", 0, int)
     # Bound (frames) on each server's pending-forward queue to its backups.
     ps_forward_queue_max: int = 1024
+
+    # --- the measured collective autotuner (collectives/autotune.py) ---
+    # Selector dispatch mode: "off" (the static table, as before the
+    # autotuner), "cache" (payload-keyed resolutions consult the winner
+    # cache, validated against the fingerprint) or "online" (cache winners
+    # with each candidate's ms replaced by its production mean once
+    # enough samples exist, agreed over the ranks first).
+    autotune_mode: str = _env("TORCHMPI_TPU_AUTOTUNE_MODE", "off", str)
+    # Winner-cache file ("" = ~/.cache/torchmpi_tpu/autotune.json).
+    autotune_cache_path: str = _env("TORCHMPI_TPU_AUTOTUNE_CACHE_PATH",
+                                    "", str)
+    # Interleaved best-of trials per cell in the explicit pass.
+    autotune_trials: int = 3
+    # Warmup calls per candidate before its first timed block.
+    autotune_warmup: int = 1
+    # Timed reps per block; 0 = auto from a ~4 MiB payload-byte budget.
+    autotune_reps: int = 0
+    # Histogram samples before "online" trusts a production mean.
+    autotune_online_min_samples: int = 20
+
+    # --- the retune controller (collectives/retune.py; all reads funnel
+    # through retune.retune_config()) ---
+    retune_enabled: bool = _env_bool("TORCHMPI_TPU_RETUNE_ENABLED", False)
+    # Step boundaries between controller polls; identical on every rank.
+    retune_poll_interval_steps: int = _env(
+        "TORCHMPI_TPU_RETUNE_POLL_INTERVAL_STEPS", 1, int)
+    # A trigger rule must stay firing this long before a probe.
+    retune_debounce_s: float = _env(
+        "TORCHMPI_TPU_RETUNE_DEBOUNCE_S", 5.0, float)
+    # Quiet window after an apply before the next probe may launch.
+    retune_cooldown_s: float = _env(
+        "TORCHMPI_TPU_RETUNE_COOLDOWN_S", 60.0, float)
+    # Post-apply window in which a regression reverts the flips.
+    retune_revert_window_s: float = _env(
+        "TORCHMPI_TPU_RETUNE_REVERT_WINDOW_S", 30.0, float)
+    # Post-apply / pre-probe step-rate ratio at or below which it reverts.
+    retune_revert_drift: float = _env(
+        "TORCHMPI_TPU_RETUNE_REVERT_DRIFT", 0.9, float)
+    # tmpi_autotune_mix_drift level the autotune_mix_drift alert fires at.
+    retune_mix_threshold: float = _env(
+        "TORCHMPI_TPU_RETUNE_MIX_THRESHOLD", 0.5, float)
+    # Live histogram samples before the mix-drift gauge publishes nonzero.
+    retune_mix_min_samples: int = _env(
+        "TORCHMPI_TPU_RETUNE_MIX_MIN_SAMPLES", 20, int)
 
     # --- logging ---
     # 1 lifts the loggers' default level from INFO to DEBUG

@@ -423,9 +423,14 @@ class ElectionCoordinator:
         ctl.fenced = False
         ctl.last_aborted = None
         note_epoch(target)
+        try:
+            from ..collectives import autotune
+
+            autotune.rekey(process_count=new_m.size)
+        except Exception:  # noqa: BLE001 — tuning must not fail an election
+            pass
         # The card's world follows, torn down locally: the dead leader
-        # can meet no barrier.  (JAX re-keys its autotuner here; the port
-        # has none yet.)
+        # can meet no barrier.
         ctl._reform_world(new_m, new_rank, peers_lost=True)
         reg = self._registry or ctl._registry
         publish_leader(0, is_self=(new_rank == 0), term=term,

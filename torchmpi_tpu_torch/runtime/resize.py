@@ -34,8 +34,8 @@ ring never stopped); a fault on the old ring inside the window raises
 survivor with the epoch unchanged.
 
 The frames, headers, JSON proposals and state-ship messages are the JAX
-package's byte for byte.  The JAX commit also re-keys the autotuner's
-winner cache; the port has no autotuner yet, so that step is skipped.
+package's byte for byte.  The commit re-keys the autotuner's winner cache
+(``collectives/autotune.rekey``), as JAX's does.
 """
 
 from __future__ import annotations
@@ -721,8 +721,14 @@ class ResizeController:
         # at zero, so every survivor resets too — with a poll interval
         # above 1 the counts must agree (the poll is a collective).
         self._boundary_calls = 0
-        # (JAX re-keys its autotuner's winner cache here; the port has no
-        # autotuner yet.)
+        # Autotune winner cache re-key: the fingerprint keys on process
+        # count, so a cache measured at the old size must not survive.
+        try:
+            from ..collectives import autotune
+
+            autotune.rekey(process_count=new_m.size)
+        except Exception:  # noqa: BLE001 — tuning must not fail a commit
+            pass
         # PS placement rebalance (leader only): drive the live handoff
         # over the slots whose ring share moves.
         if self.is_leader and proposal["ps_handoffs"]:
